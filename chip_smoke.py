@@ -1,0 +1,364 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path on the card — the paper's IDA pipelines on the
+super-table walker kernel and the DLS-scheduled CC step — at real sizes:
+
+* linear regression, 1,000,000 rows x 101 columns (the repo's Fig. 10 size);
+* recommendation, 65,536 users x 2,048 items at density 0.3;
+* one CC propagation step on the dense scale-14 RMAT graph (n = 16,384).
+
+Phases, each printed as one JSON line with its seconds: environment, build
+of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
+started together), each kernel against its plain PyTorch version on the
+card at the main path's shapes, the main path itself through the port's
+entry points with the launch counters set to 0 just before and read just
+after, and times (CUDA events, warm-up, median of repeats) beside each
+kernel's bound. Any failed check exits non-zero. Without a CUDA device, or
+without the repository around it, the script fails and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+LINREG_ROWS, LINREG_COLS = 1_000_000, 101
+REC_USERS, REC_ITEMS = 65_536, 2_048
+CC_SCALE, CC_SMALL_N = 14, 4_096
+TILE = 64
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) flop/s
+PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+
+# A sum's kernel and plain versions add the same terms in a different order
+# (sequential FMA vs PyTorch's reduction), so they agree to float32 rounding,
+# not bitwise. Each of the k additions into an entry's accumulator rounds
+# by at most one float32 eps of the accumulator, which never exceeds the
+# entry's sum of |terms| A; with random rounding the two versions part by
+# about eps * sqrt(k) * A. That is each entry's limit. For a `sum` stage k
+# is its slot count (one fold per 64-row tile): 7.4 on a linreg `moments`
+# entry and 15 on a `syrk_gemv` diagonal entry, below the 21-64 that one
+# dropped tile moves them by.
+EPS32 = 2.0 ** -23
+BETA_RTOL = 1e-2          # beta vs the float64 oracle, of the largest |beta|
+REC_AGREEMENT = 0.9999    # scores vs the float64 oracle
+
+
+def emit(phase: str, **fields) -> None:
+    """One phase's numbers as a JSON line."""
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(msg: str) -> None:
+    """Report a failed check and exit non-zero."""
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def require(ok: bool, msg: str) -> None:
+    """Fail with ``msg`` unless ``ok``."""
+    if not ok:
+        fail(msg)
+
+
+def max_err(a, b) -> float:
+    """Largest absolute difference, in float64."""
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def close(kernel, plain, abs_sum, adds: int, what: str) -> tuple[float, float]:
+    """Check a sum output against its plain version, entry by entry.
+
+    ``abs_sum`` holds each entry's sum of |terms| and ``adds`` the number of
+    additions into its accumulator (see EPS32). Returns the largest absolute
+    error and the largest share of its limit that an entry's error takes.
+    """
+    diff = (kernel.double() - plain.double()).abs()
+    tol = EPS32 * math.sqrt(adds) * abs_sum.double()
+    bad = int((diff > tol).sum())
+    share = float((diff / tol.clamp_min(1e-300)).max())
+    require(bad == 0, f"{what}: {bad} entries beyond eps*sqrt({adds})*sum|terms|; "
+                      f"max abs err {float(diff.max()):.3g}")
+    return float(diff.max()), share
+
+
+def timed(fn, reps: int, warmup: int = 1) -> float:
+    """Median milliseconds of ``fn()`` by CUDA events, after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    """Least time for the work on the card, and whether bytes or operations set it."""
+    tb, tf = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def main() -> None:
+    """Run every phase; exit non-zero on the first failed check."""
+    t_all = time.perf_counter()
+    import torch
+
+    require(torch.cuda.is_available(), "no CUDA device; this script runs on a GPU only")
+    require((ROOT / "src" / "repro_torch" / "csrc").is_dir(),
+            "src/repro_torch not found beside chip_smoke.py")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    from repro_torch.core.device_schedule import build_dag_tables_cached
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cc_propagate import cc_propagate, cc_propagate_plain
+    from repro_torch.kernels.dag_walk import (dag_walk, dag_walk_plain,
+                                              dag_walk_stagewise)
+    from repro_torch.kernels.ops import cc_step, dls_tile_schedule
+    from repro_torch.kernels.ref import cc_propagate_ref
+    from repro_torch.core.partitioners import PARTITIONERS
+    from repro_torch.vee import apps
+    from repro_torch.vee.sparse import rmat_graph
+
+    # -- 1. environment ----------------------------------------------------
+    t = time.perf_counter()
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    card = card_line()
+    emit("environment", torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0], nvcc=nvcc.splitlines()[-1],
+         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+         nvidia_smi=card, seconds=time.perf_counter() - t)
+
+    # -- 2. build ----------------------------------------------------------
+    t = time.perf_counter()
+    _build.build_all()
+    emit("build", libraries=[k.library.name for k in _build.KERNELS],
+         seconds=time.perf_counter() - t)
+
+    # -- 3. each kernel against its plain version, main-path shapes ---------
+    t = time.perf_counter()
+    results = {}
+
+    def walk_inputs(low):
+        ddt = build_dag_tables_cached(low.dag, 1, None)
+        rows = ddt.tables[0].copy()
+        rows[:, 1:] *= low.tile
+        return rows
+
+    t_low = time.perf_counter()
+    lin = apps.linreg_device_lowering(LINREG_ROWS, LINREG_COLS, tile=TILE, device=dev)
+    torch.cuda.synchronize()
+    lowering_s = {"linreg": time.perf_counter() - t_low}
+    lin_rows = walk_inputs(lin)
+    k_out, stamps = dag_walk(lin.stages, lin.operands, lin.values, lin_rows, TILE,
+                             stamp=True)
+    p_out = dag_walk_plain(lin.stages, lin.operands, lin.values, lin_rows, TILE)
+    X, y = lin.values["X"], lin.values["y"]
+    n, d = X.shape
+    X1y = torch.cat([(X - X.mean(0)) / X.std(0, unbiased=False),
+                     torch.ones(n, 1, device=dev), y], dim=1)   # [X1 | y]
+    A1y = X1y.abs()
+    abs_lin = {"moments": torch.stack([X.abs().sum(0), (X * X).sum(0)]),
+               "syrk_gemv": (A1y.T @ A1y)[:d + 1]}
+    del A1y
+    lin_checks = [close(k_out[s], p_out[s], abs_lin[s], n // TILE, f"linreg {s}")
+                  for s in ("moments", "syrk_gemv")]
+    err_lin = max(e for e, _ in lin_checks)
+    expect = [[*row, i] for i, row in enumerate(lin_rows.tolist())]
+    require(stamps.tolist() == expect, "linreg stamps differ from the table")
+    sw = dag_walk_stagewise(lin.stages, lin.operands, lin.values, lin_rows, TILE)
+    for s in ("moments", "syrk_gemv"):
+        require(torch.equal(sw[s], k_out[s]), f"linreg stagewise {s} != fused walk")
+    results["linreg"] = dict(max_abs_err=err_lin, slots=len(lin_rows))
+    torch.cuda.synchronize()
+
+    t_low = time.perf_counter()
+    rec = apps.recommendation_device_lowering(REC_USERS, REC_ITEMS, tile=TILE, device=dev)
+    torch.cuda.synchronize()
+    lowering_s["recommendation"] = time.perf_counter() - t_low
+    rec_rows = walk_inputs(rec)
+    k_rec, stamps = dag_walk(rec.stages, rec.operands, rec.values, rec_rows, TILE,
+                             stamp=True)
+    p_rec = dag_walk_plain(rec.stages, rec.operands, rec.values, rec_rows, TILE)
+    R = rec.values["R"]
+    U, I = R.shape
+    rec_checks = [close(k_rec["item_norms"], p_rec["item_norms"], (R * R).sum(0),
+                        U // TILE, "recommendation item_norms"),
+                  close(k_rec["user_bias"], p_rec["user_bias"], R.abs().sum(1) / I,
+                        I, "recommendation user_bias")]
+    err_rec = max(e for e, _ in rec_checks)
+    want = apps.scores_plain(rec.values["R"], k_rec["item_norms"], k_rec["user_bias"])
+    require(torch.equal(k_rec["scores"], want),
+            "recommendation scores differ bitwise from the plain scores body")
+    expect = [[*row, i] for i, row in enumerate(rec_rows.tolist())]
+    require(stamps.tolist() == expect, "recommendation stamps differ from the table")
+    sw = dag_walk_stagewise(rec.stages, rec.operands, rec.values, rec_rows, TILE)
+    for s in ("item_norms", "user_bias", "scores"):
+        require(torch.equal(sw[s], k_rec[s]), f"recommendation stagewise {s} != fused walk")
+    results["recommendation"] = dict(max_abs_err=err_rec, slots=len(rec_rows))
+
+    graph = rmat_graph(scale=CC_SCALE, edge_factor=8)
+    G_host = graph.to_dense()
+    n_cc = G_host.shape[0]
+    G = torch.from_numpy(G_host).to(dev)
+    c = torch.arange(1, n_cc + 1, dtype=torch.float32, device=dev)
+    Gs = G[:CC_SMALL_N, :CC_SMALL_N].contiguous()
+    cs = c[:CC_SMALL_N].contiguous()
+    want_small = cc_propagate_ref(Gs, cs)
+    for tech in sorted(PARTITIONERS):
+        sched = torch.from_numpy(dls_tile_schedule(tech, CC_SMALL_N, 256, 8)).to(dev)
+        got = cc_propagate(Gs, cs, sched)
+        require(torch.equal(got, cc_propagate_plain(Gs, cs, sched)),
+                f"cc_propagate != plain under {tech} at n={CC_SMALL_N}")
+        require(torch.equal(got, want_small), f"cc_propagate != ref under {tech}")
+    sched = torch.from_numpy(dls_tile_schedule("MFSC", n_cc, 256, 8)).to(dev)
+    got = cc_propagate(G, c, sched)
+    plain_cc = cc_propagate_plain(G, c, sched)
+    require(torch.equal(got, plain_cc), f"cc_propagate != plain at n={n_cc}")
+    results["cc_propagate"] = dict(max_abs_err=max_err(got, plain_cc))
+    torch.cuda.synchronize()
+    emit("kernels_vs_plain", linreg_max_abs_err=err_lin, rec_max_abs_err=err_rec,
+         sum_tol="eps32 * sqrt(adds) * sum|terms|",
+         linreg_worst_share_of_limit=max(r for _, r in lin_checks),
+         rec_worst_share_of_limit=max(r for _, r in rec_checks),
+         cc_techniques=len(PARTITIONERS),
+         lowering_seconds=lowering_s, seconds=time.perf_counter() - t)
+
+    # -- 4. the main path through the entry points -------------------------
+    for k in _build.KERNELS:
+        k.launches.clear()
+    t = time.perf_counter()
+    beta, _, _ = apps.linear_regression_device(LINREG_ROWS, LINREG_COLS)
+    t_lin = time.perf_counter() - t
+    t = time.perf_counter()
+    top, _, _ = apps.recommendation_device(REC_USERS, REC_ITEMS)
+    top = top.cpu().numpy()
+    t_rec = time.perf_counter() - t
+    t = time.perf_counter()
+    u = cc_step(G, c)
+    torch.cuda.synchronize()
+    t_cc = time.perf_counter() - t
+    launches = {e: n for k in _build.KERNELS for e, n in k.launches.items()}
+    emit("main_path", launches=launches, linreg_seconds=t_lin,
+         recommendation_seconds=t_rec, cc_seconds=t_cc)
+    for entry in ("walk_linreg", "walk_recommendation", "cc_propagate"):
+        require(launches.get(entry, 0) > 0, f"{entry} was not launched on the main path")
+
+    t = time.perf_counter()
+    beta_ref = apps.linear_regression_oracle(LINREG_ROWS, LINREG_COLS)
+    beta_abs = abs(beta.astype("float64") - beta_ref)
+    beta_err = float(beta_abs.max())
+    # the features' betas are ~3e-4 (y is drawn apart from X); the intercept ~0.5
+    feat_lim = BETA_RTOL * float(abs(beta_ref[:-1]).max())
+    icpt_lim = BETA_RTOL * float(abs(beta_ref[-1]).max())
+    require(float(beta_abs[:-1].max()) <= feat_lim,
+            f"feature beta max abs err {float(beta_abs[:-1].max())} > {feat_lim}")
+    require(float(beta_abs[-1].max()) <= icpt_lim,
+            f"intercept abs err {float(beta_abs[-1].max())} > {icpt_lim}")
+    top_ref = apps.recommendation_oracle(REC_USERS, REC_ITEMS)
+    agree = float((top == top_ref).mean())
+    require(agree >= REC_AGREEMENT, f"scores agree with the oracle on {agree:.6f}"
+                                    f" < {REC_AGREEMENT} of users")
+    require(torch.equal(u, cc_propagate_ref(G, c)), "cc_step differs from the reference")
+    require(bool(torch.isfinite(u).all()) and u.shape == (n_cc,), "cc_step output malformed")
+    emit("end_to_end", beta_max_abs_err=beta_err,
+         feature_beta_max_abs_err=float(beta_abs[:-1].max()), feature_beta_limit=feat_lim,
+         intercept_abs_err=float(beta_abs[-1].max()), intercept_limit=icpt_lim,
+         scores_agreement=agree, scores_min_agreement=REC_AGREEMENT,
+         cc_n=n_cc, cc_exact=True, seconds=time.perf_counter() - t)
+
+    # -- 5. times beside the bounds -----------------------------------------
+    t = time.perf_counter()
+    kernels = []
+
+    lin_bytes = 4 * (n * d + n + 2 * d + (d + 1) * (d + 2)) + 12 * len(lin_rows)
+    # moments 3nd, standardizing 2nd, one triangle of the symmetric syrk
+    # (d+1)(d+2)/2 entries of 2n flop, the gemv (d+1) entries of 2n flop
+    lin_flops = 5 * n * d + n * (d + 1) * (d + 2) + 2 * n * (d + 1)
+    walk_lin = lambda: dag_walk(lin.stages, lin.operands, lin.values, lin_rows, TILE)  # noqa: E731
+    kernels.append(dict(
+        name="dag_walk[linreg]", route="cuda", source="src/repro_torch/csrc/dag_walk.cu",
+        replaces="src/repro/kernels/dag_walk.py:218",
+        launches=launches.get("walk_linreg", 0), max_abs_err=results["linreg"]["max_abs_err"],
+        ms=timed(walk_lin, 5),
+        plain_ms=timed(lambda: dag_walk_plain(lin.stages, lin.operands, lin.values,
+                                              lin_rows, TILE), 2, warmup=0),
+        library_ms=timed(lambda: X1y.T @ X1y, 10),
+        library_call="X1y.T @ X1y (syrk_gemv only, X1y = [X1 | y] precomputed)",
+        shapes=f"X ({n}, {d}) f32, {len(lin_rows)} slots, tile {TILE}",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(lin_bytes, lin_flops)))))
+    del X1y
+
+    rec_bytes = 4 * (U * I + I + 2 * U) + 12 * len(rec_rows)
+    # item_norms 2UI, user_bias UI, scores: sqrt + add per item, then a
+    # divide, subtract and compare per entry
+    rec_flops = 2 * U * I + U * I + 2 * I + 3 * U * I
+    walk_rec = lambda: dag_walk(rec.stages, rec.operands, rec.values, rec_rows, TILE)  # noqa: E731
+    kernels.append(dict(
+        name="dag_walk[recommendation]", route="cuda",
+        source="src/repro_torch/csrc/dag_walk.cu",
+        replaces="src/repro/kernels/dag_walk.py:218",
+        launches=launches.get("walk_recommendation", 0),
+        max_abs_err=results["recommendation"]["max_abs_err"],
+        ms=timed(walk_rec, 10),
+        plain_ms=timed(lambda: dag_walk_plain(rec.stages, rec.operands, rec.values,
+                                              rec_rows, TILE), 3),
+        library_ms=timed(lambda: R.square().sum(0), 10),
+        library_call="R.square().sum(0) (item_norms only)",
+        shapes=f"R ({U}, {I}) f32, {len(rec_rows)} slots, tile {TILE}",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(rec_bytes, rec_flops)))))
+
+    cc_bytes = 4 * (n_cc * n_cc + 2 * n_cc) + 4 * (n_cc // 256)
+    cc_flops = 2 * n_cc * n_cc
+    kernels.append(dict(
+        name="cc_propagate", route="cuda", source="src/repro_torch/csrc/cc_propagate.cu",
+        replaces="src/repro/kernels/cc_propagate.py:56",
+        launches=launches.get("cc_propagate", 0),
+        max_abs_err=results["cc_propagate"]["max_abs_err"],
+        ms=timed(lambda: cc_propagate(G, c, sched), 20),
+        plain_ms=timed(lambda: cc_propagate_plain(G, c, sched), 5),
+        library_ms=timed(lambda: torch.maximum((G * c).amax(1), c), 10),
+        library_call="torch.maximum((G * c).amax(1), c)",
+        shapes=f"G ({n_cc}, {n_cc}) f32, tiles 256 x 1024",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(cc_bytes, cc_flops)))))
+    emit("times", card=card, seconds=time.perf_counter() - t)
+
+    emit("done", seconds=time.perf_counter() - t_all)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

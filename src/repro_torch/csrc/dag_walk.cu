@@ -1,0 +1,356 @@
+// The multi-stage super-table walker: one cooperative launch drains a whole
+// (stage, start, size) super-table.
+//
+// Replaces the Pallas kernel repro/kernels/dag_walk.py:dag_walk for two
+// programs, the linear-regression pipeline (moments -> syrk_gemv) and the
+// recommendation pipeline (item_norms, user_bias -> scores), whose stage
+// bodies are written out here (repro/vee/apps.py defines them over refs).
+//
+// Design: a persistent cooperative grid, sized by occupancy. Every CTA
+// walks every slot of the table in order; within a slot the CTAs split the
+// stage's work between them:
+//   * a `sum` stage's output entry e is owned by global thread e (grid
+//     stride), the same thread at every slot, which adds the slot's tile
+//     contribution to its entry. So each entry folds its per-tile
+//     contributions in ascending slot order, starting from the zeros the
+//     wrapper allocated (guarantee 2 of the Pallas walker);
+//   * a `concat` stage's rows are written once each, one warp per row;
+//   * a grid-wide barrier runs before every slot that reads a producer
+//     written since the last barrier (the wrapper computes these flags
+//     from the table), so a producer is final before a consumer reads it,
+//     for `rows` and `full` edges alike (guarantee 1). Producer outputs
+//     are read with L1-bypassing loads (__ldcg);
+//   * padding slots (size 0) and slots of stages without a body here do
+//     nothing (guarantee 3).
+// The stage id -> body map comes from the wrapper: stage ids are the
+// table builder's topological order, not assumed here.
+//
+// Bound on an H100: linreg reads X once (n x d float32) and needs about
+// n (d+1)(d+2) flop for one triangle of the symmetric syrk, 2 n (d+1) for
+// the gemv and 5 n d for moments and standardizing; at n = 1e6, d = 100
+// that is 0.12 ms of bytes and 0.16 ms of fp32 flop. Recommendation reads R once: bytes-bound. This
+// first kernel is latency-bound instead: a slot is one 64-row tile and each
+// owner thread walks the slots in order, so the time is the number of
+// slots times one tile's latency. A two-phase partial-and-fold design is
+// the way to the bound.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+
+struct Walk {
+  const int* table;                   // (n_slots, 3): stage id, start, size
+  int n_slots;
+  const int* body_of_sid;             // stage id -> body index, -1 = none
+  int n_stages;
+  const unsigned char* sync_before;   // per slot: grid barrier first
+  int* stamps;                        // (n_slots, 4) or null
+  unsigned int* barrier;              // {arrivals, generation}, zeroed
+  int tile;                           // rows per slot
+};
+
+// Sense-free grid barrier for a cooperative launch: all CTAs are resident.
+__device__ void grid_barrier(unsigned int* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned int* gen = bar + 1;
+    const unsigned int g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ int global_thread() {
+  return blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ int grid_threads() { return gridDim.x * blockDim.x; }
+
+// First row offset in [0, rows) that global warp `gw` handles at `slot`.
+// Rows rotate over the warps slot by slot, so consecutive concat slots
+// land on different CTAs.
+__device__ __forceinline__ int first_row(int slot, int rows) {
+  const int gw = global_thread() >> 5, n_gw = grid_threads() >> 5;
+  const int base = (int)(((long long)slot * rows) % n_gw);
+  return (gw - base + n_gw) % n_gw;
+}
+
+// Sum of col[r * stride] (squared when `square`) over r = 0 .. rows-1, in
+// ascending r. Loads go out BATCH at a time (a whole 64-row tile at once) so
+// their latencies overlap; the additions stay in row order.
+constexpr int BATCH = 64;
+
+__device__ __forceinline__ float column_sum(const float* col, int stride,
+                                            int rows, bool square) {
+  float s = 0.f;
+  for (int r0 = 0; r0 < rows; r0 += BATCH) {
+    float v[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+      v[u] = r0 + u < rows ? col[(size_t)(r0 + u) * stride] : 0.f;
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+      if (r0 + u < rows) s += square ? v[u] * v[u] : v[u];
+  }
+  return s;
+}
+
+// ---------------------------------------------------------------- linreg
+constexpr int STAGE = 32;  // loads in flight per thread when staging a tile
+
+struct Linreg {
+  struct Args {
+    const float* X;        // (n, d)
+    const float* y;        // (n,)
+    float* moments;        // (2, d) sum output, or null
+    const float* mom_in;   // (2, d) moments that syrk_gemv reads
+    float* syrk;           // (d+1, d+2) sum output, or null
+    int n, d;
+  };
+
+  // moments: entry (k, c) sums X[:, c] (k = 0) or X[:, c]^2 (k = 1).
+  static __device__ void moments(const Args& a, int row0, int rows) {
+    const int d = a.d;
+    for (int e = global_thread(); e < 2 * d; e += grid_threads()) {
+      const int k = e / d, c = e - k * d;
+      const float old = a.moments[e];
+      const float s = column_sum(a.X + (size_t)row0 * d + c, d, rows, k);
+      a.moments[e] = old + s;
+    }
+  }
+
+  // syrk_gemv: standardize the tile against the full moments into shared
+  // memory, then entry (i, j) sums X1[:, i] * X1[:, j] (j <= d) or
+  // X1[:, i] * y (j = d + 1), X1 = [(X - mean) / std, 1].
+  static __device__ void syrk(const Args& a, int row0, int rows, float* smem) {
+    const int d = a.d, w = d + 1, n_entries = (d + 1) * (d + 2);
+    if (blockIdx.x * blockDim.x >= n_entries) return;  // owns no entry
+    float* mean = smem;
+    float* stdv = mean + d;
+    float* xs = stdv + d;          // (rows, d + 1)
+    float* ys = xs + rows * w;     // (rows,)
+    const int e0 = global_thread();
+    const float old = e0 < n_entries ? a.syrk[e0] : 0.f;  // issued early
+    __syncthreads();               // the previous slot is done with smem
+    const float nf = (float)a.n;
+    for (int c = threadIdx.x; c < d; c += blockDim.x) {
+      const float m = __fdiv_rn(__ldcg(a.mom_in + c), nf);
+      const float var = fmaxf(
+          __fsub_rn(__fdiv_rn(__ldcg(a.mom_in + d + c), nf), __fmul_rn(m, m)),
+          0.f);
+      const float sd = __fsqrt_rn(var);
+      mean[c] = m;
+      stdv[c] = sd == 0.f ? 1.f : sd;
+    }
+    __syncthreads();
+    // stage the tile: each thread's loads go out STAGE at a time
+    const int total = rows * d;
+    const float* tile = a.X + (size_t)row0 * d;
+    for (int base = threadIdx.x; base < total; base += STAGE * blockDim.x) {
+      float v[STAGE];
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u) {
+        const int idx = base + u * blockDim.x;
+        v[u] = idx < total ? tile[idx] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u) {
+        const int idx = base + u * blockDim.x;
+        if (idx < total) {
+          const int r = idx / d, c = idx - r * d;
+          xs[r * w + c] = __fdiv_rn(__fsub_rn(v[u], mean[c]), stdv[c]);
+        }
+      }
+    }
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+      xs[r * w + d] = 1.f;
+      ys[r] = a.y[row0 + r];
+    }
+    __syncthreads();
+    for (int e = e0; e < n_entries; e += grid_threads()) {
+      const int i = e / (d + 2), j = e - i * (d + 2);
+      float s = 0.f;
+      const float* bj = j <= d ? xs + j : ys;
+      const int sj = j <= d ? w : 1;
+#pragma unroll 8
+      for (int r = 0; r < rows; ++r) s = fmaf(xs[r * w + i], bj[r * sj], s);
+      a.syrk[e] = (e == e0 ? old : a.syrk[e]) + s;
+    }
+  }
+
+  static __device__ int n_rows(const Args& a) { return a.n; }
+
+  static __device__ void run(int body, const Args& a, int row0, int rows,
+                             int slot, float* smem) {
+    if (body == 0) moments(a, row0, rows);
+    else syrk(a, row0, rows, smem);
+  }
+};
+
+// -------------------------------------------------------- recommendation
+struct Recommendation {
+  struct Args {
+    const float* R;          // (n_users, n_items)
+    float* item_norms;       // (n_items,) sum output, or null
+    float* user_bias;        // (n_users,) concat output, or null
+    int* scores;             // (n_users,) concat output, or null
+    const float* norms_in;   // item_norms that scores reads
+    const float* bias_in;    // user_bias that scores reads
+    int n_users, n_items;
+  };
+
+  // item_norms: entry c sums R[:, c]^2.
+  static __device__ void item_norms(const Args& a, int row0, int rows) {
+    const int m = a.n_items;
+    for (int c = global_thread(); c < m; c += grid_threads()) {
+      const float old = a.item_norms[c];
+      const float s = column_sum(a.R + (size_t)row0 * m + c, m, rows, true);
+      a.item_norms[c] = old + s;
+    }
+  }
+
+  // user_bias: row mean, one warp per row (fixed lane order + xor tree).
+  static __device__ void user_bias(const Args& a, int row0, int rows,
+                                   int slot) {
+    const int m = a.n_items, lane = threadIdx.x & 31;
+    const int n_gw = grid_threads() >> 5;
+    for (int r = first_row(slot, rows); r < rows; r += n_gw) {
+      const float* row = a.R + (size_t)(row0 + r) * m;
+      float s = 0.f;
+#pragma unroll 8
+      for (int c = lane; c < m; c += 32) s += row[c];
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) a.user_bias[row0 + r] = __fdiv_rn(s, (float)m);
+    }
+  }
+
+  // scores: argmax_c R[r, c] / (sqrt(norms[c]) + 1e-9) - bias[r], first
+  // index on ties, each operation IEEE-rounded as in the plain version.
+  static __device__ void scores(const Args& a, int row0, int rows, int slot) {
+    const int m = a.n_items, lane = threadIdx.x & 31;
+    const int n_gw = grid_threads() >> 5;
+    for (int r = first_row(slot, rows); r < rows; r += n_gw) {
+      const float* row = a.R + (size_t)(row0 + r) * m;
+      const float bias = __ldcg(a.bias_in + row0 + r);
+      float best = -INFINITY;
+      int arg = m;
+      for (int c = lane; c < m; c += 32) {
+        const float den = __fadd_rn(__fsqrt_rn(__ldcg(a.norms_in + c)), 1e-9f);
+        const float v = __fsub_rn(__fdiv_rn(row[c], den), bias);
+        if (v > best || arg == m) { best = v; arg = c; }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+        const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
+        if (ob > best || (ob == best && oa < arg)) { best = ob; arg = oa; }
+      }
+      if (lane == 0) a.scores[row0 + r] = arg;
+    }
+  }
+
+  static __device__ int n_rows(const Args& a) { return a.n_users; }
+
+  static __device__ void run(int body, const Args& a, int row0, int rows,
+                             int slot, float*) {
+    if (body == 0) item_norms(a, row0, rows);
+    else if (body == 1) user_bias(a, row0, rows, slot);
+    else scores(a, row0, rows, slot);
+  }
+};
+
+template <class P>
+__global__ void __launch_bounds__(THREADS)
+walk_kernel(Walk w, typename P::Args a) {
+  extern __shared__ float smem[];
+  const int n_blocks = max(1, P::n_rows(a) / w.tile);
+  for (int i = 0; i < w.n_slots; ++i) {
+    const int sid = __ldg(w.table + 3 * i);
+    const int start = __ldg(w.table + 3 * i + 1);
+    const int size = __ldg(w.table + 3 * i + 2);
+    if (w.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+      int* st = w.stamps + 4 * i;
+      st[0] = sid; st[1] = start; st[2] = size; st[3] = i;
+    }
+    if (w.sync_before[i]) grid_barrier(w.barrier);
+    if (size <= 0 || sid < 0 || sid >= w.n_stages) continue;
+    const int body = __ldg(w.body_of_sid + sid);
+    if (body < 0) continue;
+    // the Pallas block index map: the slot's row tile, clamped
+    const int row0 = min(start / w.tile, n_blocks - 1) * w.tile;
+    P::run(body, a, row0, w.tile, i, smem);
+  }
+}
+
+template <class P>
+int launch(const Walk& w, const typename P::Args& a, size_t smem,
+           void* stream) {
+  auto kernel = walk_kernel<P>;
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  Walk wc = w;
+  typename P::Args ac = a;
+  void* args[] = {&wc, &ac};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(per_sm * sms),
+                                    dim3(THREADS), args, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int walk_linreg(const int* table, int n_slots, const int* body_of_sid,
+                           int n_stages, const unsigned char* sync_before,
+                           int* stamps, unsigned int* barrier, int tile,
+                           const float* X, const float* y, float* moments,
+                           const float* mom_in, float* syrk, int n, int d,
+                           void* stream) {
+  const Walk w{table, n_slots, body_of_sid, n_stages, sync_before, stamps,
+               barrier, tile};
+  const Linreg::Args a{X, y, moments, mom_in, syrk, n, d};
+  const size_t smem = sizeof(float) * (2 * (size_t)d + (size_t)tile * (d + 1) + tile);
+  return launch<Linreg>(w, a, smem, stream);
+}
+
+extern "C" int walk_recommendation(const int* table, int n_slots,
+                                   const int* body_of_sid, int n_stages,
+                                   const unsigned char* sync_before, int* stamps,
+                                   unsigned int* barrier, int tile,
+                                   const float* R, float* item_norms,
+                                   float* user_bias, int* scores,
+                                   const float* norms_in, const float* bias_in,
+                                   int n_users, int n_items, void* stream) {
+  const Walk w{table, n_slots, body_of_sid, n_stages, sync_before, stamps,
+               barrier, tile};
+  const Recommendation::Args a{R, item_norms, user_bias, scores, norms_in,
+                               bias_in, n_users, n_items};
+  return launch<Recommendation>(w, a, 0, stream);
+}
+
+extern "C" const char* error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -1,0 +1,541 @@
+"""Multi-stage DAG walker: one launch drains a whole super-table.
+
+A pipeline-DAG super-table (core/device_schedule.py:build_dag_tables) is
+``(n_slots, 3) = (stage, start, size)``. The walker visits the slots in
+order (a shard draining its frozen queue); each slot runs the body of the
+stage its id names over that slot's row tile:
+
+* ``concat`` stages write their row tile of an ``(n_rows, ...)`` output;
+* ``sum`` stages start from zero and fold each tile's contribution in
+  ascending slot order;
+* a consumer reads its producer's output in the middle of the walk — its
+  own row tile of a ``concat`` producer (``rows``) or the whole
+  accumulator of a ``sum`` producer (``full``). build_dag_tables orders
+  every consumer slot after the producer slots it reads, so what it reads
+  is final.
+
+Each ``WalkStage`` carries two forms of its body. ``body(ctx, ins, out)``
+is plain PyTorch over tile views (``out`` is written in place); the plain
+walker ``dag_walk_plain`` runs it on any device. ``device_body`` names the
+body's CUDA counterpart in ``csrc/dag_walk.cu``, which holds one walker
+template instantiated per program (linreg, recommendation); it replaces
+the Pallas kernel ``repro/kernels/dag_walk.py:dag_walk``. The source note
+there gives the kernel's design and its bound.
+
+``dag_walk`` takes the plain walker for CPU tensors only. For CUDA tensors
+it launches the kernel, or raises — naming the stage — when a stage has
+no device body or no compiled program runs the stages' bodies.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ._build import DAG_WALK, ptr, stream
+
+__all__ = ["WalkOperand", "WalkStage", "WalkCtx", "dag_walk", "dag_walk_plain",
+           "dag_walk_stagewise", "dag_walk_sharded", "cuda_program",
+           "sync_flags", "device_table_cache_stats", "clear_device_table_cache"]
+
+
+# ---------------------------------------------------------------------------
+# device-resident super-table cache
+#
+# The table is the one host->device transfer every launch pays even when
+# the schedule is frozen (jobs of a recurring shape walk the SAME table).
+# Keyed entries keep the transferred table on the device across launches;
+# the content fingerprint (shape + bytes) makes a stale hit impossible even
+# if a caller reuses a key for a rebalanced table.
+# ---------------------------------------------------------------------------
+
+_DEVICE_TABLE_CACHE: dict[tuple, torch.Tensor] = {}
+_DEVICE_TABLE_STATS = {"hits": 0, "misses": 0}
+
+
+def device_table_cache_stats() -> dict:
+    """Device-table cache counters: ``{"hits", "misses", "size"}``."""
+    return {**_DEVICE_TABLE_STATS, "size": len(_DEVICE_TABLE_CACHE)}
+
+
+def clear_device_table_cache() -> None:
+    """Drop device-resident tables and reset the hit/miss counters."""
+    _DEVICE_TABLE_CACHE.clear()
+    _DEVICE_TABLE_STATS["hits"] = 0
+    _DEVICE_TABLE_STATS["misses"] = 0
+
+
+def _device_table(table: np.ndarray, key: tuple | None,
+                  device: torch.device) -> torch.Tensor:
+    """An int32 copy of a host super-table on ``device``.
+
+    On a CUDA device the copy is issued with ``non_blocking=True`` from
+    pinned memory, so issuing it for shard ``s+1`` before walking shard
+    ``s`` overlaps the transfer with the walk. Keyed: the copy happens
+    once per distinct table and later launches reuse the resident tensor.
+    """
+    def put() -> torch.Tensor:
+        host = torch.from_numpy(np.array(table, dtype=np.int32))
+        if device.type == "cuda":
+            return host.pin_memory().to(device, non_blocking=True)
+        return host.to(device)
+
+    if key is None:
+        return put()
+    ck = (key, str(device), table.shape, table.tobytes())
+    dev = _DEVICE_TABLE_CACHE.get(ck)
+    if dev is not None:
+        _DEVICE_TABLE_STATS["hits"] += 1
+        return dev
+    _DEVICE_TABLE_STATS["misses"] += 1
+    dev = _DEVICE_TABLE_CACHE[ck] = put()
+    return dev
+
+
+@dataclass(frozen=True)
+class WalkOperand:
+    """One kernel input: a named tensor with per-axis block indexing.
+
+    ``index`` kinds per axis: ``row`` (the slot's row tile — block index
+    ``start // block``, clamped), ``inner`` (the inner step index, for
+    stages that loop over column tiles), ``zero`` (whole axis in one
+    block).
+    """
+
+    name: str
+    block: tuple[int, ...]
+    index: tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.block) != len(self.index):
+            raise ValueError(f"operand {self.name!r}: block/index rank mismatch")
+        bad = set(self.index) - {"row", "inner", "zero"}
+        if bad:
+            raise ValueError(f"operand {self.name!r}: unknown index kinds {bad}")
+
+
+@dataclass(frozen=True)
+class WalkStage:
+    """One DAG stage lowered to a walker body.
+
+    ``body(ctx, ins, out)`` is the plain PyTorch body: ``ins`` maps operand
+    names and producer stage names (``reads``) to tile views, ``out`` is
+    this stage's output block, written in place. ``combine`` is
+    ``concat`` (row-blocked ``(n_rows, ...)`` output, each tile written by
+    its slot) or ``sum`` (one accumulator, zero at the start, folded in
+    slot order). ``reads`` entries are ``(producer, kind)`` with kind
+    ``rows`` | ``full``. ``inner`` is how many inner steps the body uses.
+    ``device_body`` names the CUDA body (``"linreg.moments"``, ...) that
+    the kernel runs for this stage on a CUDA device; ``None`` means the
+    stage runs only on the plain walker.
+    """
+
+    name: str
+    n_rows: int
+    out_shape: tuple[int, ...]
+    out_dtype: torch.dtype
+    combine: str
+    body: Callable
+    operands: tuple[str, ...] = ()
+    reads: tuple[tuple[str, str], ...] = ()
+    inner: int = 1
+    device_body: str | None = None
+
+    def __post_init__(self):
+        if self.combine not in ("concat", "sum"):
+            raise ValueError(f"stage {self.name!r}: unknown combine {self.combine!r}")
+        if self.combine == "concat" and self.out_shape[0] != self.n_rows:
+            raise ValueError(
+                f"stage {self.name!r}: concat out_shape {self.out_shape} must "
+                f"lead with n_rows={self.n_rows}")
+        for _, kind in self.reads:
+            if kind not in ("rows", "full"):
+                raise ValueError(f"stage {self.name!r}: unknown read kind {kind!r}")
+
+
+@dataclass(frozen=True)
+class WalkCtx:
+    """Per-slot scalars handed to a stage body."""
+
+    slot: int    # slot index in the table
+    inner: int   # inner step index (column tile)
+    start: int   # slot start row
+    size: int    # slot row count
+
+
+def _block(x: torch.Tensor, block: tuple[int, ...], kinds: tuple[str, ...],
+           start: int, j: int) -> torch.Tensor:
+    """The view of ``x`` a slot's block index map selects (clamped)."""
+    idx = []
+    for a, kind in enumerate(kinds):
+        nb = max(1, x.shape[a] // block[a])
+        if kind == "row":
+            b = min(start // block[a], nb - 1)
+        elif kind == "inner":
+            b = min(j, nb - 1)
+        else:
+            b = 0
+        idx.append(slice(b * block[a], (b + 1) * block[a]))
+    return x[tuple(idx)]
+
+
+def _read_operand(stages_by_name: dict[str, WalkStage], prod: str, kind: str,
+                  tile: int) -> WalkOperand:
+    """Operand spec for reading producer ``prod``'s output as an input."""
+    p = stages_by_name[prod]
+    if kind == "rows":
+        if p.combine != "concat":
+            raise ValueError(f"rows-read of non-concat producer {prod!r}")
+        block = (tile,) + tuple(p.out_shape[1:])
+        index = ("row",) + ("zero",) * (len(p.out_shape) - 1)
+    else:
+        if p.combine != "sum":
+            raise ValueError(
+                f"full-read of concat producer {prod!r} needs a launch split "
+                "(see build_dag_tables)")
+        block = tuple(p.out_shape)
+        index = ("zero",) * len(p.out_shape)
+    return WalkOperand(prod, block, index)
+
+
+def _out_spec(stage: WalkStage, tile: int) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """(block, index kinds) of a stage output buffer."""
+    if stage.combine == "concat":
+        return ((tile,) + tuple(stage.out_shape[1:]),
+                ("row",) + ("zero",) * (len(stage.out_shape) - 1))
+    return tuple(stage.out_shape), ("zero",) * len(stage.out_shape)
+
+
+def _check_table(table) -> np.ndarray:
+    table = np.ascontiguousarray(np.asarray(table, dtype=np.int32))
+    if table.ndim != 2 or table.shape[1] != 3:
+        raise ValueError(f"super-table must be (n_slots, 3), got {table.shape}")
+    return table
+
+
+def _walk_device(operands: list[WalkOperand], values: dict) -> torch.device:
+    if operands:
+        return values[operands[0].name].device
+    return torch.device("cpu")
+
+
+def _zeros(stages: list[WalkStage], device) -> dict[str, torch.Tensor]:
+    return {s.name: torch.zeros(s.out_shape, dtype=s.out_dtype, device=device)
+            for s in stages}
+
+
+def dag_walk_plain(
+    stages: list[WalkStage],
+    operands: list[WalkOperand],
+    values: dict[str, torch.Tensor],
+    table: np.ndarray,
+    tile: int,
+    stamp: bool = False,
+):
+    """The walker in plain PyTorch: each slot runs its stage's ``body``.
+
+    Runs on whatever device ``values`` lie on. Same contract as
+    ``dag_walk``.
+    """
+    table = _check_table(table)
+    if len({s.name for s in stages}) != len(stages):
+        raise ValueError("duplicate stage names")
+    specs = {op.name: (op.block, op.index) for op in operands}
+    outs = _zeros(stages, _walk_device(operands, values))
+    out_specs = {s.name: _out_spec(s, tile) for s in stages}
+    stamps = np.zeros((len(table), 4), dtype=np.int32)
+    for i, (sid, start, size) in enumerate(table.tolist()):
+        stamps[i] = (sid, start, size, i)
+        if size <= 0 or not 0 <= sid < len(stages):
+            continue
+        s = stages[sid]
+        for j in range(s.inner):
+            ins = {n: _block(values[n], *specs[n], start, j) for n in s.operands}
+            for prod, _kind in s.reads:
+                if prod in outs:
+                    ins[prod] = _block(outs[prod], *out_specs[prod], start, j)
+                else:
+                    ins[prod] = _block(values[prod], *specs[prod], start, j)
+            s.body(WalkCtx(i, j, start, size), ins,
+                   _block(outs[s.name], *out_specs[s.name], start, j))
+    return (outs, stamps) if stamp else outs
+
+
+# ---------------------------------------------------------------------------
+# the CUDA walker: compiled programs and their argument lists
+# ---------------------------------------------------------------------------
+
+#: program -> its device bodies, in the order csrc/dag_walk.cu numbers them
+_PROGRAMS = {
+    "linreg": ("linreg.moments", "linreg.syrk_gemv"),
+    "recommendation": ("recommendation.item_norms", "recommendation.user_bias",
+                       "recommendation.scores"),
+}
+
+
+def cuda_program(stages: list[WalkStage]) -> tuple[str, list[int]]:
+    """The compiled program that runs ``stages`` and its stage -> body map.
+
+    Raises, naming the stage, when a stage has no device body; raises when
+    no single program holds every stage's body (each at most once).
+    """
+    for s in stages:
+        if s.device_body is None:
+            raise ValueError(
+                f"stage {s.name!r} has no device body: the CUDA walker cannot "
+                "run it (use dag_walk_plain, or give it a device_body)")
+    bodies = [s.device_body for s in stages]
+    for prog, known in _PROGRAMS.items():
+        if set(bodies) <= set(known):
+            if len(set(bodies)) != len(bodies):
+                raise ValueError(f"device bodies repeat in one walk: {bodies}")
+            return prog, [known.index(b) for b in bodies]
+    raise ValueError(f"no compiled walker program runs the bodies {bodies}")
+
+
+def sync_flags(stages: list[WalkStage], table: np.ndarray) -> np.ndarray:
+    """Per slot: 1 where the kernel needs a grid barrier before the slot.
+
+    A slot needs one when its stage reads a producer of this launch that
+    some slot has written since the last barrier.
+    """
+    names = [s.name for s in stages]
+    reads = [{names.index(p) for p, _ in s.reads if p in names} for s in stages]
+    flags = np.zeros(len(table), dtype=np.uint8)
+    real = np.flatnonzero((table[:, 2] > 0) & (table[:, 0] >= 0)
+                          & (table[:, 0] < len(stages)))
+    sids = table[real, 0]
+    # within a run of one stage's slots only the first can need a barrier:
+    # a stage never reads itself
+    run_starts = np.flatnonzero(np.r_[True, sids[1:] != sids[:-1]]) \
+        if len(sids) else ()
+    dirty: set[int] = set()
+    for r in run_starts:
+        sid = int(sids[r])
+        if reads[sid] & dirty:
+            flags[real[r]] = 1
+            dirty.clear()
+        dirty.add(sid)
+    return flags
+
+
+def _checked(t: torch.Tensor, shape: tuple, what: str, dtype=torch.float32) -> torch.Tensor:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{what}: need a contiguous {dtype} tensor of shape "
+                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+    return t
+
+
+def _linreg_args(inputs: dict, outs: dict) -> tuple:
+    """Pointers and sizes of ``walk_linreg`` after the common walk args."""
+    X = next(ins[0] for ins in inputs.values())
+    n, d = X.shape
+    _checked(X, (n, d), "linreg X")
+    y = mom_in = None
+    if "linreg.syrk_gemv" in inputs:
+        Xs, y, mom_in = inputs["linreg.syrk_gemv"]
+        if Xs.data_ptr() != X.data_ptr():
+            raise ValueError("linreg bodies must read the same X")
+        _checked(y, (n, 1), "linreg y")
+        _checked(mom_in, (2, d), "linreg moments read by syrk_gemv")
+    mom = outs.get("linreg.moments")
+    syrk = outs.get("linreg.syrk_gemv")
+    if mom is not None:
+        _checked(mom, (2, d), "linreg moments output")
+    if syrk is not None:
+        _checked(syrk, (d + 1, d + 2), "linreg syrk_gemv output")
+    return (ptr(X), ptr(y), ptr(mom), ptr(mom_in), ptr(syrk),
+            ctypes.c_int(n), ctypes.c_int(d))
+
+
+def _recommendation_args(inputs: dict, outs: dict) -> tuple:
+    """Pointers and sizes of ``walk_recommendation`` after the common args."""
+    R = next(ins[0] for ins in inputs.values())
+    n_users, n_items = R.shape
+    _checked(R, (n_users, n_items), "recommendation R")
+    for body, ins in inputs.items():
+        if ins[0].data_ptr() != R.data_ptr():
+            raise ValueError(f"{body} must read the same R as the other bodies")
+    norms_in = bias_in = None
+    if "recommendation.scores" in inputs:
+        _, norms_in, bias_in = inputs["recommendation.scores"]
+        _checked(norms_in, (n_items,), "item_norms read by scores")
+        _checked(bias_in, (n_users,), "user_bias read by scores")
+    norms = outs.get("recommendation.item_norms")
+    bias = outs.get("recommendation.user_bias")
+    scores = outs.get("recommendation.scores")
+    if norms is not None:
+        _checked(norms, (n_items,), "item_norms output")
+    if bias is not None:
+        _checked(bias, (n_users,), "user_bias output")
+    if scores is not None:
+        _checked(scores, (n_users,), "scores output", torch.int32)
+    return (ptr(R), ptr(norms), ptr(bias), ptr(scores), ptr(norms_in),
+            ptr(bias_in), ctypes.c_int(n_users), ctypes.c_int(n_items))
+
+
+_ARGS = {"linreg": _linreg_args, "recommendation": _recommendation_args}
+
+
+def _walk_cuda(stages, operands, values, table, tile, table_key, dev_table,
+               stamp):
+    """Launch the compiled walker program over one shard's table."""
+    prog, body_map = cuda_program(stages)
+    device = _walk_device(operands, values)
+    outs = _zeros(stages, device)
+    n_slots = len(table)
+    if n_slots == 0:
+        return (outs, np.zeros((0, 4), dtype=np.int32)) if stamp else outs
+    for s in stages:
+        if s.inner != 1:
+            raise ValueError(f"stage {s.name!r}: the CUDA walker has no inner axis")
+        if s.n_rows % tile:
+            raise ValueError(f"stage {s.name!r}: n_rows={s.n_rows} is not a "
+                             f"multiple of tile={tile}")
+    inputs = {}
+    for s in stages:
+        names = s.operands + tuple(p for p, _ in s.reads)
+        inputs[s.device_body] = [outs[n] if n in outs else values[n] for n in names]
+    by_body = {s.device_body: outs[s.name] for s in stages}
+    args = _ARGS[prog](inputs, by_body)
+    tbl = dev_table if dev_table is not None else _device_table(table, table_key, device)
+    body_of_sid = torch.tensor(body_map, dtype=torch.int32).to(device)
+    flags = torch.from_numpy(sync_flags(stages, table)).to(device)
+    stamps = torch.zeros((n_slots, 4), dtype=torch.int32, device=device) if stamp else None
+    barrier = torch.zeros(2, dtype=torch.int32, device=device)
+    DAG_WALK.launch(f"walk_{prog}", ptr(tbl), ctypes.c_int(n_slots),
+                    ptr(body_of_sid), ctypes.c_int(len(stages)), ptr(flags),
+                    ptr(stamps), ptr(barrier), ctypes.c_int(tile), *args,
+                    stream(device))
+    if stamp:
+        return outs, stamps.cpu().numpy()
+    return outs
+
+
+def dag_walk(
+    stages: list[WalkStage],
+    operands: list[WalkOperand],
+    values: dict[str, torch.Tensor],
+    table: np.ndarray,
+    tile: int,
+    table_key: tuple | None = None,
+    _dev_table: torch.Tensor | None = None,
+    stamp: bool = False,
+):
+    """Drain one shard's super-table in a single launch.
+
+    ``table`` is ``(n_slots, 3) int32`` (stage, start, size) from
+    build_dag_tables (stage ids index ``stages``, which must be in the
+    same topological order). Returns {stage name: output tensor}; on a
+    multi-shard table a shard only fills the tiles it owns (combine with
+    ``dag_walk_sharded``). ``table_key`` keeps the transferred table on the
+    device across launches; ``_dev_table`` is a table already copied by
+    ``dag_walk_sharded``'s prefetch.
+
+    ``stamp=True`` adds an ``(n_slots, 4) int32`` numpy event buffer:
+    slot ``i`` writes ``(stage_id, start, size, i)`` into row ``i``. The
+    return becomes ``({stage: out}, stamps)``.
+    """
+    table = _check_table(table)
+    device = _walk_device(operands, values)
+    if device.type == "cpu":
+        return dag_walk_plain(stages, operands, values, table, tile, stamp=stamp)
+    if device.type != "cuda":
+        raise ValueError(f"dag_walk: unsupported device {device}")
+    if len({s.name for s in stages}) != len(stages):
+        raise ValueError("duplicate stage names")
+    return _walk_cuda(stages, operands, values, table, tile, table_key,
+                      _dev_table, stamp)
+
+
+def dag_walk_stagewise(
+    stages: list[WalkStage],
+    operands: list[WalkOperand],
+    values: dict[str, torch.Tensor],
+    table: np.ndarray,
+    tile: int,
+) -> dict[str, torch.Tensor]:
+    """One launch per stage: the pre-fusion baseline.
+
+    Each stage drains only its own slots of the super-table; producer
+    outputs from earlier launches are re-fed as plain operands. The same
+    per-tile work in the same per-stage order as the fused walker, so the
+    results match it.
+    """
+    table = _check_table(table)
+    ops_by_name = {o.name: o for o in operands}
+    by_name = {s.name: s for s in stages}
+    results: dict[str, torch.Tensor] = {}
+    for k, s in enumerate(stages):
+        sub = table[(table[:, 0] == k) & (table[:, 2] > 0)].copy()
+        sub[:, 0] = 0
+        stage_ops = [ops_by_name[n] for n in s.operands]
+        stage_vals = {n: values[n] for n in s.operands}
+        for prod, kind in s.reads:
+            stage_ops.append(_read_operand(by_name, prod, kind, tile))
+            stage_vals[prod] = results[prod]
+        solo = dataclasses.replace(
+            s, operands=s.operands + tuple(p for p, _ in s.reads), reads=())
+        results[s.name] = dag_walk([solo], stage_ops, stage_vals, sub, tile)[s.name]
+    return results
+
+
+def dag_walk_sharded(
+    stages: list[WalkStage],
+    operands: list[WalkOperand],
+    values: dict[str, torch.Tensor],
+    tables: np.ndarray,
+    tile: int,
+    table_key: tuple | None = None,
+) -> dict[str, torch.Tensor]:
+    """Walk every shard's super-table and combine the per-shard outputs.
+
+    ``tables`` is ``(n_shards, max_slots, 3)``. concat outputs merge by
+    tile ownership; sum outputs add per-shard partials in ascending shard
+    order (deterministic, but a different association than one shard, so
+    bit-wise claims hold per shard count). Outputs lie on the walk's
+    device.
+
+    Shard ``s+1``'s table is copied (non-blocking, from pinned memory)
+    before shard ``s`` is walked, so the next transfer rides behind the
+    current walk. With ``table_key`` every shard table stays on the device
+    across calls.
+    """
+    tables = np.ascontiguousarray(np.asarray(tables, dtype=np.int32))
+    n_shards = tables.shape[0]
+    device = _walk_device(operands, values)
+
+    def put(s: int) -> torch.Tensor:
+        return _device_table(tables[s], None if table_key is None
+                             else (table_key, s), device)
+
+    nxt = put(0) if n_shards else None
+    shard_outs = []
+    for s in range(n_shards):
+        cur, nxt = nxt, (put(s + 1) if s + 1 < n_shards else None)
+        shard_outs.append(dag_walk(stages, operands, values, tables[s], tile,
+                                   _dev_table=cur))
+    combined: dict[str, torch.Tensor] = {}
+    for k, s in enumerate(stages):
+        if s.combine == "sum":
+            acc = shard_outs[0][s.name]
+            for o in shard_outs[1:]:
+                acc = acc + o[s.name]
+            combined[s.name] = acc
+            continue
+        buf = torch.zeros_like(shard_outs[0][s.name])
+        for sh in range(n_shards):
+            t = tables[sh]
+            mine = t[(t[:, 0] == k) & (t[:, 2] > 0)]
+            if len(mine) == 0:
+                continue
+            rows = torch.from_numpy(np.concatenate(
+                [np.arange(st, st + z) for _, st, z in mine])).to(device)
+            buf[rows] = shard_outs[sh][s.name][rows]
+        combined[s.name] = buf
+    return combined

@@ -1,0 +1,39 @@
+"""Public wrappers around the kernels: the DLS-scheduled CC step."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.device_schedule import build_task_table
+from .cc_propagate import cc_propagate
+
+__all__ = ["cc_step", "dls_tile_schedule"]
+
+
+def dls_tile_schedule(technique: str, n_rows: int, tile_r: int,
+                      n_workers: int = 8, seed: int = 0) -> np.ndarray:
+    """Row-tile execution order from a DLS technique.
+
+    Chunk sizes are quantized to tile multiples; the returned permutation of
+    row-tile indices is the order in which the kernel visits row tiles.
+    """
+    n_tiles = n_rows // tile_r
+    table = build_task_table(technique, n_tiles, n_workers, seed=seed)
+    order: list[int] = []
+    for start, size in table:
+        order.extend(range(int(start), int(start + size)))
+    out = np.array(order, dtype=np.int32)
+    if len(out) != n_tiles or len(np.unique(out)) != n_tiles:
+        raise RuntimeError(f"{technique} schedule is not a permutation of "
+                           f"{n_tiles} row tiles")
+    return out
+
+
+def cc_step(G: torch.Tensor, c: torch.Tensor, technique: str = "MFSC",
+            n_workers: int = 8, tile_r: int = 256,
+            tile_c: int = 1024) -> torch.Tensor:
+    """One scheduler-driven CC propagation step (paper Listing 1 kernel)."""
+    schedule = torch.from_numpy(dls_tile_schedule(
+        technique, G.shape[0], tile_r, n_workers)).to(G.device)
+    return cc_propagate(G, c, schedule, tile_r=tile_r, tile_c=tile_c)

@@ -1,0 +1,370 @@
+"""The paper's IDA pipelines lowered for the device walker.
+
+Linear regression training (dense, balanced — paper Listing 2):
+
+    X, y <- random; standardize X; X1 = [X, 1]
+    A = syrk(X1) + lambda*I ; b = gemv(X1, y) ; beta = solve(A, b)
+
+as two sum stages joined by a barrier edge (``moments`` -> ``syrk_gemv``),
+and the two-branch recommendation pipeline (``item_norms``, ``user_bias``
+-> ``scores``). Each is frozen into a super-table by
+``core/device_schedule.py:build_dag_tables_cached`` and drained by the
+walker (kernels/dag_walk.py) in one launch. Data is made with numpy from a
+seed, exactly as the JAX package's lowerings make it, and lies on the
+lowering's ``device``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core.dag import DEP_ELEMENTWISE, DEP_FULL, PipelineDAG, Stage, StageDep
+from ..core.device_schedule import build_dag_tables_cached, dag_signature
+from ..kernels.dag_walk import (WalkOperand, WalkStage, dag_walk_sharded,
+                                dag_walk_stagewise)
+
+__all__ = [
+    "linear_regression_oracle", "recommendation_oracle", "DeviceLowering",
+    "run_device_dag", "linreg_device_lowering", "linear_regression_device",
+    "recommendation_device_lowering", "recommendation_device",
+    "scores_plain", "values_from_reference",
+]
+
+
+def linear_regression_oracle(num_rows: int, num_cols: int, lam: float = 0.001,
+                             seed: int = 1) -> np.ndarray:
+    """Serial float64 numpy oracle for the linear-regression pipeline."""
+    rng = np.random.default_rng(seed)
+    XY = rng.uniform(0.0, 1.0, size=(num_rows, num_cols))
+    X, y = XY[:, :-1], XY[:, -1:]
+    Xm, Xs = X.mean(0), X.std(0)
+    Xs[Xs == 0] = 1.0
+    X1 = np.concatenate([(X - Xm) / Xs, np.ones((num_rows, 1))], axis=1)
+    A = X1.T @ X1 + np.eye(num_cols) * lam
+    b = X1.T @ y
+    return np.linalg.solve(A, b)
+
+
+def recommendation_oracle(n_users: int, n_items: int, density: float = 0.3,
+                          seed: int = 0) -> np.ndarray:
+    """Serial float64 numpy oracle: each user's top item."""
+    rng = np.random.default_rng(seed)
+    R = rng.uniform(0.0, 1.0, size=(n_users, n_items))
+    R *= rng.uniform(size=(n_users, n_items)) < density
+    norms = np.sqrt((R ** 2).sum(axis=0)) + 1e-9
+    bias = R.mean(axis=1)
+    return np.argmax(R / norms - bias[:, None], axis=1)
+
+
+def values_from_reference(values: dict[str, np.ndarray],
+                          device: str | torch.device = "cuda"
+                          ) -> dict[str, torch.Tensor]:
+    """A JAX lowering's ``values`` (as numpy arrays) as the port's values.
+
+    Both packages can then be driven from one set of arrays: the arrays
+    are copied (JAX hands out read-only buffers) and moved to ``device``.
+    """
+    return {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in values.items()}
+
+
+@dataclass
+class DeviceLowering:
+    """A pipeline lowered for the device walker, host-checkable.
+
+    ``dag`` is a host PipelineDAG in TILE units (one task row = one
+    walker row tile) whose ops do the same per-tile torch math as the
+    walker's plain stage bodies; host concat values are ``(n_tiles, tile,
+    ...)``. ``stages`` / ``operands`` / ``values`` are the walker's specs
+    and tensors (row space). ``finalize`` maps stage values to the
+    pipeline's answer (e.g. the linreg solve).
+    """
+
+    dag: PipelineDAG
+    stages: list
+    operands: list
+    values: dict
+    tile: int
+    finalize: object = None
+
+
+def run_device_dag(
+    lowering: DeviceLowering,
+    stage_techniques: dict | str | None = None,
+    n_shards: int = 1,
+    n_workers: int | None = None,
+    chunk_costs: dict | None = None,
+    seed: int = 0,
+    stagewise: bool = False,
+):
+    """Execute a DeviceLowering end-to-end on the walker.
+
+    Freezes the tile-unit DAG with ``build_dag_tables_cached`` (per-stage
+    techniques), scales the super-table slots to row space, then drains
+    them with the fused walker on the device the lowering's values lie on
+    — or one launch per stage when ``stagewise=True``. Returns ``(values,
+    tables)``: stage outputs as tensors (row space) and the
+    DeviceDagTables (tile units) walked. Repeat jobs of one shape hit the
+    host lowering memo and the walker's device-resident table cache, both
+    keyed by the ``dag_signature``.
+    """
+    key = dag_signature(
+        lowering.dag, 1, stage_techniques, n_shards=n_shards,
+        n_workers=n_workers, chunk_costs=chunk_costs, seed=seed)
+    ddt = build_dag_tables_cached(
+        lowering.dag, 1, stage_techniques, n_shards=n_shards,
+        n_workers=n_workers, chunk_costs=chunk_costs, seed=seed)
+    rows = ddt.tables.copy()
+    rows[:, :, 1:] *= lowering.tile  # tile units -> row space for the walker
+    if stagewise:
+        if n_shards != 1:
+            raise ValueError("stagewise baseline runs single-shard")
+        out = dag_walk_stagewise(lowering.stages, lowering.operands,
+                                 lowering.values, rows[0], lowering.tile)
+    else:
+        out = dag_walk_sharded(lowering.stages, lowering.operands,
+                               lowering.values, rows, lowering.tile,
+                               table_key=("devdag", lowering.tile, key))
+    return out, ddt
+
+
+def _rows(a: np.ndarray, t: int, tile: int) -> torch.Tensor:
+    return torch.from_numpy(a[t * tile:(t + 1) * tile])
+
+
+# ---------------------------------------------------------------- linreg
+
+def _moments_tile(Xb: torch.Tensor) -> torch.Tensor:
+    return torch.stack([Xb.sum(dim=0), (Xb * Xb).sum(dim=0)])
+
+
+def _syrk_tile(Xb: torch.Tensor, yb: torch.Tensor, M: torch.Tensor,
+               n: int) -> torch.Tensor:
+    mean = M[0] / n
+    std = torch.sqrt(torch.clamp(M[1] / n - mean * mean, min=0.0))
+    std = torch.where(std == 0, torch.ones_like(std), std)
+    X1 = torch.cat([(Xb - mean) / std,
+                    torch.ones((Xb.shape[0], 1), dtype=Xb.dtype,
+                               device=Xb.device)], dim=1)
+    # broadcast-multiply + reduce, as the JAX lowering writes it
+    A = (X1[:, :, None] * X1[:, None, :]).sum(dim=0)
+    b = (X1 * yb).sum(dim=0)
+    return torch.cat([A, b[:, None]], dim=1)
+
+
+def linreg_device_lowering(
+    num_rows: int,
+    num_cols: int,
+    tile: int = 64,
+    lam: float = 0.001,
+    seed: int = 1,
+    device: str | torch.device = "cuda",
+) -> DeviceLowering:
+    """Paper Listing 2 lowered for the walker.
+
+    Two sum stages joined by a barrier edge: ``moments`` accumulates
+    column sums/squared sums; ``syrk_gemv`` standardizes each row tile
+    against the FULL moments (read from the walker's accumulator in the
+    middle of the walk) and accumulates X1^T X1 | X1^T y.
+    """
+    if num_rows % tile:
+        raise ValueError(f"num_rows={num_rows} must be a multiple of tile={tile}")
+    rng = np.random.default_rng(seed)
+    XY = rng.uniform(0.0, 1.0, size=(num_rows, num_cols)).astype(np.float32)
+    X, y = np.ascontiguousarray(XY[:, :-1]), np.ascontiguousarray(XY[:, -1:])
+    del XY
+    d = num_cols - 1
+    n = num_rows
+    units = n // tile
+
+    def moments_op(inputs, s, z):
+        acc = None
+        for t in range(s, s + z):
+            v = _moments_tile(_rows(X, t, tile))
+            acc = v if acc is None else acc + v
+        return acc
+
+    def syrk_op(inputs, s, z):
+        M = torch.as_tensor(inputs["moments"])
+        acc = None
+        for t in range(s, s + z):
+            v = _syrk_tile(_rows(X, t, tile), _rows(y, t, tile), M, n)
+            acc = v if acc is None else acc + v
+        return acc
+
+    dag = PipelineDAG([
+        Stage("moments", units, moments_op, combine="sum"),
+        Stage("syrk_gemv", units, syrk_op, combine="sum",
+              deps=(StageDep("moments", DEP_FULL),)),
+    ])
+
+    def moments_body(ctx, ins, out):
+        out += _moments_tile(ins["X"])
+
+    def syrk_body(ctx, ins, out):
+        out += _syrk_tile(ins["X"], ins["y"], ins["moments"], n)
+
+    stages = [
+        WalkStage("moments", n, (2, d), torch.float32, "sum", moments_body,
+                  operands=("X",), device_body="linreg.moments"),
+        WalkStage("syrk_gemv", n, (d + 1, d + 2), torch.float32, "sum",
+                  syrk_body, operands=("X", "y"),
+                  reads=(("moments", "full"),),
+                  device_body="linreg.syrk_gemv"),
+    ]
+    operands = [
+        WalkOperand("X", (tile, d), ("row", "zero")),
+        WalkOperand("y", (tile, 1), ("row", "zero")),
+    ]
+    values = {"X": torch.from_numpy(X).to(device),
+              "y": torch.from_numpy(y).to(device)}
+
+    def finalize(stage_values: dict) -> np.ndarray:
+        Ab = stage_values["syrk_gemv"].cpu().numpy()
+        A, b = Ab[:, :-1], Ab[:, -1:]
+        A = A + np.eye(A.shape[0], dtype=A.dtype) * lam
+        return np.linalg.solve(A, b)
+
+    return DeviceLowering(dag, stages, operands, values, tile, finalize)
+
+
+def linear_regression_device(
+    num_rows: int,
+    num_cols: int,
+    tile: int = 64,
+    stage_techniques: dict | str | None = None,
+    lam: float = 0.001,
+    seed: int = 1,
+    stagewise: bool = False,
+    device: str | torch.device = "cuda",
+):
+    """Paper Listing 2 end-to-end on the walker.
+
+    Returns (beta, stage values, DeviceDagTables). ``stagewise=True``
+    runs the one-launch-per-stage baseline instead of the fused walker.
+    """
+    low = linreg_device_lowering(num_rows, num_cols, tile=tile, lam=lam,
+                                 seed=seed, device=device)
+    vals, ddt = run_device_dag(low, stage_techniques, stagewise=stagewise)
+    return low.finalize(vals), vals, ddt
+
+
+# -------------------------------------------------------- recommendation
+
+def _norms_tile(Rb: torch.Tensor) -> torch.Tensor:
+    return (Rb * Rb).sum(dim=0)
+
+
+def _bias_tile(Rb: torch.Tensor) -> torch.Tensor:
+    return Rb.mean(dim=1)
+
+
+def _scores_tile(Rb: torch.Tensor, norms: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(Rb / (torch.sqrt(norms) + 1e-9) - bias[:, None],
+                        dim=1).to(torch.int32)
+
+
+def scores_plain(R: torch.Tensor, norms: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    """The ``scores`` body over every user at once (a check's reference)."""
+    return _scores_tile(R, norms, bias)
+
+
+def recommendation_device_lowering(
+    n_users: int,
+    n_items: int,
+    tile: int = 64,
+    density: float = 0.3,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> DeviceLowering:
+    """The two-branch recommendation DAG lowered for the walker.
+
+    ``item_norms`` (sum) and ``user_bias`` (concat) are independent;
+    ``scores`` reads item_norms in full (the sum accumulator) and
+    user_bias elementwise (its own row tile of the concat buffer) —
+    every edge kind the walker supports in one super-table.
+    """
+    if n_users % tile:
+        raise ValueError(f"n_users={n_users} must be a multiple of tile={tile}")
+    rng = np.random.default_rng(seed)
+    R = rng.uniform(0.0, 1.0, size=(n_users, n_items))
+    R = (R * (rng.uniform(size=(n_users, n_items)) < density)).astype(np.float32)
+    units = n_users // tile
+
+    def item_norms_op(inputs, s, z):
+        acc = None
+        for t in range(s, s + z):
+            v = _norms_tile(_rows(R, t, tile))
+            acc = v if acc is None else acc + v
+        return acc
+
+    def user_bias_op(inputs, s, z):
+        return torch.stack([_bias_tile(_rows(R, t, tile))
+                            for t in range(s, s + z)])
+
+    def scores_op(inputs, s, z):
+        norms = torch.as_tensor(inputs["item_norms"])
+        return torch.stack([
+            _scores_tile(_rows(R, t, tile), norms,
+                         torch.as_tensor(inputs["user_bias"][t]))
+            for t in range(s, s + z)
+        ])
+
+    dag = PipelineDAG([
+        Stage("item_norms", units, item_norms_op, combine="sum"),
+        Stage("user_bias", units, user_bias_op, combine="concat"),
+        Stage("scores", units, scores_op, combine="concat",
+              deps=(StageDep("item_norms", DEP_FULL),
+                    StageDep("user_bias", DEP_ELEMENTWISE))),
+    ])
+
+    def item_norms_body(ctx, ins, out):
+        out += _norms_tile(ins["R"])
+
+    def user_bias_body(ctx, ins, out):
+        out.copy_(_bias_tile(ins["R"]))
+
+    def scores_body(ctx, ins, out):
+        out.copy_(_scores_tile(ins["R"], ins["item_norms"], ins["user_bias"]))
+
+    stages = [
+        WalkStage("item_norms", n_users, (n_items,), torch.float32, "sum",
+                  item_norms_body, operands=("R",),
+                  device_body="recommendation.item_norms"),
+        WalkStage("user_bias", n_users, (n_users,), torch.float32, "concat",
+                  user_bias_body, operands=("R",),
+                  device_body="recommendation.user_bias"),
+        WalkStage("scores", n_users, (n_users,), torch.int32, "concat",
+                  scores_body, operands=("R",),
+                  reads=(("item_norms", "full"), ("user_bias", "rows")),
+                  device_body="recommendation.scores"),
+    ]
+    operands = [WalkOperand("R", (tile, n_items), ("row", "zero"))]
+    values = {"R": torch.from_numpy(R).to(device)}
+    return DeviceLowering(dag, stages, operands, values, tile)
+
+
+def recommendation_device(
+    n_users: int,
+    n_items: int,
+    tile: int = 64,
+    stage_techniques: dict | str | None = None,
+    density: float = 0.3,
+    seed: int = 0,
+    stagewise: bool = False,
+    device: str | torch.device = "cuda",
+):
+    """The recommendation pipeline end-to-end on the walker.
+
+    Returns (top_items, stage values, DeviceDagTables).
+    """
+    low = recommendation_device_lowering(n_users, n_items, tile=tile,
+                                         density=density, seed=seed,
+                                         device=device)
+    vals, ddt = run_device_dag(low, stage_techniques, stagewise=stagewise)
+    return vals["scores"], vals, ddt

@@ -1,0 +1,131 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
+skips without one. The file imports neither ``jax`` nor ``repro``, so it
+runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the kernel sums a tile's rows in another order than PyTorch's
+reduction, so float sums agree to a relative 1e-4 of the output's largest
+magnitude; ``scores`` (an argmax over IEEE-rounded arithmetic), stamps,
+max-valued outputs and the stagewise walk must match bitwise. ``beta``
+agrees with the float64 oracle to 1e-2 of its largest feature entry (the
+features' betas are small: y is drawn apart from X).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import PipelineDAG, Stage, build_dag_tables
+from repro_torch.core.partitioners import PARTITIONERS
+from repro_torch.kernels import _build
+from repro_torch.kernels import dag_walk as twalk
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.cc_propagate import cc_propagate, cc_propagate_plain
+from repro_torch.vee import apps as tapps
+
+SUM_RTOL = 1e-4
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rows(low, techniques, n_shards=1):
+    rows = build_dag_tables(low.dag, 1, techniques, n_shards=n_shards).tables.copy()
+    rows[:, :, 1:] *= low.tile
+    return rows
+
+
+def _close_sum(got, want, what):
+    torch.testing.assert_close(got, want, rtol=SUM_RTOL,
+                               atol=SUM_RTOL * float(want.abs().max()), msg=what)
+
+
+LOWERINGS = {
+    "linreg": (tapps.linreg_device_lowering, dict(num_rows=4096, num_cols=33)),
+    "recommendation": (tapps.recommendation_device_lowering,
+                       dict(n_users=2048, n_items=256)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOWERINGS))
+@pytest.mark.parametrize("tech", ["GSS", "TSS"])
+def test_walker_matches_plain(cuda, name, tech):
+    build, kw = LOWERINGS[name]
+    low = build(**kw, device=cuda)
+    rows = _rows(low, tech)[0]
+    before = _build.DAG_WALK.launches[f"walk_{name}"]
+    got, stamps = twalk.dag_walk(low.stages, low.operands, low.values, rows,
+                                 low.tile, stamp=True)
+    assert _build.DAG_WALK.launches[f"walk_{name}"] == before + 1
+    want = twalk.dag_walk_plain(low.stages, low.operands, low.values, rows, low.tile)
+    assert np.array_equal(stamps, np.c_[rows, np.arange(len(rows))])
+    for k in got:
+        if k != "scores":
+            _close_sum(got[k], want[k], k)
+    if name == "recommendation":
+        assert torch.equal(got["scores"], tapps.scores_plain(
+            low.values["R"], got["item_norms"], got["user_bias"]))
+    sw = twalk.dag_walk_stagewise(low.stages, low.operands, low.values, rows,
+                                  low.tile)
+    for k in got:
+        assert torch.equal(sw[k], got[k]), k
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_sharded_walk_matches_plain(cuda, n_shards):
+    low = tapps.recommendation_device_lowering(2048, 256, device=cuda)
+    keep = [s for s in low.stages if s.name != "scores"]
+    dag = PipelineDAG([Stage(s.name, 2048 // low.tile, None, combine=s.combine)
+                       for s in keep])
+    rows = build_dag_tables(dag, 1, "GSS", n_shards=n_shards, n_workers=4).tables.copy()
+    rows[:, :, 1:] *= low.tile
+    got = twalk.dag_walk_sharded(keep, low.operands, low.values, rows, low.tile)
+    cpu_vals = {k: v.cpu() for k, v in low.values.items()}
+    want = twalk.dag_walk_sharded(keep, low.operands, cpu_vals, rows, low.tile)
+    for k in got:
+        assert got[k].device.type == "cuda"
+        _close_sum(got[k].cpu(), want[k], k)
+
+
+def test_walk_raises_without_device_body(cuda):
+    low = tapps.linreg_device_lowering(512, 9, device=cuda)
+    bare = [low.stages[0], dataclasses.replace(low.stages[1], device_body=None)]
+    before = sum(_build.DAG_WALK.launches.values())
+    with pytest.raises(ValueError, match="'syrk_gemv' has no device body"):
+        twalk.dag_walk(bare, low.operands, low.values, _rows(low, "GSS")[0], low.tile)
+    assert sum(_build.DAG_WALK.launches.values()) == before
+
+
+@pytest.mark.parametrize("tech", sorted(PARTITIONERS))
+def test_cc_propagate_bitwise(cuda, tech):
+    rng = np.random.default_rng(7)
+    G = torch.from_numpy((rng.uniform(size=(1024, 1024)) < 0.05).astype(np.float32))
+    c = torch.from_numpy(rng.integers(1, 1000, 1024).astype(np.float32))
+    G, c = G.to(cuda), c.to(cuda)
+    sched = torch.from_numpy(tops.dls_tile_schedule(tech, 1024, 256)).to(cuda)
+    got = cc_propagate(G, c, sched)
+    assert torch.equal(got, cc_propagate_plain(G, c, sched))
+    assert torch.equal(got, tref.cc_propagate_ref(G, c))
+    assert torch.equal(tops.cc_step(G, c, technique=tech), got)
+
+
+def test_end_to_end_small(cuda):
+    beta, _, _ = tapps.linear_regression_device(8192, 17)
+    ref = tapps.linear_regression_oracle(8192, 17)
+    np.testing.assert_allclose(beta, ref, atol=1e-2 * np.abs(ref[:-1]).max())
+    top, _, _ = tapps.recommendation_device(1024, 128)
+    assert top.device.type == "cuda"
+    agree = (top.cpu().numpy() == tapps.recommendation_oracle(1024, 128)).mean()
+    assert agree >= 0.999
