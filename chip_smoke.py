@@ -16,8 +16,13 @@ started together), each kernel against its plain PyTorch version on the
 card at the main path's shapes, the main path itself through the port's
 entry points with the launch counters set to 0 just before and read just
 after, and times (CUDA events, warm-up, median of repeats) beside each
-kernel's bound. Any failed check exits non-zero. Without a CUDA device, or
-without the repository around it, the script fails and prints no result.
+kernel's bound. Then the migration path: both pipelines at the same sizes,
+moved host -> device and device -> host mid-flight through
+``linear_regression_migrated`` / ``recommendation_migrated`` (counters set
+to 0 just before each call and read just after), each cut where a ``sum``
+stage is partly done, so the resumed walk starts from a seed (K3). Any
+failed check exits non-zero. Without a CUDA device, or without the
+repository around it, the script fails and prints no result.
 """
 
 from __future__ import annotations
@@ -52,6 +57,27 @@ PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 EPS32 = 2.0 ** -23
 BETA_RTOL = 1e-2          # beta vs the float64 oracle, of the largest |beta|
 REC_AGREEMENT = 0.9999    # scores vs the float64 oracle
+# A migrated run's sum entry comes from two summers (the host's PyTorch
+# tile sums and the kernel's), and the never-preempted walk it is held to
+# rounds too: both sides round, so the limit doubles.
+MIGRATED_FACTOR = 2.0
+
+# Migration cuts, in chunks (one 64-row tile each, SS on one host worker).
+# Each leaves a `sum` stage partly done. linreg host -> device runs all of
+# `moments` and 128 `syrk_gemv` tiles on the host (a moments tile is cheap,
+# a syrk_gemv tile is not), so the walk is `syrk_gemv` alone, seeded, with
+# `moments` fed back as a plain value; device -> host leaves 256
+# `syrk_gemv` tiles to the host. Recommendation host -> device stops after
+# 128 tiles each of `item_norms` and `user_bias`; device -> host stops 128
+# tiles before the end of `item_norms`, the only sum stage, which ends at
+# two thirds of the table.
+LIN_UNITS, REC_UNITS = LINREG_ROWS // TILE, REC_USERS // TILE
+MIGRATIONS = (
+    ("linreg", "host_to_device", LIN_UNITS + 128),
+    ("linreg", "device_to_host", 2 * LIN_UNITS - 256),
+    ("recommendation", "host_to_device", 256),
+    ("recommendation", "device_to_host", 2 * REC_UNITS - 256),
+)
 
 
 def emit(phase: str, **fields) -> None:
@@ -76,20 +102,32 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def close(kernel, plain, abs_sum, adds: int, what: str) -> tuple[float, float]:
-    """Check a sum output against its plain version, entry by entry.
+def excess(kernel, plain, abs_sum, adds: int, factor: float = 1.0):
+    """Entries of a sum output beyond their limit against another version.
 
     ``abs_sum`` holds each entry's sum of |terms| and ``adds`` the number of
-    additions into its accumulator (see EPS32). Returns the largest absolute
-    error and the largest share of its limit that an entry's error takes.
+    additions into its accumulator (see EPS32); the limit is ``factor``
+    times eps * sqrt(adds) * sum|terms|. Returns the count of entries beyond
+    it, the largest absolute error, and the largest share of its limit that
+    an entry's error takes.
     """
     diff = (kernel.double() - plain.double()).abs()
-    tol = EPS32 * math.sqrt(adds) * abs_sum.double()
-    bad = int((diff > tol).sum())
-    share = float((diff / tol.clamp_min(1e-300)).max())
-    require(bad == 0, f"{what}: {bad} entries beyond eps*sqrt({adds})*sum|terms|; "
-                      f"max abs err {float(diff.max()):.3g}")
-    return float(diff.max()), share
+    tol = factor * EPS32 * math.sqrt(adds) * abs_sum.double()
+    return (int((diff > tol).sum()), float(diff.max()),
+            float((diff / tol.clamp_min(1e-300)).max()))
+
+
+def close(kernel, plain, abs_sum, adds: int, what: str,
+          factor: float = 1.0) -> tuple[float, float]:
+    """Fail unless every entry lies within its limit (see ``excess``).
+
+    Returns the largest absolute error and the largest share of its limit
+    that an entry's error takes.
+    """
+    bad, err, share = excess(kernel, plain, abs_sum, adds, factor)
+    require(bad == 0, f"{what}: {bad} entries beyond {factor:g}*eps*sqrt({adds})"
+                      f"*sum|terms|; max abs err {err:.3g}")
+    return err, share
 
 
 def timed(fn, reps: int, warmup: int = 1) -> float:
@@ -127,6 +165,7 @@ def card_line() -> str:
 def main() -> None:
     """Run every phase; exit non-zero on the first failed check."""
     t_all = time.perf_counter()
+    import numpy as np
     import torch
 
     require(torch.cuda.is_available(), "no CUDA device; this script runs on a GPU only")
@@ -137,7 +176,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    from repro_torch.core import PreemptiveRunner, SchedulerConfig
     from repro_torch.core.device_schedule import build_dag_tables_cached
+    from repro_torch.core.preempt import device_remainder
     from repro_torch.kernels import _build
     from repro_torch.kernels.cc_propagate import cc_propagate, cc_propagate_plain
     from repro_torch.kernels.dag_walk import (dag_walk, dag_walk_plain,
@@ -351,6 +392,153 @@ def main() -> None:
         shapes=f"G ({n_cc}, {n_cc}) f32, tiles 256 x 1024",
         **dict(zip(("bound_ms", "bound_by"), bound_ms(cc_bytes, cc_flops)))))
     emit("times", card=card, seconds=time.perf_counter() - t)
+
+    # -- 6. migration: host <-> device mid-flight, the seeded walk (K3) -------
+    # the never-preempted walks above ran the same tables as SS does
+    for low, rows in ((lin, lin_rows), (rec, rec_rows)):
+        ss = build_dag_tables_cached(low.dag, 1, "SS").tables[0].copy()
+        ss[:, 1:] *= TILE
+        require(np.array_equal(ss, rows), "the SS table differs from the walked one")
+    abs_rec = {"item_norms": ((R * R).sum(0), U // TILE),
+               "user_bias": (R.abs().sum(1) / I, I)}
+    migrated = {}
+    for pipe, direction, cut in MIGRATIONS:
+        for k in _build.KERNELS:
+            k.launches.clear()
+        t = time.perf_counter()
+        if pipe == "linreg":
+            answer, vals, split = apps.linear_regression_migrated(
+                LINREG_ROWS, LINREG_COLS, cut, direction=direction)
+        else:
+            answer, vals, split = apps.recommendation_migrated(
+                REC_USERS, REC_ITEMS, cut, direction=direction)
+        seconds = time.perf_counter() - t
+        mig_launches = {e: c for k in _build.KERNELS for e, c in k.launches.items()}
+        require(mig_launches == {f"walk_{pipe}": 1},
+                f"{pipe} {direction}: launches {mig_launches}, want one walk_{pipe}")
+        checks = {}
+        if pipe == "linreg":
+            for s in ("moments", "syrk_gemv"):
+                checks[s] = close(vals[s], k_out[s], abs_lin[s], n // TILE,
+                                  f"migrated linreg {direction} {s}", MIGRATED_FACTOR)
+            b_abs = abs(answer.astype("float64") - beta_ref)
+            require(float(b_abs[:-1].max()) <= feat_lim and float(b_abs[-1].max()) <= icpt_lim,
+                    f"migrated linreg {direction}: beta beyond the oracle's limits")
+            checks["beta_max_abs_err"] = float(b_abs.max())
+        else:
+            for s, (a, adds) in abs_rec.items():
+                checks[s] = close(vals[s], k_rec[s], a, adds,
+                                  f"migrated recommendation {direction} {s}",
+                                  MIGRATED_FACTOR)
+            require(torch.equal(answer, apps.scores_plain(R, vals["item_norms"],
+                                                          vals["user_bias"])),
+                    f"migrated recommendation {direction}: scores differ bitwise "
+                    "from the plain body given the run's own norms and bias")
+            agree_m = float((answer.cpu().numpy() == top_ref).mean())
+            require(agree_m >= REC_AGREEMENT, f"migrated recommendation {direction}: "
+                                              f"scores agree on {agree_m:.6f} of users")
+            checks["scores_agreement"] = agree_m
+        migrated[(pipe, direction)] = dict(vals=vals, launches=mig_launches)
+        emit("migration", pipeline=pipe, direction=direction, cut=cut,
+             launches=mig_launches, seconds=seconds, host_seconds=split["host"],
+             walk_seconds=split["walk"], sum_tol="2 * eps32 * sqrt(adds) * sum|terms|",
+             checks={k: list(v) if isinstance(v, tuple) else v for k, v in checks.items()})
+
+    t = time.perf_counter()
+    ss1 = SchedulerConfig(technique="SS", queue_layout="CENTRALIZED", n_workers=1)
+
+    def seeded_plan(low, pipe):
+        """The remainder the host -> device entry point walked, from the
+        same data and cut; its walk must repeat that run's bits."""
+        cut = next(c for p_, d_, c in MIGRATIONS if (p_, d_) == (pipe, "host_to_device"))
+        _, ck = PreemptiveRunner(low.dag, ss1, preempt_after=cut).run()
+        plan = device_remainder(ck, low)
+        got = plan.walk()
+        want = migrated[(pipe, "host_to_device")]["vals"]
+        for name in got:
+            require(torch.equal(got[name], want[name]),
+                    f"{pipe}: the seeded walk differs from the entry point's {name}")
+        return plan, ck
+
+    def zero_seed_fails(plan, stage, ref, abs_sum, adds, what):
+        """The negative control: the same walk from a zero seed must fail."""
+        key = next(s.seed for s in plan.stages if s.name == stage)
+        values = dict(plan.values, **{key: torch.zeros_like(plan.values[key])})
+        out = dag_walk(plan.stages, plan.operands, values, plan.table, TILE)[stage]
+        bad, _, share = excess(out, ref, abs_sum, adds, MIGRATED_FACTOR)
+        require(bad > 0, f"{what}: a zero seed passed the migrated sum check")
+        return bad, share
+
+    # linreg: `syrk_gemv` alone, seeded; `moments` a plain value
+    plan, ck = seeded_plan(lin, "linreg")
+    require([s.name for s in plan.stages] == ["syrk_gemv"] and plan.stages[0].seed,
+            "linreg host -> device: the walk is not syrk_gemv alone, seeded")
+    zero_lin = zero_seed_fails(plan, "syrk_gemv", k_out["syrk_gemv"],
+                               abs_lin["syrk_gemv"], n // TILE, "linreg syrk_gemv")
+    walk_k3 = plan.walk
+    plain_k3 = lambda: dag_walk_plain(plan.stages, plan.operands, plan.values,  # noqa: E731
+                                      plan.table, TILE)
+    err_k3, _ = close(walk_k3()["syrk_gemv"], plain_k3()["syrk_gemv"],
+                      abs_lin["syrk_gemv"], n // TILE, "seeded linreg walk vs plain")
+    m0 = (ck.stages["syrk_gemv"].acc_next) * TILE   # rows the host summed
+    mom = plan.values["moments"]
+    mean = mom[0] / n
+    std = torch.sqrt(torch.clamp(mom[1] / n - mean * mean, min=0.0))
+    X1yr = torch.cat([(X[m0:] - mean) / std, torch.ones(n - m0, 1, device=dev),
+                      y[m0:]], dim=1)
+    seed_syrk = plan.values[plan.stages[0].seed]
+    m = n - m0
+    k3_bytes = 4 * (m * d + m + 2 * d + 2 * (d + 1) * (d + 2)) + 12 * len(plan.table)
+    k3_flops = 2 * m * d + m * (d + 1) * (d + 2) + 2 * m * (d + 1)
+    kernels.append(dict(
+        name="dag_walk[linreg, seeded]", route="cuda",
+        source="src/repro_torch/csrc/dag_walk.cu",
+        replaces="src/repro/core/preempt.py:583",
+        launches=migrated[("linreg", "host_to_device")]["launches"]["walk_linreg"],
+        max_abs_err=err_k3, ms=timed(walk_k3, 5), plain_ms=timed(plain_k3, 1, warmup=0),
+        library_ms=timed(lambda: torch.addmm(seed_syrk, X1yr[:, :d + 1].T, X1yr), 10),
+        library_call="torch.addmm(seed, X1r.T, [X1r | yr]) over the walked rows, "
+                     "X1r precomputed",
+        shapes=f"X ({n}, {d}) f32, rows {m0}..{n} walked, {len(plan.table)} slots, "
+               f"seed ({d + 1}, {d + 2}), tile {TILE}",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(k3_bytes, k3_flops)))))
+    del X1yr
+
+    # recommendation: `item_norms` seeded, `user_bias` replayed, `scores`
+    plan, ck = seeded_plan(rec, "recommendation")
+    require(plan.stages[0].name == "item_norms" and plan.stages[0].seed,
+            "recommendation host -> device: item_norms is not seeded")
+    zero_rec = zero_seed_fails(plan, "item_norms", k_rec["item_norms"],
+                               *abs_rec["item_norms"], "recommendation item_norms")
+    walk_k3r = plan.walk
+    plain_k3r = lambda: dag_walk_plain(plan.stages, plan.operands, plan.values,  # noqa: E731
+                                       plan.table, TILE)
+    got_r, plain_r = walk_k3r(), plain_k3r()
+    err_k3r, _ = close(got_r["item_norms"], plain_r["item_norms"],
+                       *abs_rec["item_norms"], "seeded recommendation walk vs plain")
+    require(torch.equal(got_r["scores"], apps.scores_plain(R, got_r["item_norms"],
+                                                           got_r["user_bias"])),
+            "seeded recommendation walk: scores differ from the plain body")
+    m1 = (REC_UNITS - ck.stages["item_norms"].acc_next) * TILE  # item_norms rows walked
+    k3r_bytes = 4 * (U * I + 2 * I + 2 * U) + 4 * U + 12 * len(plan.table)
+    k3r_flops = 2 * m1 * I + U * I + 2 * I + 3 * U * I
+    kernels.append(dict(
+        name="dag_walk[recommendation, seeded]", route="cuda",
+        source="src/repro_torch/csrc/dag_walk.cu",
+        replaces="src/repro/core/preempt.py:583",
+        launches=migrated[("recommendation", "host_to_device")]["launches"][
+            "walk_recommendation"],
+        max_abs_err=err_k3r, ms=timed(walk_k3r, 10), plain_ms=timed(plain_k3r, 3),
+        library_ms=None,
+        library_call="none: no one PyTorch call computes norms, bias and scores",
+        shapes=f"R ({U}, {I}) f32, item_norms rows {U - m1}..{U} walked, "
+               f"{len(plan.table)} slots, tile {TILE}",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(k3r_bytes, k3r_flops)))))
+    emit("seeded_walks", zero_seed_entries_beyond_limit={
+             "linreg syrk_gemv": zero_lin[0], "recommendation item_norms": zero_rec[0]},
+         zero_seed_worst_share_of_limit={
+             "linreg syrk_gemv": zero_lin[1], "recommendation item_norms": zero_rec[1]},
+         seconds=time.perf_counter() - t)
 
     emit("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)

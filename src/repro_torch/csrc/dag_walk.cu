@@ -12,8 +12,11 @@
 //   * a `sum` stage's output entry e is owned by global thread e (grid
 //     stride), the same thread at every slot, which adds the slot's tile
 //     contribution to its entry. So each entry folds its per-tile
-//     contributions in ascending slot order, starting from the zeros the
-//     wrapper allocated (guarantee 2 of the Pallas walker);
+//     contributions in ascending slot order, starting from what the
+//     wrapper put in the output buffer: zeros (guarantee 2 of the Pallas
+//     walker), or a resumed checkpoint's prefix accumulator (the seed of
+//     a migrated `sum` stage, which replaces the Pallas `_seeded` body of
+//     repro/core/preempt.py:migrate_to_device);
 //   * a `concat` stage's rows are written once each, one warp per row;
 //   * a grid-wide barrier runs before every slot that reads a producer
 //     written since the last barrier (the wrapper computes these flags

@@ -6,8 +6,9 @@ order (a shard draining its frozen queue); each slot runs the body of the
 stage its id names over that slot's row tile:
 
 * ``concat`` stages write their row tile of an ``(n_rows, ...)`` output;
-* ``sum`` stages start from zero and fold each tile's contribution in
-  ascending slot order;
+* ``sum`` stages start from zero — or, for a stage resumed from a
+  checkpoint, from its ``seed`` (the prefix accumulator) — and fold each
+  tile's contribution in ascending slot order;
 * a consumer reads its producer's output in the middle of the walk — its
   own row tile of a ``concat`` producer (``rows``) or the whole
   accumulator of a ``sum`` producer (``full``). build_dag_tables orders
@@ -133,6 +134,13 @@ class WalkStage:
     ``device_body`` names the CUDA body (``"linreg.moments"``, ...) that
     the kernel runs for this stage on a CUDA device; ``None`` means the
     stage runs only on the plain walker.
+
+    ``seed`` names an entry of the walk's ``values`` that a ``sum``
+    stage's accumulator starts from instead of zero: a checkpoint's
+    ascending-prefix accumulator, so the walk continues the fold
+    ``seed + tile_0 + tile_1 + ...`` (core/preempt.py:migrate_to_device).
+    It must match ``out_shape`` / ``out_dtype`` and lie on the walk's
+    device; the walkers raise otherwise.
     """
 
     name: str
@@ -145,6 +153,7 @@ class WalkStage:
     reads: tuple[tuple[str, str], ...] = ()
     inner: int = 1
     device_body: str | None = None
+    seed: str | None = None
 
     def __post_init__(self):
         if self.combine not in ("concat", "sum"):
@@ -224,9 +233,36 @@ def _walk_device(operands: list[WalkOperand], values: dict) -> torch.device:
     return torch.device("cpu")
 
 
-def _zeros(stages: list[WalkStage], device) -> dict[str, torch.Tensor]:
-    return {s.name: torch.zeros(s.out_shape, dtype=s.out_dtype, device=device)
-            for s in stages}
+def _init_outs(stages: list[WalkStage], values: dict,
+               device) -> dict[str, torch.Tensor]:
+    """Each stage's output buffer: zeros, or a copy of its seed.
+
+    Raises, naming the stage, for a seed on a stage that is not ``sum``,
+    a seed missing from ``values``, and one whose shape, dtype or device
+    differs from the output's.
+    """
+    outs = {}
+    for s in stages:
+        if s.seed is None:
+            outs[s.name] = torch.zeros(s.out_shape, dtype=s.out_dtype,
+                                       device=device)
+            continue
+        if s.combine != "sum":
+            raise ValueError(f"stage {s.name!r}: only a sum stage can start "
+                             f"from a seed, not a {s.combine!r} stage")
+        if s.seed not in values:
+            raise ValueError(f"stage {s.name!r}: seed {s.seed!r} is not in values")
+        seed = values[s.seed]
+        if tuple(seed.shape) != tuple(s.out_shape) or seed.dtype != s.out_dtype:
+            raise ValueError(
+                f"stage {s.name!r}: seed {s.seed!r} is {seed.dtype} "
+                f"{tuple(seed.shape)}, the output {s.out_dtype} "
+                f"{tuple(s.out_shape)}")
+        if seed.device != device:
+            raise ValueError(f"stage {s.name!r}: seed {s.seed!r} lies on "
+                             f"{seed.device}, the walk on {device}")
+        outs[s.name] = seed.clone(memory_format=torch.contiguous_format)
+    return outs
 
 
 def dag_walk_plain(
@@ -246,7 +282,7 @@ def dag_walk_plain(
     if len({s.name for s in stages}) != len(stages):
         raise ValueError("duplicate stage names")
     specs = {op.name: (op.block, op.index) for op in operands}
-    outs = _zeros(stages, _walk_device(operands, values))
+    outs = _init_outs(stages, values, _walk_device(operands, values))
     out_specs = {s.name: _out_spec(s, tile) for s in stages}
     stamps = np.zeros((len(table), 4), dtype=np.int32)
     for i, (sid, start, size) in enumerate(table.tolist()):
@@ -387,7 +423,7 @@ def _walk_cuda(stages, operands, values, table, tile, table_key, dev_table,
     """Launch the compiled walker program over one shard's table."""
     prog, body_map = cuda_program(stages)
     device = _walk_device(operands, values)
-    outs = _zeros(stages, device)
+    outs = _init_outs(stages, values, device)  # the kernel folds into these
     n_slots = len(table)
     if n_slots == 0:
         return (outs, np.zeros((0, 4), dtype=np.int32)) if stamp else outs
@@ -476,6 +512,8 @@ def dag_walk_stagewise(
         sub[:, 0] = 0
         stage_ops = [ops_by_name[n] for n in s.operands]
         stage_vals = {n: values[n] for n in s.operands}
+        if s.seed in values:  # a missing seed raises in the walk
+            stage_vals[s.seed] = values[s.seed]
         for prod, kind in s.reads:
             stage_ops.append(_read_operand(by_name, prod, kind, tile))
             stage_vals[prod] = results[prod]
@@ -499,7 +537,8 @@ def dag_walk_sharded(
     tile ownership; sum outputs add per-shard partials in ascending shard
     order (deterministic, but a different association than one shard, so
     bit-wise claims hold per shard count). Outputs lie on the walk's
-    device.
+    device. A seeded stage raises on more than one shard: every shard
+    would start from the seed, so the sum would hold it once per shard.
 
     Shard ``s+1``'s table is copied (non-blocking, from pinned memory)
     before shard ``s`` is walked, so the next transfer rides behind the
@@ -508,6 +547,12 @@ def dag_walk_sharded(
     """
     tables = np.ascontiguousarray(np.asarray(tables, dtype=np.int32))
     n_shards = tables.shape[0]
+    if n_shards > 1:
+        for s in stages:
+            if s.seed is not None:
+                raise ValueError(
+                    f"stage {s.name!r} starts from seed {s.seed!r}: a "
+                    f"{n_shards}-shard walk would add it once per shard")
     device = _walk_device(operands, values)
 
     def put(s: int) -> torch.Tensor:

@@ -12,10 +12,15 @@ and the two-branch recommendation pipeline (``item_norms``, ``user_bias``
 walker (kernels/dag_walk.py) in one launch. Data is made with numpy from a
 seed, exactly as the JAX package's lowerings make it, and lies on the
 lowering's ``device``.
+
+``linear_regression_migrated`` / ``recommendation_migrated`` run the same
+pipelines with one mid-flight move between the host pool and the walker
+(core/preempt.py).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -23,6 +28,9 @@ import torch
 
 from ..core.dag import DEP_ELEMENTWISE, DEP_FULL, PipelineDAG, Stage, StageDep
 from ..core.device_schedule import build_dag_tables_cached, dag_signature
+from ..core.executor import SchedulerConfig
+from ..core.preempt import (PreemptiveRunner, migrate_to_device,
+                            resume_on_host, run_device_prefix)
 from ..kernels.dag_walk import (WalkOperand, WalkStage, dag_walk_sharded,
                                 dag_walk_stagewise)
 
@@ -30,7 +38,8 @@ __all__ = [
     "linear_regression_oracle", "recommendation_oracle", "DeviceLowering",
     "run_device_dag", "linreg_device_lowering", "linear_regression_device",
     "recommendation_device_lowering", "recommendation_device",
-    "scores_plain", "values_from_reference",
+    "scores_plain", "values_from_reference", "linear_regression_migrated",
+    "recommendation_migrated",
 ]
 
 
@@ -368,3 +377,98 @@ def recommendation_device(
                                          device=device)
     vals, ddt = run_device_dag(low, stage_techniques, stagewise=stagewise)
     return vals["scores"], vals, ddt
+
+
+# ------------------------------------------------ mid-flight migration
+
+def _row_space(low: DeviceLowering, values: dict, device) -> dict:
+    """Host DAG values (tile units) as walker-shaped tensors on ``device``."""
+    out = {}
+    for ws in low.stages:
+        v = values[ws.name]
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+        out[ws.name] = t.reshape(ws.out_shape).to(device)
+    return out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run_migrated(low: DeviceLowering, cut: int,
+                  direction: str) -> tuple[dict, dict]:
+    """Run ``low`` with one mid-flight substrate migration at chunk ``cut``.
+
+    ``host_to_device`` starts the tile-unit DAG on the host pool
+    (technique SS, one worker: the bit-equality regime), preempts after
+    ``cut`` chunks, and re-lowers the checkpointed remainder onto the
+    walker in one launch. ``device_to_host`` drains ``cut`` super-table
+    slots on the walker in one launch, freezes the rest, and finishes on
+    the host pool. On the CPU either way is bit-equal to a never-preempted
+    run. Returns ``(values, seconds)``: row-space stage values on the
+    lowering's device, and the seconds of the ``host`` part and the
+    ``walk`` part (each ended by a device synchronise).
+    """
+    cfg = SchedulerConfig(technique="SS", queue_layout="CENTRALIZED",
+                          n_workers=1)
+    device = low.values[low.operands[0].name].device
+    t0 = time.perf_counter()
+    if direction == "host_to_device":
+        res, ck = PreemptiveRunner(low.dag, cfg, preempt_after=cut).run()
+        t1 = time.perf_counter()
+        values = (_row_space(low, res.values, device) if ck is None
+                  else migrate_to_device(ck, low))
+        _sync(device)
+        return values, {"host": t1 - t0, "walk": time.perf_counter() - t1}
+    if direction == "device_to_host":
+        ck, _ = run_device_prefix(low, cut)
+        t1 = time.perf_counter()
+        values = _row_space(low, resume_on_host(ck, low.dag, cfg).values, device)
+        _sync(device)
+        return values, {"walk": t1 - t0, "host": time.perf_counter() - t1}
+    raise ValueError(f"unknown migration direction {direction!r}; expected "
+                     "'host_to_device' or 'device_to_host'")
+
+
+def linear_regression_migrated(
+    num_rows: int,
+    num_cols: int,
+    cut: int,
+    direction: str = "host_to_device",
+    tile: int = 64,
+    lam: float = 0.001,
+    seed: int = 1,
+    device: str | torch.device = "cuda",
+):
+    """Listing 2 with a mid-flight substrate migration at chunk ``cut``.
+
+    Returns (beta, stage values, seconds of the host and walk parts).
+    ``direction`` is ``host_to_device`` or ``device_to_host``.
+    """
+    low = linreg_device_lowering(num_rows, num_cols, tile=tile, lam=lam,
+                                 seed=seed, device=device)
+    values, seconds = _run_migrated(low, cut, direction)
+    return low.finalize(values), values, seconds
+
+
+def recommendation_migrated(
+    n_users: int,
+    n_items: int,
+    cut: int,
+    direction: str = "host_to_device",
+    tile: int = 64,
+    density: float = 0.3,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+):
+    """The recommendation pipeline with one mid-flight migration.
+
+    Returns (top items in row space, stage values, seconds of the host
+    and walk parts).
+    """
+    low = recommendation_device_lowering(n_users, n_items, tile=tile,
+                                         density=density, seed=seed,
+                                         device=device)
+    values, seconds = _run_migrated(low, cut, direction)
+    return values["scores"], values, seconds

@@ -154,9 +154,15 @@ _GUARD = textwrap.dedent("""
     import repro_torch
     for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
         importlib.import_module(m.name)
-    from repro_torch.vee.apps import linear_regression_device
+    from repro_torch.vee.apps import (linear_regression_device,
+                                      recommendation_migrated)
     beta, _, _ = linear_regression_device(256, 5, device="cpu")
     assert beta.shape == (5, 1)
+    top, _, _ = recommendation_migrated(128, 16, cut=3, device="cpu")
+    assert top.shape == (128,)
+    for m in ("task", "victim", "queues", "online", "telemetry", "executor",
+              "submit", "dag", "preempt"):
+        assert f"repro_torch.core.{m}" in sys.modules, m
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
     print("ok")

@@ -11,7 +11,9 @@ reduction, so float sums agree to a relative 1e-4 of the output's largest
 magnitude; ``scores`` (an argmax over IEEE-rounded arithmetic), stamps,
 max-valued outputs and the stagewise walk must match bitwise. ``beta``
 agrees with the float64 oracle to 1e-2 of its largest feature entry (the
-features' betas are small: y is drawn apart from X).
+features' betas are small: y is drawn apart from X). A migrated run's sums
+are held to the unmigrated kernel walk by the same ``SUM_RTOL``: the host
+part sums its tiles in PyTorch's order, the kernel in its own.
 """
 
 import dataclasses
@@ -20,7 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import PipelineDAG, Stage, build_dag_tables
+from repro_torch.core import (PipelineDAG, PreemptiveRunner, SchedulerConfig,
+                              Stage, build_dag_tables)
+from repro_torch.core.preempt import device_remainder
 from repro_torch.core.partitioners import PARTITIONERS
 from repro_torch.kernels import _build
 from repro_torch.kernels import dag_walk as twalk
@@ -129,3 +133,78 @@ def test_end_to_end_small(cuda):
     assert top.device.type == "cuda"
     agree = (top.cpu().numpy() == tapps.recommendation_oracle(1024, 128)).mean()
     assert agree >= 0.999
+
+
+def _seeded_remainder(low, cut):
+    cfg = SchedulerConfig(technique="SS", queue_layout="CENTRALIZED", n_workers=1)
+    _, ck = PreemptiveRunner(low.dag, cfg, preempt_after=cut).run()
+    return device_remainder(ck, low)
+
+
+@pytest.mark.parametrize("name,cut", [("linreg", 40), ("linreg", 70),
+                                      ("recommendation", 10)])
+def test_seeded_walk_matches_plain(cuda, name, cut):
+    build, kw = LOWERINGS[name]
+    low = build(**kw, device=cuda)
+    plan = _seeded_remainder(low, cut)
+    seeded = [s.name for s in plan.stages if s.seed is not None]
+    assert seeded and all(plan.values[s.seed].device.type == "cuda"
+                          for s in plan.stages if s.seed)
+    before = _build.DAG_WALK.launches[f"walk_{name}"]
+    got = plan.walk()
+    assert _build.DAG_WALK.launches[f"walk_{name}"] == before + 1
+    want = twalk.dag_walk_plain(plan.stages, plan.operands, plan.values,
+                                plan.table, plan.tile)
+    for k in seeded:
+        _close_sum(got[k], want[k], k)
+        seed = plan.values[f"{k}__resume"]
+        assert not torch.equal(got[k], seed)  # the walk added to the seed
+
+
+@pytest.mark.parametrize("direction", ["host_to_device", "device_to_host"])
+def test_migration_on_card_matches_unmigrated(cuda, direction):
+    n, d1 = LOWERINGS["linreg"][1].values()
+    want, want_vals, _ = tapps.linear_regression_device(n, d1)
+    before = _build.DAG_WALK.launches["walk_linreg"]
+    cut = {"host_to_device": n // 64 + 3, "device_to_host": 2 * (n // 64) - 5}
+    beta, vals, seconds = tapps.linear_regression_migrated(n, d1, cut[direction],
+                                                           direction=direction)
+    assert _build.DAG_WALK.launches["walk_linreg"] == before + 1
+    assert seconds["walk"] > 0 and seconds["host"] > 0
+    for k in want_vals:
+        assert vals[k].device.type == "cuda"
+        _close_sum(vals[k], want_vals[k], k)
+    np.testing.assert_allclose(beta, want, atol=1e-2 * np.abs(want[:-1]).max())
+
+    users, items = LOWERINGS["recommendation"][1].values()
+    low = tapps.recommendation_device_lowering(users, items, device=cuda)
+    want_vals, _ = tapps.run_device_dag(low, "SS")
+    before = _build.DAG_WALK.launches["walk_recommendation"]
+    cut = {"host_to_device": 9, "device_to_host": 2 * (users // 64) - 7}
+    top, vals, _ = tapps.recommendation_migrated(users, items, cut[direction],
+                                                 direction=direction)
+    assert _build.DAG_WALK.launches["walk_recommendation"] == before + 1
+    for k in ("item_norms", "user_bias"):
+        _close_sum(vals[k], want_vals[k], k)
+    assert top.device.type == "cuda"
+    assert torch.equal(top, tapps.scores_plain(low.values["R"], vals["item_norms"],
+                                               vals["user_bias"]))
+
+
+def test_seeded_stage_refuses_multi_shard_walk_on_card(cuda):
+    low = tapps.recommendation_device_lowering(2048, 256, device=cuda)
+    keep = [s for s in low.stages if s.name != "scores"]
+    stages = [dataclasses.replace(keep[0], seed="seed"), keep[1]]
+    dag = PipelineDAG([Stage(s.name, 2048 // low.tile, None, combine=s.combine)
+                       for s in keep])
+    rows = build_dag_tables(dag, 1, "GSS", n_shards=2, n_workers=4).tables.copy()
+    rows[:, :, 1:] *= low.tile
+    values = dict(low.values, seed=torch.zeros(256, device=cuda))
+    before = sum(_build.DAG_WALK.launches.values())
+    with pytest.raises(ValueError, match="'item_norms' starts from seed"):
+        twalk.dag_walk_sharded(stages, low.operands, values, rows, low.tile)
+    assert sum(_build.DAG_WALK.launches.values()) == before
+    with pytest.raises(ValueError, match="seed 'seed' lies on cpu"):
+        twalk.dag_walk(stages, low.operands, dict(values, seed=torch.zeros(256)),
+                       rows[0], low.tile)
+    assert sum(_build.DAG_WALK.launches.values()) == before
