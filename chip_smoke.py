@@ -8,7 +8,12 @@ super-table walker kernel and the DLS-scheduled CC step — at real sizes:
 
 * linear regression, 1,000,000 rows x 101 columns (the repo's Fig. 10 size);
 * recommendation, 65,536 users x 2,048 items at density 0.3;
-* one CC propagation step on the dense scale-14 RMAT graph (n = 16,384).
+* one CC propagation step on the dense scale-14 RMAT graph (n = 16,384);
+* MoE expert dispatch at Qwen1.5-MoE-A2.7B's full widths (60 routed experts,
+  top-4, d_model 2,048, d_ff_expert 1,408, capacity factor 1.25) over 4,096
+  tokens (skew 1.2, seed 0): 60 slabs of capacity 342;
+* front-door batches of 8 members (``BatchPolicy.max_batch``): linreg
+  8 x (131,072 x 101) and recommendation 8 x (8,192 x 2,048), seeds 1-8.
 
 Phases, each printed as one JSON line with its seconds: environment, build
 of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
@@ -20,8 +25,14 @@ kernel's bound. Then the migration path: both pipelines at the same sizes,
 moved host -> device and device -> host mid-flight through
 ``linear_regression_migrated`` / ``recommendation_migrated`` (counters set
 to 0 just before each call and read just after), each cut where a ``sum``
-stage is partly done, so the resumed walk starts from a seed (K3). Any
-failed check exits non-zero. Without a CUDA device, or without the
+stage is partly done, so the resumed walk starts from a seed (K3). Then the
+MoE path (``moe_dispatch_lowering_for`` -> ``moe_device_lowering`` ->
+``run_device_dag`` -> combine: exactly one walker launch) held to the plain
+walk and to a float64 oracle, and the batched path (``merge_device_lowerings``
+-> ``run_device_dag``: one launch per batch, every member bitwise equal to
+its single-launch walk). TF32 is off for every check and time
+(``allow_tf32 = False``), so library calls run in full fp32. Any failed
+check exits non-zero. Without a CUDA device, or without the
 repository around it, the script fails and prints no result.
 """
 
@@ -72,6 +83,21 @@ MIGRATED_FACTOR = 2.0
 # tiles before the end of `item_norms`, the only sum stage, which ends at
 # two thirds of the table.
 LIN_UNITS, REC_UNITS = LINREG_ROWS // TILE, REC_USERS // TILE
+
+MOE_ARCH, MOE_TOKENS, MOE_SKEW = "qwen2-moe-a2.7b", 4_096, 1.2
+# an MoE slab entry is two products: h = x wi over d terms, then
+# out = (silu(g) * u) wo over f terms. Its limit is eps * sqrt(f) * sum|terms|
+# of the second product, plus the first product's limit eps * sqrt(d) *
+# sum|terms| carried through silu(g) * u (|silu'| <= 1.1) and wo, plus
+# 4 eps of |silu(g) * u| for the gating's own roundings (exp, add, divide,
+# multiply). Against the float64 oracle the kernel takes the limit; against
+# the plain version both sides round, so twice it.
+SILU_SLOPE = 1.1
+BATCH = 8
+B_LIN_ROWS, B_REC_USERS = 131_072, 8_192
+# a batch member's top items vs the float64 oracle: 8,192 users each, where
+# a float32 near-tie flips about one user in 10,000 (the 65,536-user run above)
+B_REC_AGREEMENT = 0.999
 MIGRATIONS = (
     ("linreg", "host_to_device", LIN_UNITS + 128),
     ("linreg", "device_to_host", 2 * LIN_UNITS - 256),
@@ -102,6 +128,20 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def beyond(got, want, limit) -> tuple[int, float, float]:
+    """Entries where ``|got - want|`` passes ``limit``: their count, the
+    largest absolute error, and the largest share of its limit an entry's
+    error takes."""
+    diff = (got.double() - want.double()).abs()
+    return (int((diff > limit).sum()), float(diff.max()),
+            float((diff / limit.clamp_min(1e-300)).max()))
+
+
+def launch_counts(kernels) -> dict:
+    """Every kernel entry point's launch count, by entry name."""
+    return {e: n for k in kernels for e, n in k.launches.items()}
+
+
 def excess(kernel, plain, abs_sum, adds: int, factor: float = 1.0):
     """Entries of a sum output beyond their limit against another version.
 
@@ -111,10 +151,7 @@ def excess(kernel, plain, abs_sum, adds: int, factor: float = 1.0):
     it, the largest absolute error, and the largest share of its limit that
     an entry's error takes.
     """
-    diff = (kernel.double() - plain.double()).abs()
-    tol = factor * EPS32 * math.sqrt(adds) * abs_sum.double()
-    return (int((diff > tol).sum()), float(diff.max()),
-            float((diff / tol.clamp_min(1e-300)).max()))
+    return beyond(kernel, plain, factor * EPS32 * math.sqrt(adds) * abs_sum.double())
 
 
 def close(kernel, plain, abs_sum, adds: int, what: str,
@@ -160,6 +197,263 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def moe_phase(dev, walk_inputs) -> dict:
+    """The MoE path at full width: one walker launch of the MoE program.
+
+    Returns the kernel's row for the ``kernels`` line.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dag_walk import dag_walk, dag_walk_plain
+    from repro_torch.vee import apps, ml_apps
+
+    cfg = get_config(MOE_ARCH)
+    for k in _build.KERNELS:
+        k.launches.clear()
+    t0 = time.perf_counter()
+    low = ml_apps.moe_dispatch_lowering_for(cfg, n_tokens=MOE_TOKENS, skew=MOE_SKEW,
+                                            seed=0, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dlow = ml_apps.moe_device_lowering(low)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    vals, ddt = apps.run_device_dag(dlow)
+    y = dlow.finalize(vals)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = launch_counts(_build.KERNELS)
+    require(launches == {"walk_moe": 1}, f"moe: launches {launches}, want one walk_moe")
+
+    E, C, d = low.meta["n_experts"], low.meta["capacity"], low.meta["d_model"]
+    wi, wo, xdisp = dlow.values["wi"], dlow.values["wo"], dlow.values["xdisp"]
+    f, k = wo.shape[1], low.meta["moe"].top_k
+    require((E, C, d, f, k) == (60, 342, 2048, 1408, 4),
+            f"moe widths {(E, C, d, f, k)} are not Qwen1.5-MoE-A2.7B's at T={MOE_TOKENS}")
+    require(y.shape == (MOE_TOKENS, d) and bool(torch.isfinite(y).all()),
+            "moe combined output malformed")
+    rows = walk_inputs(dlow)
+    walk = lambda: dag_walk(dlow.stages, dlow.operands, dlow.values, rows, C)["experts"]  # noqa: E731
+    plain = lambda: dag_walk_plain(dlow.stages, dlow.operands, dlow.values, rows,  # noqa: E731
+                                   C)["experts"]
+    got, want = walk(), plain()
+    require(torch.equal(got, vals["experts"]), "moe walk differs from the main path's")
+
+    # float64 oracle and each entry's limit, one expert at a time
+    ref = torch.empty((E * C, d), dtype=torch.float64, device=dev)
+    lim = torch.empty_like(ref)
+    for g in range(E):
+        x64, wi64, wo64 = xdisp[g * C:(g + 1) * C].double(), wi[g].double(), wo[g].double()
+        h, A = x64 @ wi64, x64.abs() @ wi64.abs()
+        s, u = F.silu(h[:, :f]), h[:, f:]
+        a = s * u
+        B = SILU_SLOPE * u.abs() * A[:, :f] + s.abs() * A[:, f:]
+        ref[g * C:(g + 1) * C] = a @ wo64
+        lim[g * C:(g + 1) * C] = EPS32 * ((math.sqrt(f) + 4) * (a.abs() @ wo64.abs())
+                                          + math.sqrt(d) * (B @ wo64.abs()))
+        del x64, wi64, wo64, h, A, s, u, a, B
+    bad_o, err_o, share_o = beyond(got, ref, lim)
+    require(bad_o == 0, f"moe walk vs float64: {bad_o} entries beyond the limit, "
+                        f"max abs err {err_o:.3g}")
+    bad_p, err_p, share_p = beyond(got, want, 2 * lim)
+    require(bad_p == 0, f"moe walk vs plain: {bad_p} entries beyond twice the limit, "
+                        f"max abs err {err_p:.3g}")
+    # the combined (T, d) answer: the slabs' limits carried through the
+    # weighted gather, plus the gather's own roundings (k terms), both sides
+    idx, w, pos, _ = ml_apps._dispatch_plan(low.meta["route_build"], E, C)
+    y_plain = dlow.finalize({"experts": want})
+    require(torch.equal(y, dlow.finalize({"experts": got})),
+            "moe combine differs from the main path's")
+    y_lim = 2 * (ml_apps._combine(lim, idx, abs(w).astype("float64"), pos, C)
+                 + EPS32 * math.sqrt(k) * ml_apps._combine(
+                     got.double().abs(), idx, abs(w).astype("float64"), pos, C))
+    bad_y, err_y, share_y = beyond(y, y_plain, y_lim)
+    require(bad_y == 0, f"moe combined vs plain: {bad_y} entries beyond the limit, "
+                        f"max abs err {err_y:.3g}")
+    del ref
+
+    xd = xdisp.view(E, C, d)
+
+    def library():
+        h = torch.bmm(xd, wi)
+        return torch.bmm(F.silu(h[..., :f]) * h[..., f:], wo)
+
+    kept = int(low.meta["expert_tokens"].sum())
+    # what this run's data needs: the kept token rows through both products,
+    # every weight read once, every output row written once
+    moe_flops = 6 * kept * d * f + 4 * kept * f
+    moe_bytes = 4 * (kept * d + E * d * 2 * f + E * f * d + E * C * d) + 12 * len(rows)
+    full_flops = 6 * E * C * d * f
+    ms = timed(walk, 5)
+    emit("moe", arch=MOE_ARCH, tokens=MOE_TOKENS, skew=MOE_SKEW, experts=E, top_k=k,
+         capacity=C, d_model=d, d_ff_expert=f, kept_rows=kept, slab_rows=E * C,
+         launches=launches, walk_ms=ms, seconds=t3 - t0, lowering_seconds=t1 - t0,
+         device_lowering_seconds=t2 - t1, walk_and_combine_seconds=t3 - t2,
+         tol="eps32 * ((sqrt(f) + 4) * |a| @ |wo| + sqrt(d) * B @ |wo|), "
+             "B = 1.1 |u| (|x| @ |wi_g|) + |silu(g)| (|x| @ |wi_u|); x2 vs plain",
+         vs_float64=[err_o, share_o], vs_plain=[err_p, share_p],
+         combined_vs_plain=[err_y, share_y],
+         bound_ms_full_slabs=full_flops / PEAK_FP32 * 1e3)
+    return dict(
+        name="dag_walk[moe.experts]", route="cuda", source="src/repro_torch/csrc/dag_walk.cu",
+        replaces="src/repro/kernels/dag_walk.py:218 (MoE program, "
+                 "src/repro/vee/ml_apps.py:301)",
+        launches=launches["walk_moe"], max_abs_err=err_p, max_abs_err_vs_float64=err_o,
+        ms=ms, plain_ms=timed(plain, 1, warmup=0), library_ms=timed(library, 5),
+        library_call="torch.bmm(x, wi) -> silu(g) * u -> torch.bmm(., wo) on (E, C, .)",
+        shapes=f"x ({E * C}, {d}), wi ({E}, {d}, {2 * f}), wo ({E}, {f}, {d}) f32, "
+               f"{len(rows)} slots, tile {C}, {kept} kept rows",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(moe_bytes, moe_flops))))
+
+
+def batched_phase(dev, walk_inputs) -> list[dict]:
+    """Front-door batches of BATCH members, one launch each, against the
+    members' single launches. Returns the kernels' rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dag_walk import dag_walk, dag_walk_plain
+    from repro_torch.vee import apps
+
+    seeds = range(1, BATCH + 1)
+    rows_out = []
+    for pipe in ("linreg", "recommendation"):
+        t = time.perf_counter()
+        if pipe == "linreg":
+            lows = [apps.linreg_device_lowering(B_LIN_ROWS, LINREG_COLS, tile=TILE,
+                                                seed=s, device=dev) for s in seeds]
+        else:
+            lows = [apps.recommendation_device_lowering(B_REC_USERS, REC_ITEMS,
+                                                        tile=TILE, seed=s, device=dev)
+                    for s in seeds]
+        merged = apps.merge_device_lowerings(lows)
+        torch.cuda.synchronize()
+        lowering_s = time.perf_counter() - t
+        for k in _build.KERNELS:
+            k.launches.clear()
+        t = time.perf_counter()
+        vals, _ = apps.run_device_dag(merged)
+        answers = merged.finalize(vals)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t
+        batch_launches = launch_counts(_build.KERNELS)
+        require(batch_launches == {f"walk_{pipe}": 1},
+                f"{pipe} batch: launches {batch_launches}, want one walk_{pipe}")
+        for k in _build.KERNELS:
+            k.launches.clear()
+        t = time.perf_counter()
+        singles = [apps.run_device_dag(low)[0] for low in lows]
+        torch.cuda.synchronize()
+        singles_s = time.perf_counter() - t
+        single_launches = launch_counts(_build.KERNELS)
+        require(single_launches == {f"walk_{pipe}": BATCH},
+                f"{pipe} singles: launches {single_launches}, want {BATCH}")
+        members = apps.split_device_values(vals, BATCH)
+        for j in range(BATCH):
+            for name, v in singles[j].items():
+                require(torch.equal(members[j][name], v),
+                        f"{pipe} batch member {j}: {name} differs bitwise from "
+                        "its single-launch walk")
+
+        rows = walk_inputs(merged)
+        walk = lambda: dag_walk(merged.stages, merged.operands, merged.values, rows, TILE)  # noqa: E731
+        plain = lambda: dag_walk_plain(merged.stages, merged.operands,  # noqa: E731
+                                       merged.values, rows, TILE)
+        got, want = walk(), plain()
+        single_rows = [walk_inputs(low) for low in lows]
+
+        def walk_singles():
+            for low, r in zip(lows, single_rows):
+                dag_walk(low.stages, low.operands, low.values, r, TILE)
+
+        checks, errs, shares = {}, [], []
+        if pipe == "linreg":
+            n, d = B_LIN_ROWS, LINREG_COLS - 1
+            X1ys = []
+            for j, low in enumerate(lows):
+                X, y = low.values["X"], low.values["y"]
+                X1y = torch.cat([(X - X.mean(0)) / X.std(0, unbiased=False),
+                                 torch.ones(n, 1, device=dev), y], dim=1)
+                A1y = X1y.abs()
+                abs_sum = {"moments": torch.stack([X.abs().sum(0), (X * X).sum(0)]),
+                           "syrk_gemv": (A1y.T @ A1y)[:d + 1]}
+                for s in ("moments", "syrk_gemv"):
+                    e, r = close(got[f"{s}#{j}"], want[f"{s}#{j}"], abs_sum[s],
+                                 n // TILE, f"batched linreg member {j} {s}")
+                    errs.append(e)
+                    shares.append(r)
+                X1ys.append(X1y)
+                beta = answers[j].astype("float64")
+                ref = apps.linear_regression_oracle(n, LINREG_COLS, seed=seeds[j])
+                babs = abs(beta - ref)
+                require(float(babs[:-1].max()) <= BETA_RTOL * float(abs(ref[:-1]).max())
+                        and float(babs[-1].max()) <= BETA_RTOL * float(abs(ref[-1]).max()),
+                        f"batched linreg member {j}: beta beyond the oracle's limits")
+                checks.setdefault("beta_max_abs_err", []).append(float(babs.max()))
+            X1yb = torch.stack(X1ys)
+            del X1ys
+            library = lambda: torch.bmm(X1yb.transpose(1, 2), X1yb)  # noqa: E731
+            library_call = "torch.bmm(X1y^T, X1y) over the 8 members (syrk_gemv only)"
+            b_bytes = BATCH * (4 * (n * d + n + 2 * d + (d + 1) * (d + 2))) + 12 * len(rows)
+            b_flops = BATCH * (5 * n * d + n * (d + 1) * (d + 2) + 2 * n * (d + 1))
+            shapes = f"{BATCH} x X ({n}, {d}) f32, {len(rows)} slots, tile {TILE}"
+        else:
+            U, I = B_REC_USERS, REC_ITEMS
+            Rs = []
+            for j, low in enumerate(lows):
+                R = low.values["R"]
+                for s, a, adds in (("item_norms", (R * R).sum(0), U // TILE),
+                                   ("user_bias", R.abs().sum(1) / I, I)):
+                    e, r = close(got[f"{s}#{j}"], want[f"{s}#{j}"], a, adds,
+                                 f"batched recommendation member {j} {s}")
+                    errs.append(e)
+                    shares.append(r)
+                top = answers[j]["scores"]
+                require(torch.equal(top, apps.scores_plain(R, answers[j]["item_norms"],
+                                                           answers[j]["user_bias"])),
+                        f"batched recommendation member {j}: scores differ bitwise "
+                        "from the plain body")
+                agree = float((top.cpu().numpy() == apps.recommendation_oracle(
+                    U, I, seed=seeds[j])).mean())
+                require(agree >= B_REC_AGREEMENT, f"batched recommendation member {j}: "
+                                                  f"scores agree on {agree:.6f}")
+                checks.setdefault("scores_agreement", []).append(agree)
+                Rs.append(R)
+            Rb = torch.stack(Rs)
+            del Rs
+            library = lambda: Rb.square().sum(1)  # noqa: E731
+            library_call = "R.square().sum(1) over the 8 members' stacked R (item_norms only)"
+            b_bytes = BATCH * 4 * (U * I + I + 2 * U) + 12 * len(rows)
+            b_flops = BATCH * (6 * U * I + 2 * I)
+            shapes = f"{BATCH} x R ({U}, {I}) f32, {len(rows)} slots, tile {TILE}"
+        for name in got:
+            require(torch.equal(got[name], vals[name]),
+                    f"{pipe} batch: {name} differs from the main path's walk")
+        ms = timed(walk, 5)
+        singles_ms = timed(walk_singles, 5)
+        emit("batched", pipeline=pipe, members=BATCH, slots=len(rows),
+             batch_launches=batch_launches, single_launches=single_launches,
+             batch_ms=ms, singles_ms=singles_ms, batch_seconds=batch_s,
+             singles_seconds=singles_s, lowering_seconds=lowering_s,
+             members_bitwise_equal_to_singles=True,
+             sum_tol="eps32 * sqrt(adds) * sum|terms|",
+             worst_share_of_limit=max(shares), checks=checks)
+        rows_out.append(dict(
+            name=f"dag_walk[{pipe}, batched x{BATCH}]", route="cuda",
+            source="src/repro_torch/csrc/dag_walk.cu",
+            replaces="src/repro/kernels/dag_walk.py:218 (batched, "
+                     "src/repro/vee/apps.py:485)",
+            launches=batch_launches[f"walk_{pipe}"], max_abs_err=max(errs), ms=ms,
+            singles_ms=singles_ms, plain_ms=timed(plain, 1, warmup=0),
+            library_ms=timed(library, 10), library_call=library_call, shapes=shapes,
+            **dict(zip(("bound_ms", "bound_by"), bound_ms(b_bytes, b_flops)))))
+    return rows_out
 
 
 def main() -> None:
@@ -308,7 +602,7 @@ def main() -> None:
     u = cc_step(G, c)
     torch.cuda.synchronize()
     t_cc = time.perf_counter() - t
-    launches = {e: n for k in _build.KERNELS for e, n in k.launches.items()}
+    launches = launch_counts(_build.KERNELS)
     emit("main_path", launches=launches, linreg_seconds=t_lin,
          recommendation_seconds=t_rec, cc_seconds=t_cc)
     for entry in ("walk_linreg", "walk_recommendation", "cc_propagate"):
@@ -413,7 +707,7 @@ def main() -> None:
             answer, vals, split = apps.recommendation_migrated(
                 REC_USERS, REC_ITEMS, cut, direction=direction)
         seconds = time.perf_counter() - t
-        mig_launches = {e: c for k in _build.KERNELS for e, c in k.launches.items()}
+        mig_launches = launch_counts(_build.KERNELS)
         require(mig_launches == {f"walk_{pipe}": 1},
                 f"{pipe} {direction}: launches {mig_launches}, want one walk_{pipe}")
         checks = {}
@@ -539,6 +833,9 @@ def main() -> None:
          zero_seed_worst_share_of_limit={
              "linreg syrk_gemv": zero_lin[1], "recommendation item_norms": zero_rec[1]},
          seconds=time.perf_counter() - t)
+
+    kernels.append(moe_phase(dev, walk_inputs))
+    kernels.extend(batched_phase(dev, walk_inputs))
 
     emit("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)

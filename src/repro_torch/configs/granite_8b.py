@@ -1,0 +1,19 @@
+"""Granite-8B (code): llama-arch dense decoder.
+
+[arXiv:2405.04324; hf]  36L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=49152.
+"""
+
+from .base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="granite-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=14336,
+    vocab_size=49152,
+    rope_theta=10_000_000.0,
+    source="arXiv:2405.04324; hf",
+))

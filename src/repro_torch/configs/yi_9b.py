@@ -1,0 +1,18 @@
+"""Yi-9B: llama-arch dense GQA decoder.
+
+[arXiv:2403.04652; hf]  48L d_model=4096 32H (GQA kv=4) d_ff=11008 vocab=64000.
+"""
+
+from .base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="yi-9b",
+    family="dense",
+    n_layers=48,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=11008,
+    vocab_size=64000,
+    source="arXiv:2403.04652; hf",
+))

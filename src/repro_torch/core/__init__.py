@@ -1,7 +1,14 @@
 """Scheduler core: partitioners, queues and the host executors, the
-pipeline-DAG runtime, super-tables, and chunk-boundary checkpoints with
-host<->device migration."""
+pipeline-DAG runtime, super-tables, chunk-boundary checkpoints with
+host<->device migration, the lowering toolkit, the config registry and
+the front door's same-shape batching."""
 
+from .admission import (
+    BatchPolicy,
+    batch_signature,
+    coalesce_submissions,
+    merge_dags,
+)
 from .dag import (
     DEP_ELEMENTWISE,
     DEP_FULL,
@@ -25,6 +32,15 @@ from .device_schedule import (
     dag_table_cache_stats,
 )
 from .executor import ExecutionStats, ScheduledExecutor, SchedulerConfig
+from .lower import (
+    Lowered,
+    chain_dag,
+    costs_from_sizes,
+    fanout_stage,
+    measure_stage_costs,
+    row_stage,
+    run_direct,
+)
 from .online import (
     SELECTORS,
     ChunkObservation,
@@ -55,6 +71,7 @@ from .queues import (
     SlotCentralizedQueue,
     SlotDistributedQueues,
 )
+from .registry import make_config
 from .submit import Submission, as_submission
 from .task import RangeTask, tasks_from_schedule
 from .telemetry import NULL_TRACER, NullTracer, Span, Tracer, as_tracer
@@ -77,6 +94,10 @@ __all__ = [
     "OnlineScheduler", "UCB1Selector", "EXP3Selector", "SELECTORS",
     "default_online_arms",
     "Submission", "as_submission",
+    "Lowered", "row_stage", "chain_dag", "fanout_stage", "run_direct",
+    "measure_stage_costs", "costs_from_sizes",
+    "make_config",
+    "batch_signature", "merge_dags", "coalesce_submissions", "BatchPolicy",
     "StageCheckpoint", "JobCheckpoint", "PreemptableStageRun",
     "PreemptiveRunner", "resume_on_host", "migrate_to_device",
     "run_device_prefix", "checkpoint_from_reference",

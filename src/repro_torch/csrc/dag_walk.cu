@@ -1,10 +1,14 @@
 // The multi-stage super-table walker: one cooperative launch drains a whole
 // (stage, start, size) super-table.
 //
-// Replaces the Pallas kernel repro/kernels/dag_walk.py:dag_walk for two
-// programs, the linear-regression pipeline (moments -> syrk_gemv) and the
-// recommendation pipeline (item_norms, user_bias -> scores), whose stage
-// bodies are written out here (repro/vee/apps.py defines them over refs).
+// Replaces the Pallas kernel repro/kernels/dag_walk.py:dag_walk for three
+// programs, whose stage bodies are written out here (repro/vee/apps.py and
+// repro/vee/ml_apps.py define them over refs): the linear-regression
+// pipeline (moments -> syrk_gemv), the recommendation pipeline (item_norms,
+// user_bias -> scores) and the MoE expert program (one gated expert FFN per
+// slot). Each program also runs batched: up to MAX_MEMBERS members of the
+// same program in one table, as the front door's merge_device_lowerings
+// builds it, each stage id mapped to its member's pointers and sizes.
 //
 // Design: a persistent cooperative grid, sized by occupancy. Every CTA
 // walks every slot of the table in order; within a slot the CTAs split the
@@ -25,8 +29,11 @@
 //     are read with L1-bypassing loads (__ldcg);
 //   * padding slots (size 0) and slots of stages without a body here do
 //     nothing (guarantee 3).
-// The stage id -> body map comes from the wrapper: stage ids are the
-// table builder's topological order, not assumed here.
+// The stage id -> body and stage id -> member maps come from the wrapper:
+// stage ids are the table builder's topological order, not assumed here.
+// Nothing a member computes depends on the grid size or on the other
+// members (each entry has one owner and one order), so a member of a batch
+// is bitwise equal to the same lowering walked alone.
 //
 // Bound on an H100: linreg reads X once (n x d float32) and needs about
 // n (d+1)(d+2) flop for one triangle of the symmetric syrk, 2 n (d+1) for
@@ -36,18 +43,39 @@
 // owner thread walks the slots in order, so the time is the number of
 // slots times one tile's latency. A two-phase partial-and-fold design is
 // the way to the bound.
+//
+// The MoE program (repro/vee/ml_apps.py:moe_device_lowering): a slot is
+// expert g's fixed-capacity slab, C rows of the dispatch buffer, and the
+// body is out = (silu(x wi_g[:, :f]) * (x wi_g[:, f:])) wo_g in fp32. At
+// Qwen1.5-MoE-A2.7B's widths (E = 60, C = 342, d = 2048, f = 1408) that is
+// 6 E C d f = 3.55e11 flop against 2.4 GB of bytes: operations-bound
+// (5.3 ms at 67 TFLOP/s). The weights are indexed by slot (`tile` block
+// index), never repeated along the rows. One slab's gated h (C x f) is
+// 1.9 MB, far past shared memory, so the body runs in two phases over the
+// whole grid: phase 1 writes h into a scratch buffer, a grid barrier,
+// phase 2 computes out from it, and a second barrier before the next slot
+// reuses the scratch. Every CTA takes 64 x 64 output tiles by grid stride
+// (6 x 44 in phase 1, 6 x 32 in phase 2 at full width), so every CTA
+// works, where a CTA owning whole rows would keep 43 busy. Each output is
+// one thread's fmaf chain over k in ascending order: deterministic, no
+// atomics; silu uses IEEE expf and correctly rounded division. This is
+// the simple tiled fp32 kernel; wgmma and TMA are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int MAX_MEMBERS = 8;        // BatchPolicy.max_batch
 
 struct Walk {
   const int* table;                   // (n_slots, 3): stage id, start, size
   int n_slots;
   const int* body_of_sid;             // stage id -> body index, -1 = none
+  const int* member_of_sid;           // stage id -> batch member
   int n_stages;
   const unsigned char* sync_before;   // per slot: grid barrier first
   int* stamps;                        // (n_slots, 4) or null
@@ -194,10 +222,20 @@ struct Linreg {
 
   static __device__ int n_rows(const Args& a) { return a.n; }
 
-  static __device__ void run(int body, const Args& a, int row0, int rows,
+  static __device__ void run(int body, const Args& a, const Walk& w, int row0,
                              int slot, float* smem) {
-    if (body == 0) moments(a, row0, rows);
-    else syrk(a, row0, rows, smem);
+    if (body == 0) moments(a, row0, w.tile);
+    else syrk(a, row0, w.tile, smem);
+  }
+
+  // host side: X, y, moments, mom_in, syrk; n, d
+  static constexpr int NP = 5, ND = 2;
+  static Args unpack(void* const* p, const int* d) {
+    return Args{(const float*)p[0], (const float*)p[1], (float*)p[2],
+                (const float*)p[3], (float*)p[4], d[0], d[1]};
+  }
+  static size_t smem(const Args& a, int tile) {
+    return sizeof(float) * (2 * (size_t)a.d + (size_t)tile * (a.d + 1) + tile);
   }
 };
 
@@ -265,19 +303,165 @@ struct Recommendation {
 
   static __device__ int n_rows(const Args& a) { return a.n_users; }
 
-  static __device__ void run(int body, const Args& a, int row0, int rows,
+  static __device__ void run(int body, const Args& a, const Walk& w, int row0,
                              int slot, float*) {
-    if (body == 0) item_norms(a, row0, rows);
-    else if (body == 1) user_bias(a, row0, rows, slot);
-    else scores(a, row0, rows, slot);
+    if (body == 0) item_norms(a, row0, w.tile);
+    else if (body == 1) user_bias(a, row0, w.tile, slot);
+    else scores(a, row0, w.tile, slot);
   }
+
+  // host side: R, item_norms, user_bias, scores, norms_in, bias_in;
+  // n_users, n_items
+  static constexpr int NP = 6, ND = 2;
+  static Args unpack(void* const* p, const int* d) {
+    return Args{(const float*)p[0], (float*)p[1], (float*)p[2], (int*)p[3],
+                (const float*)p[4], (const float*)p[5], d[0], d[1]};
+  }
+  static size_t smem(const Args&, int) { return 0; }
+};
+
+// ------------------------------------------------------------------- moe
+constexpr int BM = 64, BN = 64, BK = 16, AP = BM + 4;  // AP: padded A rows
+
+// One BM x BN tile of A (M x K, row-major, lda) times B (K x ldb,
+// row-major), k in ascending order. Column c of the shared B tile is global
+// column colA + c (c < BN/2) or colB + c - BN/2; a column at or past its
+// half's limit, a row at or past M and a k at or past K load as zero.
+// Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty*4 + i and shared
+// columns {2tx, 2tx+1, BN/2+2tx, BN/2+2tx+1}: acc[i][0..3]. CG reads A
+// with L1-bypassing loads (A written earlier in this launch).
+template <bool CG>
+__device__ void tile_gemm(const float* A, size_t lda, int m0, int M, int K,
+                          const float* B, size_t ldb, int colA, int limA,
+                          int colB, int limB, float* smem, float acc[4][4]) {
+  float* As = smem;             // [BK][AP], the A tile transposed
+  float* Bs = smem + BK * AP;   // [BK][BN]
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    __syncthreads();  // the previous step (or slot) is done with smem
+    for (int e = tid; e < BM * BK; e += THREADS) {
+      const int r = e / BK, kk = e % BK, gr = m0 + r, gk = k0 + kk;
+      float v = 0.f;
+      if (gr < M && gk < K) {
+        const float* p = A + (size_t)gr * lda + gk;
+        v = CG ? __ldcg(p) : __ldg(p);
+      }
+      As[kk * AP + r] = v;
+    }
+    for (int e = tid; e < BK * BN; e += THREADS) {
+      const int kk = e / BN, c = e % BN, gk = k0 + kk;
+      const bool lo = c < BN / 2;
+      const int gc = lo ? colA + c : colB + c - BN / 2;
+      Bs[kk * BN + c] = gk < K && gc < (lo ? limA : limB)
+                            ? __ldg(B + (size_t)gk * ldb + gc) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(As + kk * AP + ty * 4);
+      const float2 b0 = *reinterpret_cast<const float2*>(Bs + kk * BN + 2 * tx);
+      const float2 b1 =
+          *reinterpret_cast<const float2*>(Bs + kk * BN + BN / 2 + 2 * tx);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b0.x, b0.y, b1.x, b1.y};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
+struct Moe {
+  struct Args {
+    const float* x;    // (E*C, d) dispatch buffer, expert g's slab at rows g*C
+    const float* wi;   // (E, d, 2f)
+    const float* wo;   // (E, f, d)
+    float* out;        // (E*C, d) concat output
+    float* h;          // (C, f) scratch: one slab's gated activations
+    int rows, d, f;    // rows = E*C
+  };
+
+  static __device__ __forceinline__ float silu_mul(float g, float u) {
+    return __fmul_rn(__fdiv_rn(g, __fadd_rn(1.f, expf(-g))), u);
+  }
+
+  // experts: out[slab] = (silu(x wi[:, :f]) * (x wi[:, f:])) wo. Every CTA
+  // reaches both barriers, tiles or not.
+  static __device__ void experts(const Args& a, const Walk& w, int row0,
+                                 float* smem) {
+    const int C = w.tile, d = a.d, f = a.f, g = row0 / C;
+    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+    const float* x = a.x + (size_t)row0 * d;
+    const float* wi = a.wi + (size_t)g * d * 2 * f;
+    const float* wo = a.wo + (size_t)g * f * d;
+    float* out = a.out + (size_t)row0 * d;
+    const int tm = (C + BM - 1) / BM;
+    float acc[4][4];
+    // phase 1: gated column tiles of BN/2: h and its u half side by side
+    const int tn1 = (f + BN / 2 - 1) / (BN / 2);
+    for (int t = blockIdx.x; t < tm * tn1; t += gridDim.x) {
+      const int m0 = (t % tm) * BM, n0 = (t / tm) * (BN / 2);
+      tile_gemm<false>(x, d, m0, C, d, wi, 2 * (size_t)f, n0, f, f + n0,
+                       2 * f, smem, acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int r = m0 + ty * 4 + i, j = n0 + 2 * tx + p;
+          if (r < C && j < f) a.h[(size_t)r * f + j] = silu_mul(acc[i][p], acc[i][2 + p]);
+        }
+    }
+    grid_barrier(w.barrier);
+    // phase 2: out = h wo
+    const int tn2 = (d + BN - 1) / BN;
+    for (int t = blockIdx.x; t < tm * tn2; t += gridDim.x) {
+      const int m0 = (t % tm) * BM, n0 = (t / tm) * BN;
+      tile_gemm<true>(a.h, f, m0, C, f, wo, d, n0, d, n0 + BN / 2, d, smem,
+                      acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = m0 + ty * 4 + i;
+          const int c = n0 + (j < 2 ? 2 * tx + j : BN / 2 + 2 * tx + j - 2);
+          if (r < C && c < d) out[(size_t)r * d + c] = acc[i][j];
+        }
+    }
+    grid_barrier(w.barrier);  // the next slot rewrites h
+  }
+
+  static __device__ int n_rows(const Args& a) { return a.rows; }
+
+  static __device__ void run(int, const Args& a, const Walk& w, int row0, int,
+                             float* smem) {
+    experts(a, w, row0, smem);
+  }
+
+  // host side: x, wi, wo, out, h; E*C, d, f
+  static constexpr int NP = 5, ND = 3;
+  static Args unpack(void* const* p, const int* d) {
+    return Args{(const float*)p[0], (const float*)p[1], (const float*)p[2],
+                (float*)p[3], (float*)p[4], d[0], d[1], d[2]};
+  }
+  static size_t smem(const Args&, int) {
+    return sizeof(float) * (BK * AP + BK * BN);
+  }
+};
+
+// Per-member arguments of a (possibly batched) walk, by value in the launch.
+template <class P>
+struct Members {
+  typename P::Args m[MAX_MEMBERS];
 };
 
 template <class P>
 __global__ void __launch_bounds__(THREADS)
-walk_kernel(Walk w, typename P::Args a) {
-  extern __shared__ float smem[];
-  const int n_blocks = max(1, P::n_rows(a) / w.tile);
+walk_kernel(Walk w, Members<P> b) {
+  extern __shared__ __align__(16) float smem[];
   for (int i = 0; i < w.n_slots; ++i) {
     const int sid = __ldg(w.table + 3 * i);
     const int start = __ldg(w.table + 3 * i + 1);
@@ -290,15 +474,16 @@ walk_kernel(Walk w, typename P::Args a) {
     if (size <= 0 || sid < 0 || sid >= w.n_stages) continue;
     const int body = __ldg(w.body_of_sid + sid);
     if (body < 0) continue;
+    const typename P::Args& a = b.m[__ldg(w.member_of_sid + sid)];
     // the Pallas block index map: the slot's row tile, clamped
+    const int n_blocks = max(1, P::n_rows(a) / w.tile);
     const int row0 = min(start / w.tile, n_blocks - 1) * w.tile;
-    P::run(body, a, row0, w.tile, i, smem);
+    P::run(body, a, w, row0, i, smem);
   }
 }
 
 template <class P>
-int launch(const Walk& w, const typename P::Args& a, size_t smem,
-           void* stream) {
+int launch(const Walk& w, const Members<P>& b, size_t smem, void* stream) {
   auto kernel = walk_kernel<P>;
   cudaError_t err;
   if (smem > 48 * 1024) {
@@ -315,8 +500,8 @@ int launch(const Walk& w, const typename P::Args& a, size_t smem,
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   Walk wc = w;
-  typename P::Args ac = a;
-  void* args[] = {&wc, &ac};
+  Members<P> bc = b;
+  void* args[] = {&wc, &bc};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(per_sm * sms),
                                     dim3(THREADS), args, smem,
                                     (cudaStream_t)stream);
@@ -324,35 +509,44 @@ int launch(const Walk& w, const typename P::Args& a, size_t smem,
   return (int)cudaGetLastError();
 }
 
+// The host side of every entry point: `ptrs` holds P::NP pointers and
+// `dims` P::ND sizes for each of the n_members members (host arrays); the
+// dynamic shared memory is the largest member's.
+template <class P>
+int walk(const int* table, int n_slots, const int* body_of_sid,
+         const int* member_of_sid, int n_stages,
+         const unsigned char* sync_before, int* stamps, unsigned int* barrier,
+         int tile, int n_members, void* const* ptrs, const int* dims,
+         void* stream) {
+  if (n_members < 1 || n_members > MAX_MEMBERS || tile < 1)
+    return (int)cudaErrorInvalidValue;
+  const Walk w{table, n_slots, body_of_sid, member_of_sid, n_stages,
+               sync_before, stamps, barrier, tile};
+  Members<P> b{};
+  size_t smem = 0;
+  for (int m = 0; m < n_members; ++m) {
+    b.m[m] = P::unpack(ptrs + m * P::NP, dims + m * P::ND);
+    smem = std::max(smem, P::smem(b.m[m], tile));
+  }
+  return launch<P>(w, b, smem, stream);
+}
+
 }  // namespace
 
-extern "C" int walk_linreg(const int* table, int n_slots, const int* body_of_sid,
-                           int n_stages, const unsigned char* sync_before,
-                           int* stamps, unsigned int* barrier, int tile,
-                           const float* X, const float* y, float* moments,
-                           const float* mom_in, float* syrk, int n, int d,
-                           void* stream) {
-  const Walk w{table, n_slots, body_of_sid, n_stages, sync_before, stamps,
-               barrier, tile};
-  const Linreg::Args a{X, y, moments, mom_in, syrk, n, d};
-  const size_t smem = sizeof(float) * (2 * (size_t)d + (size_t)tile * (d + 1) + tile);
-  return launch<Linreg>(w, a, smem, stream);
-}
+#define WALK_ENTRY(NAME, PROGRAM)                                             \
+  extern "C" int NAME(const int* table, int n_slots, const int* body_of_sid, \
+                      const int* member_of_sid, int n_stages,                \
+                      const unsigned char* sync_before, int* stamps,         \
+                      unsigned int* barrier, int tile, int n_members,        \
+                      void* const* ptrs, const int* dims, void* stream) {    \
+    return walk<PROGRAM>(table, n_slots, body_of_sid, member_of_sid,         \
+                         n_stages, sync_before, stamps, barrier, tile,       \
+                         n_members, ptrs, dims, stream);                     \
+  }
 
-extern "C" int walk_recommendation(const int* table, int n_slots,
-                                   const int* body_of_sid, int n_stages,
-                                   const unsigned char* sync_before, int* stamps,
-                                   unsigned int* barrier, int tile,
-                                   const float* R, float* item_norms,
-                                   float* user_bias, int* scores,
-                                   const float* norms_in, const float* bias_in,
-                                   int n_users, int n_items, void* stream) {
-  const Walk w{table, n_slots, body_of_sid, n_stages, sync_before, stamps,
-               barrier, tile};
-  const Recommendation::Args a{R, item_norms, user_bias, scores, norms_in,
-                               bias_in, n_users, n_items};
-  return launch<Recommendation>(w, a, 0, stream);
-}
+WALK_ENTRY(walk_linreg, Linreg)
+WALK_ENTRY(walk_recommendation, Recommendation)
+WALK_ENTRY(walk_moe, Moe)
 
 extern "C" const char* error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -19,13 +19,18 @@ Each ``WalkStage`` carries two forms of its body. ``body(ctx, ins, out)``
 is plain PyTorch over tile views (``out`` is written in place); the plain
 walker ``dag_walk_plain`` runs it on any device. ``device_body`` names the
 body's CUDA counterpart in ``csrc/dag_walk.cu``, which holds one walker
-template instantiated per program (linreg, recommendation); it replaces
-the Pallas kernel ``repro/kernels/dag_walk.py:dag_walk``. The source note
-there gives the kernel's design and its bound.
+template instantiated per program (linreg, recommendation, moe); it
+replaces the Pallas kernel ``repro/kernels/dag_walk.py:dag_walk``. The
+source note there gives the kernel's design and its bound.
+
+A batched walk (``vee/apps.py:merge_device_lowerings``) holds up to
+``MAX_MEMBERS`` members of one program; each stage's ``member`` picks the
+pointers and sizes its body runs with, so one launch drains the batch.
 
 ``dag_walk`` takes the plain walker for CPU tensors only. For CUDA tensors
 it launches the kernel, or raises — naming the stage — when a stage has
-no device body or no compiled program runs the stages' bodies.
+no device body, when no compiled program runs the stages' bodies, or when
+a batch mixes programs or has more than ``MAX_MEMBERS`` members.
 """
 
 from __future__ import annotations
@@ -42,7 +47,11 @@ from ._build import DAG_WALK, ptr, stream
 
 __all__ = ["WalkOperand", "WalkStage", "WalkCtx", "dag_walk", "dag_walk_plain",
            "dag_walk_stagewise", "dag_walk_sharded", "cuda_program",
-           "sync_flags", "device_table_cache_stats", "clear_device_table_cache"]
+           "sync_flags", "device_table_cache_stats", "clear_device_table_cache",
+           "MAX_MEMBERS"]
+
+#: most members one batched launch holds (``BatchPolicy.max_batch``)
+MAX_MEMBERS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -103,9 +112,11 @@ class WalkOperand:
     """One kernel input: a named tensor with per-axis block indexing.
 
     ``index`` kinds per axis: ``row`` (the slot's row tile — block index
-    ``start // block``, clamped), ``inner`` (the inner step index, for
-    stages that loop over column tiles), ``zero`` (whole axis in one
-    block).
+    ``start // block``, clamped), ``tile`` (one entry per row tile — block
+    index ``start // tile``, clamped: per-slot operands such as an
+    expert's weights, passed once instead of repeated along the rows),
+    ``inner`` (the inner step index, for stages that loop over column
+    tiles), ``zero`` (whole axis in one block).
     """
 
     name: str
@@ -115,7 +126,7 @@ class WalkOperand:
     def __post_init__(self):
         if len(self.block) != len(self.index):
             raise ValueError(f"operand {self.name!r}: block/index rank mismatch")
-        bad = set(self.index) - {"row", "inner", "zero"}
+        bad = set(self.index) - {"row", "tile", "inner", "zero"}
         if bad:
             raise ValueError(f"operand {self.name!r}: unknown index kinds {bad}")
 
@@ -141,6 +152,10 @@ class WalkStage:
     ``seed + tile_0 + tile_1 + ...`` (core/preempt.py:migrate_to_device).
     It must match ``out_shape`` / ``out_dtype`` and lie on the walk's
     device; the walkers raise otherwise.
+
+    ``member`` is the stage's batch member (``merge_device_lowerings``
+    numbers them from 0); the CUDA walker runs each member's bodies with
+    that member's tensors. The plain walker does not read it.
     """
 
     name: str
@@ -154,6 +169,7 @@ class WalkStage:
     inner: int = 1
     device_body: str | None = None
     seed: str | None = None
+    member: int = 0
 
     def __post_init__(self):
         if self.combine not in ("concat", "sum"):
@@ -178,13 +194,15 @@ class WalkCtx:
 
 
 def _block(x: torch.Tensor, block: tuple[int, ...], kinds: tuple[str, ...],
-           start: int, j: int) -> torch.Tensor:
+           start: int, j: int, tile: int) -> torch.Tensor:
     """The view of ``x`` a slot's block index map selects (clamped)."""
     idx = []
     for a, kind in enumerate(kinds):
         nb = max(1, x.shape[a] // block[a])
         if kind == "row":
             b = min(start // block[a], nb - 1)
+        elif kind == "tile":
+            b = min(start // tile, nb - 1)
         elif kind == "inner":
             b = min(j, nb - 1)
         else:
@@ -291,14 +309,15 @@ def dag_walk_plain(
             continue
         s = stages[sid]
         for j in range(s.inner):
-            ins = {n: _block(values[n], *specs[n], start, j) for n in s.operands}
+            ins = {n: _block(values[n], *specs[n], start, j, tile)
+                   for n in s.operands}
             for prod, _kind in s.reads:
                 if prod in outs:
-                    ins[prod] = _block(outs[prod], *out_specs[prod], start, j)
+                    ins[prod] = _block(outs[prod], *out_specs[prod], start, j, tile)
                 else:
-                    ins[prod] = _block(values[prod], *specs[prod], start, j)
+                    ins[prod] = _block(values[prod], *specs[prod], start, j, tile)
             s.body(WalkCtx(i, j, start, size), ins,
-                   _block(outs[s.name], *out_specs[s.name], start, j))
+                   _block(outs[s.name], *out_specs[s.name], start, j, tile))
     return (outs, stamps) if stamp else outs
 
 
@@ -311,27 +330,63 @@ _PROGRAMS = {
     "linreg": ("linreg.moments", "linreg.syrk_gemv"),
     "recommendation": ("recommendation.item_norms", "recommendation.user_bias",
                        "recommendation.scores"),
+    "moe": ("moe.experts",),
 }
+
+
+def _program_of(bodies: list[str]) -> str | None:
+    """The program holding every body in ``bodies``, or None."""
+    return next((p for p, known in _PROGRAMS.items()
+                 if set(bodies) <= set(known)), None)
 
 
 def cuda_program(stages: list[WalkStage]) -> tuple[str, list[int]]:
     """The compiled program that runs ``stages`` and its stage -> body map.
 
-    Raises, naming the stage, when a stage has no device body; raises when
-    no single program holds every stage's body (each at most once).
+    Raises, naming the stage, when a stage has no device body. Raises when
+    no single program holds every stage's body, when a member runs a body
+    twice, and for a batch (stages of several ``member`` values) that
+    mixes programs, whose members differ in their bodies, or that has more
+    than ``MAX_MEMBERS`` members: each member must be one copy of the walk.
     """
     for s in stages:
         if s.device_body is None:
             raise ValueError(
                 f"stage {s.name!r} has no device body: the CUDA walker cannot "
                 "run it (use dag_walk_plain, or give it a device_body)")
-    bodies = [s.device_body for s in stages]
-    for prog, known in _PROGRAMS.items():
-        if set(bodies) <= set(known):
-            if len(set(bodies)) != len(bodies):
-                raise ValueError(f"device bodies repeat in one walk: {bodies}")
-            return prog, [known.index(b) for b in bodies]
-    raise ValueError(f"no compiled walker program runs the bodies {bodies}")
+    if not stages:
+        raise ValueError("no stages to walk")
+    members = sorted({s.member for s in stages})
+    if len(members) > MAX_MEMBERS:
+        raise ValueError(f"a batch of {len(members)} members: one walker launch "
+                         f"holds at most {MAX_MEMBERS}")
+    prog = first = None
+    for m in members:
+        mine = [s for s in stages if s.member == m]
+        bodies = [s.device_body for s in mine]
+        p = _program_of(bodies)
+        if p is None:
+            home = _program_of(bodies[:1])
+            odd = next(s for s in mine if s.device_body not in _PROGRAMS[home])
+            raise ValueError(
+                f"no compiled walker program runs the bodies {bodies}: stage "
+                f"{odd.name!r} runs {odd.device_body!r}, not a body of stage "
+                f"{mine[0].name!r}'s {home!r} program")
+        if len(set(bodies)) != len(bodies):
+            raise ValueError(f"device bodies repeat in one walk: {bodies}")
+        if prog is None:
+            prog, first = p, set(bodies)
+        elif p != prog:
+            raise ValueError(
+                f"stage {mine[0].name!r} of member {m} runs the {p!r} program, "
+                f"member 0 the {prog!r} program: a batch runs one program")
+        elif set(bodies) != first:
+            raise ValueError(
+                f"stage {mine[0].name!r} of member {m}: member {m} runs the "
+                f"bodies {sorted(bodies)}, member 0 {sorted(first)}; each "
+                "member must be one copy of the walk")
+    known = _PROGRAMS[prog]
+    return prog, [known.index(s.device_body) for s in stages]
 
 
 def sync_flags(stages: list[WalkStage], table: np.ndarray) -> np.ndarray:
@@ -367,8 +422,13 @@ def _checked(t: torch.Tensor, shape: tuple, what: str, dtype=torch.float32) -> t
     return t
 
 
-def _linreg_args(inputs: dict, outs: dict) -> tuple:
-    """Pointers and sizes of ``walk_linreg`` after the common walk args."""
+# Each program's argument builder turns one member's inputs ({body: [input
+# tensors]}) and outputs ({body: output}) into the pointers (tensors, or
+# None for a null pointer) and int sizes that csrc/dag_walk.cu's P::unpack
+# reads, in its order.
+
+def _linreg_args(inputs: dict, outs: dict, tile: int) -> tuple[list, list]:
+    """X, y, moments, mom_in, syrk; n, d."""
     X = next(ins[0] for ins in inputs.values())
     n, d = X.shape
     _checked(X, (n, d), "linreg X")
@@ -385,12 +445,11 @@ def _linreg_args(inputs: dict, outs: dict) -> tuple:
         _checked(mom, (2, d), "linreg moments output")
     if syrk is not None:
         _checked(syrk, (d + 1, d + 2), "linreg syrk_gemv output")
-    return (ptr(X), ptr(y), ptr(mom), ptr(mom_in), ptr(syrk),
-            ctypes.c_int(n), ctypes.c_int(d))
+    return [X, y, mom, mom_in, syrk], [n, d]
 
 
-def _recommendation_args(inputs: dict, outs: dict) -> tuple:
-    """Pointers and sizes of ``walk_recommendation`` after the common args."""
+def _recommendation_args(inputs: dict, outs: dict, tile: int) -> tuple[list, list]:
+    """R, item_norms, user_bias, scores, norms_in, bias_in; n_users, n_items."""
     R = next(ins[0] for ins in inputs.values())
     n_users, n_items = R.shape
     _checked(R, (n_users, n_items), "recommendation R")
@@ -411,11 +470,24 @@ def _recommendation_args(inputs: dict, outs: dict) -> tuple:
         _checked(bias, (n_users,), "user_bias output")
     if scores is not None:
         _checked(scores, (n_users,), "scores output", torch.int32)
-    return (ptr(R), ptr(norms), ptr(bias), ptr(scores), ptr(norms_in),
-            ptr(bias_in), ctypes.c_int(n_users), ctypes.c_int(n_items))
+    return [R, norms, bias, scores, norms_in, bias_in], [n_users, n_items]
 
 
-_ARGS = {"linreg": _linreg_args, "recommendation": _recommendation_args}
+def _moe_args(inputs: dict, outs: dict, tile: int) -> tuple[list, list]:
+    """x, wi, wo, out, h scratch; E*C, d, f (C = tile, one slab a slot)."""
+    x, wi, wo = inputs["moe.experts"]
+    e, d, f2 = wi.shape
+    f = f2 // 2
+    _checked(x, (e * tile, d), f"moe xdisp ({e} experts x capacity {tile})")
+    _checked(wi, (e, d, 2 * f), "moe wi")
+    _checked(wo, (e, f, d), "moe wo")
+    out = _checked(outs["moe.experts"], (e * tile, d), "moe experts output")
+    h = torch.empty((tile, f), dtype=torch.float32, device=x.device)
+    return [x, wi, wo, out, h], [e * tile, d, f]
+
+
+_ARGS = {"linreg": _linreg_args, "recommendation": _recommendation_args,
+         "moe": _moe_args}
 
 
 def _walk_cuda(stages, operands, values, table, tile, table_key, dev_table,
@@ -433,21 +505,43 @@ def _walk_cuda(stages, operands, values, table, tile, table_key, dev_table,
         if s.n_rows % tile:
             raise ValueError(f"stage {s.name!r}: n_rows={s.n_rows} is not a "
                              f"multiple of tile={tile}")
-    inputs = {}
+    # members in ascending order, numbered densely for the kernel
+    dense = {m: k for k, m in enumerate(sorted({s.member for s in stages}))}
+    n_members = len(dense)
+    inputs = [{} for _ in range(n_members)]
+    by_body = [{} for _ in range(n_members)]
     for s in stages:
         names = s.operands + tuple(p for p, _ in s.reads)
-        inputs[s.device_body] = [outs[n] if n in outs else values[n] for n in names]
-    by_body = {s.device_body: outs[s.name] for s in stages}
-    args = _ARGS[prog](inputs, by_body)
+        ins = [outs[n] if n in outs else values[n] for n in names]
+        for n, t in zip(names, ins):
+            if t.device != device:
+                raise ValueError(f"stage {s.name!r}: {n!r} lies on {t.device}, "
+                                 f"the walk on {device}")
+        inputs[dense[s.member]][s.device_body] = ins
+        by_body[dense[s.member]][s.device_body] = outs[s.name]
+    ptrs, dims = [], []
+    for m in range(n_members):
+        p, d = _ARGS[prog](inputs[m], by_body[m], tile)
+        ptrs += p
+        dims += d
+    # host arrays of the members' pointers and sizes; `ptrs` keeps every
+    # tensor (the MoE scratch among them) alive through the launch
+    ptr_arr = (ctypes.c_void_p * len(ptrs))(
+        *[None if t is None else t.data_ptr() for t in ptrs])
+    dim_arr = (ctypes.c_int * len(dims))(*dims)
     tbl = dev_table if dev_table is not None else _device_table(table, table_key, device)
     body_of_sid = torch.tensor(body_map, dtype=torch.int32).to(device)
+    member_of_sid = torch.tensor([dense[s.member] for s in stages],
+                                 dtype=torch.int32).to(device)
     flags = torch.from_numpy(sync_flags(stages, table)).to(device)
     stamps = torch.zeros((n_slots, 4), dtype=torch.int32, device=device) if stamp else None
     barrier = torch.zeros(2, dtype=torch.int32, device=device)
     DAG_WALK.launch(f"walk_{prog}", ptr(tbl), ctypes.c_int(n_slots),
-                    ptr(body_of_sid), ctypes.c_int(len(stages)), ptr(flags),
-                    ptr(stamps), ptr(barrier), ctypes.c_int(tile), *args,
-                    stream(device))
+                    ptr(body_of_sid), ptr(member_of_sid),
+                    ctypes.c_int(len(stages)), ptr(flags), ptr(stamps),
+                    ptr(barrier), ctypes.c_int(tile), ctypes.c_int(n_members),
+                    ctypes.cast(ptr_arr, ctypes.c_void_p),
+                    ctypes.cast(dim_arr, ctypes.c_void_p), stream(device))
     if stamp:
         return outs, stamps.cpu().numpy()
     return outs

@@ -15,17 +15,21 @@ lowering's ``device``.
 
 ``linear_regression_migrated`` / ``recommendation_migrated`` run the same
 pipelines with one mid-flight move between the host pool and the walker
-(core/preempt.py).
+(core/preempt.py). ``merge_device_lowerings`` coalesces same-tile
+lowerings into one super-table, the front door's batching on the device
+path: one walker launch drains the whole batch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..core.admission import BATCH_SEP, merge_dags
 from ..core.dag import DEP_ELEMENTWISE, DEP_FULL, PipelineDAG, Stage, StageDep
 from ..core.device_schedule import build_dag_tables_cached, dag_signature
 from ..core.executor import SchedulerConfig
@@ -39,7 +43,7 @@ __all__ = [
     "run_device_dag", "linreg_device_lowering", "linear_regression_device",
     "recommendation_device_lowering", "recommendation_device",
     "scores_plain", "values_from_reference", "linear_regression_migrated",
-    "recommendation_migrated",
+    "recommendation_migrated", "merge_device_lowerings", "split_device_values",
 ]
 
 
@@ -138,6 +142,76 @@ def run_device_dag(
                                lowering.values, rows, lowering.tile,
                                table_key=("devdag", lowering.tile, key))
     return out, ddt
+
+
+def merge_device_lowerings(lowerings: list[DeviceLowering]) -> DeviceLowering:
+    """Coalesce same-tile DeviceLowerings into ONE super-table launch.
+
+    The front door's batching on the device path: member ``j``'s stages,
+    operands, values and seeds are renamed ``name#j`` (the batch
+    convention of ``core/admission.py``), bodies and host ops wrapped to
+    see their original names, each stage tagged ``member=j``, and the host
+    DAGs merged with ``merge_dags`` — so ``build_dag_tables`` freezes one
+    super-table covering every member and the walker drains the whole
+    batch in one launch (the CUDA walker holds up to ``MAX_MEMBERS`` of
+    one program). Members stay disjoint (each keeps its own operands and
+    accumulators), so the merged run is bit-equal to running each lowering
+    alone. ``finalize`` returns the list of per-member finalize results;
+    ``split_device_values`` recovers per-member stage values.
+    """
+    if not lowerings:
+        raise ValueError("cannot merge an empty batch of lowerings")
+    tiles = {low.tile for low in lowerings}
+    if len(tiles) != 1:
+        raise ValueError(f"cannot merge lowerings with mixed tiles {tiles}")
+
+    def _wrap_body(body):
+        def wrapped(ctx, ins, out):
+            body(ctx, {k.rsplit(BATCH_SEP, 1)[0]: v for k, v in ins.items()},
+                 out)
+        return wrapped
+
+    by_name, operands, values = {}, [], {}
+    for j, low in enumerate(lowerings):
+        for st in low.stages:
+            renamed = dataclasses.replace(
+                st, name=f"{st.name}{BATCH_SEP}{j}",
+                body=_wrap_body(st.body),
+                operands=tuple(f"{o}{BATCH_SEP}{j}" for o in st.operands),
+                reads=tuple((f"{p}{BATCH_SEP}{j}", kind)
+                            for p, kind in st.reads),
+                seed=None if st.seed is None else f"{st.seed}{BATCH_SEP}{j}",
+                member=j)
+            by_name[renamed.name] = renamed
+        for op in low.operands:
+            operands.append(dataclasses.replace(
+                op, name=f"{op.name}{BATCH_SEP}{j}"))
+        for k, v in low.values.items():
+            values[f"{k}{BATCH_SEP}{j}"] = v
+
+    merged_dag = merge_dags([low.dag for low in lowerings])
+    # build_dag_tables numbers stage ids by the merged DAG's topological
+    # order (members interleave): the walker's stage list must match it
+    stages = [by_name[n] for n in merged_dag.stage_names]
+
+    members = list(lowerings)
+
+    def finalize(stage_values: dict) -> list:
+        per_member = split_device_values(stage_values, len(members))
+        return [low.finalize(vals) if low.finalize is not None else vals
+                for low, vals in zip(members, per_member)]
+
+    return DeviceLowering(merged_dag, stages, operands, values,
+                          lowerings[0].tile, finalize)
+
+
+def split_device_values(values: dict, n_members: int) -> list[dict]:
+    """Split merged ``name#j`` stage values back into per-member dicts."""
+    out: list[dict] = [{} for _ in range(n_members)]
+    for name, v in values.items():
+        base, _, idx = name.rpartition(BATCH_SEP)
+        out[int(idx)][base] = v
+    return out
 
 
 def _rows(a: np.ndarray, t: int, tile: int) -> torch.Tensor:

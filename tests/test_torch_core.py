@@ -160,9 +160,24 @@ _GUARD = textwrap.dedent("""
     assert beta.shape == (5, 1)
     top, _, _ = recommendation_migrated(128, 16, cut=3, device="cpu")
     assert top.shape == (128,)
+    from repro_torch.configs import list_configs
+    from repro_torch.vee.apps import (linreg_device_lowering,
+                                      merge_device_lowerings, run_device_dag)
+    from repro_torch.vee.ml_apps import moe_device_lowering, moe_dispatch_lowering
+    assert len(list_configs()) == 10
+    low = moe_dispatch_lowering(n_tokens=8, device="cpu")
+    assert moe_device_lowering(low).finalize(
+        run_device_dag(moe_device_lowering(low))[0]).shape == (8, 64)
+    merged = merge_device_lowerings([linreg_device_lowering(128, 5, seed=s,
+                                                            device="cpu")
+                                     for s in (1, 2)])
+    assert len(run_device_dag(merged)[0]) == 4
     for m in ("task", "victim", "queues", "online", "telemetry", "executor",
-              "submit", "dag", "preempt"):
+              "submit", "dag", "preempt", "registry", "lower", "admission"):
         assert f"repro_torch.core.{m}" in sys.modules, m
+    for m in ("configs.base", "configs.qwen2_moe_a2_7b", "models.layers",
+              "models.moe", "vee.ml_apps"):
+        assert f"repro_torch.{m}" in sys.modules, m
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
     print("ok")

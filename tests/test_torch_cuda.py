@@ -13,10 +13,14 @@ max-valued outputs and the stagewise walk must match bitwise. ``beta``
 agrees with the float64 oracle to 1e-2 of its largest feature entry (the
 features' betas are small: y is drawn apart from X). A migrated run's sums
 are held to the unmigrated kernel walk by the same ``SUM_RTOL``: the host
-part sums its tiles in PyTorch's order, the kernel in its own.
+part sums its tiles in PyTorch's order, the kernel in its own. The MoE
+program's slabs (two fp32 products of a few hundred terms each) are held
+to the plain body by the same ``SUM_RTOL``. A member of a batched walk
+must be bitwise equal to its lowering walked alone.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -31,7 +35,9 @@ from repro_torch.kernels import dag_walk as twalk
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.cc_propagate import cc_propagate, cc_propagate_plain
+from repro_torch.configs import get_config
 from repro_torch.vee import apps as tapps
+from repro_torch.vee import ml_apps as tml
 
 SUM_RTOL = 1e-4
 
@@ -208,3 +214,114 @@ def test_seeded_stage_refuses_multi_shard_walk_on_card(cuda):
         twalk.dag_walk(stages, low.operands, dict(values, seed=torch.zeros(256)),
                        rows[0], low.tile)
     assert sum(_build.DAG_WALK.launches.values()) == before
+
+
+def _launches():
+    return sum(_build.DAG_WALK.launches.values())
+
+
+# MoE widths: the reduced config, and one whose capacity (75), d (200) and
+# f (100) all leave ragged 64 x 64 tiles
+MOE_SHAPES = {
+    "reduced": dict(n_tokens=96),
+    "ragged": dict(n_tokens=150, d_model=200, d_ff_expert=100, n_routed=5),
+}
+
+
+def _moe_lowering(cuda, shape):
+    kw = dict(MOE_SHAPES[shape])
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    if "d_model" in kw:
+        moe = dataclasses.replace(cfg.moe, d_ff_expert=kw.pop("d_ff_expert"),
+                                  n_routed=kw.pop("n_routed"))
+        cfg = dataclasses.replace(cfg, d_model=kw.pop("d_model"), moe=moe)
+    return tml.moe_dispatch_lowering_for(cfg, seed=4, device=cuda, **kw)
+
+
+@pytest.mark.parametrize("shape", sorted(MOE_SHAPES))
+@pytest.mark.parametrize("tech", ["STATIC", "GSS"])
+def test_moe_walk_matches_plain(cuda, shape, tech):
+    low = _moe_lowering(cuda, shape)
+    dlow = tml.moe_device_lowering(low)
+    rows = _rows(dlow, tech)[0]
+    before = _build.DAG_WALK.launches["walk_moe"]
+    got = twalk.dag_walk(dlow.stages, dlow.operands, dlow.values, rows, dlow.tile)
+    assert _build.DAG_WALK.launches["walk_moe"] == before + 1
+    want = twalk.dag_walk_plain(dlow.stages, dlow.operands, dlow.values, rows,
+                                dlow.tile)
+    _close_sum(got["experts"], want["experts"], "experts")
+    vals, _ = tapps.run_device_dag(dlow, tech)
+    assert torch.equal(vals["experts"], got["experts"])   # deterministic
+    y = dlow.finalize(vals)
+    assert y.device.type == "cuda"
+    _close_sum(y, dlow.finalize(want), "combined")
+    _close_sum(y.cpu(), torch.from_numpy(low.run_direct()), "vs host pipeline")
+
+
+def test_moe_walk_against_float64(cuda):
+    low = _moe_lowering(cuda, "ragged")
+    dlow = tml.moe_device_lowering(low)
+    got = tapps.run_device_dag(dlow)[0]["experts"]
+    e, c, d = low.meta["n_experts"], dlow.tile, low.meta["d_model"]
+    f = dlow.values["wo"].shape[1]
+    x = dlow.values["xdisp"].view(e, c, d).double()
+    h = torch.bmm(x, dlow.values["wi"].double())
+    a = torch.nn.functional.silu(h[..., :f]) * h[..., f:]
+    ref = torch.bmm(a, dlow.values["wo"].double()).reshape(e * c, d)
+    # eps * sqrt(k) * sum|terms| of the second product, with the first
+    # product's own limit carried through it (|silu'| <= 1.1)
+    A = torch.bmm(x.abs(), dlow.values["wi"].double().abs())
+    B = 1.1 * h[..., f:].abs() * A[..., :f] + h[..., :f].abs() * A[..., f:]
+    wo = dlow.values["wo"].double().abs()
+    lim = 2.0 ** -23 * ((math.sqrt(f) + 4) * torch.bmm(a.abs(), wo)
+                        + math.sqrt(d) * torch.bmm(B, wo)).reshape(e * c, d)
+    assert bool(((got.double() - ref).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("name", sorted(LOWERINGS))
+def test_batched_walk_bitwise_equal_to_single_walks(cuda, name):
+    build, kw = LOWERINGS[name]
+    lows = [build(**kw, seed=s, device=cuda) for s in (1, 2, 3)]
+    singles = [tapps.run_device_dag(low, "GSS")[0] for low in lows]
+    merged = tapps.merge_device_lowerings(lows)
+    before = _build.DAG_WALK.launches[f"walk_{name}"]
+    vals, _ = tapps.run_device_dag(merged, "GSS")
+    assert _build.DAG_WALK.launches[f"walk_{name}"] == before + 1
+    for j, member in enumerate(tapps.split_device_values(vals, len(lows))):
+        for k in singles[j]:
+            assert torch.equal(member[k], singles[j][k]), (j, k)
+    want = twalk.dag_walk_plain(merged.stages, merged.operands, merged.values,
+                                _rows(merged, "GSS")[0], merged.tile)
+    for k in want:
+        if not k.startswith("scores"):
+            _close_sum(vals[k], want[k], k)
+
+
+def test_batched_linreg_members_of_different_widths(cuda):
+    lows = [tapps.linreg_device_lowering(2048, d1, seed=s, device=cuda)
+            for s, d1 in ((1, 17), (2, 65), (3, 33))]
+    singles = [tapps.run_device_dag(low)[0] for low in lows]
+    vals, _ = tapps.run_device_dag(tapps.merge_device_lowerings(lows))
+    for j, member in enumerate(tapps.split_device_values(vals, len(lows))):
+        for k in singles[j]:
+            assert torch.equal(member[k], singles[j][k]), (j, k)
+
+
+def test_batch_refusals_launch_nothing(cuda):
+    lin = tapps.linreg_device_lowering(512, 9, tile=64, device=cuda)
+    rec = tapps.recommendation_device_lowering(512, 16, tile=64, device=cuda)
+    mixed = tapps.merge_device_lowerings([lin, rec])
+    rows = _rows(mixed, "GSS")[0]
+    before = _launches()
+    with pytest.raises(ValueError, match="a batch runs one program"):
+        twalk.dag_walk(mixed.stages, mixed.operands, mixed.values, rows, mixed.tile)
+    nine = tapps.merge_device_lowerings(
+        [tapps.linreg_device_lowering(128, 5, seed=s, device=cuda) for s in range(9)])
+    with pytest.raises(ValueError, match="batch of 9 members"):
+        tapps.run_device_dag(nine)
+    assert _launches() == before
+    # the plain walker still runs the mixed batch, on the CPU
+    cpu_vals = {k: v.cpu() for k, v in mixed.values.items()}
+    out = twalk.dag_walk(mixed.stages, mixed.operands, cpu_vals, rows, mixed.tile)
+    assert set(out) == {s.name for s in mixed.stages}
+    assert _launches() == before
