@@ -13,7 +13,14 @@ super-table walker kernel and the DLS-scheduled CC step — at real sizes:
   top-4, d_model 2,048, d_ff_expert 1,408, capacity factor 1.25) over 4,096
   tokens (skew 1.2, seed 0): 60 slabs of capacity 342;
 * front-door batches of 8 members (``BatchPolicy.max_batch``): linreg
-  8 x (131,072 x 101) and recommendation 8 x (8,192 x 2,048), seeds 1-8.
+  8 x (131,072 x 101) and recommendation 8 x (8,192 x 2,048), seeds 1-8;
+* one CC iteration (``propagate`` -> ``changed``) on the walker's
+  CC-iteration program over the same n = 16,384 graph, tiles 256 x 1,024
+  (16 inner steps a slot), on 1 and 2 shards;
+* LM serving of Granite-8B at full size (36 layers, d_model 4,096, 32 heads
+  over 8 kv heads, d_ff 14,336, vocab 49,152; 33.0 GB of fp32 weights drawn
+  on the card): 8 requests of 2,048 tokens in GSS chunks over 4 slots, 16
+  tokens each, its prefill attention through K4 (flash attention).
 
 Phases, each printed as one JSON line with its seconds: environment, build
 of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
@@ -30,7 +37,13 @@ MoE path (``moe_dispatch_lowering_for`` -> ``moe_device_lowering`` ->
 ``run_device_dag`` -> combine: exactly one walker launch) held to the plain
 walk and to a float64 oracle, and the batched path (``merge_device_lowerings``
 -> ``run_device_dag``: one launch per batch, every member bitwise equal to
-its single-launch walk). TF32 is off for every check and time
+its single-launch walk). Then the CC-iteration path
+(``cc_iteration_device``: one walker launch per shard, bitwise equal to
+``cc_propagate_ref``, to the CC step and to the plain walk, the flip count
+exact) and the serving path (``serve_lm``: exactly 36 x 6 = 216 K4
+launches, none in decode; the first batch's logits through K4 against the
+same weights through K4's plain version; K4 alone at the serving shape
+against its plain version and a float64 oracle). TF32 is off for every check and time
 (``allow_tf32 = False``), so library calls run in full fp32. Any failed
 check exits non-zero. Without a CUDA device, or without the
 repository around it, the script fails and prints no result.
@@ -53,8 +66,9 @@ REC_USERS, REC_ITEMS = 65_536, 2_048
 CC_SCALE, CC_SMALL_N = 14, 4_096
 TILE = 64
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) flop/s
-PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) flop/s,
+# bf16 dense tensor-core flop/s
+PEAK_BYTES, PEAK_FP32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
 # A sum's kernel and plain versions add the same terms in a different order
 # (sequential FMA vs PyTorch's reduction), so they agree to float32 rounding,
@@ -98,6 +112,27 @@ B_LIN_ROWS, B_REC_USERS = 131_072, 8_192
 # a batch member's top items vs the float64 oracle: 8,192 users each, where
 # a float32 near-tie flips about one user in 10,000 (the 65,536-user run above)
 B_REC_AGREEMENT = 0.999
+# LM serving: the reference's --mode lm at Granite-8B's full size. GSS over
+# 8 requests and 4 slots gives chunks [2, 2, 1, 1, 1, 1]: 6 prefills of
+# 4 x 2,048 tokens (the chunked impl, so one K4 launch a layer) and 15
+# decode steps each.
+SERVE = dict(arch="granite-8b", smoke=False, requests=8, slots=4, prompt_len=2048,
+             gen_len=16, technique="GSS", device="cuda")
+SERVE_BATCHES, GRANITE_LAYERS = 6, 36
+# K4 against a float64 oracle of its own function: p is rounded to bf16
+# before p . v and the output to bf16, each by at most half a step of an
+# 8-bit significand, 2^-8 of the value; the fp32 sums and expf add under
+# 2^-16 of sum_j w_j |v_j|. Each entry's limit is 2^-8 (|o| + sum_j w_j
+# |v_j|) + 2^-16 sum_j w_j |v_j|; against the plain version both sides
+# round, so twice the limit.
+K4_ULP, K4_FP32 = 2.0 ** -8, 2.0 ** -16
+# The first batch's last-position logits through K4 against the same
+# weights through K4's plain version: the two attention outputs differ in
+# fp32 rounding, which flips bf16 roundings downstream; 36 layers of bf16
+# activations carry such a flip on, as the CPU parity tests see 1-2% of the
+# largest logit over 2 layers (ten-odd roundings each). Limit: 10% of the
+# largest |logit|; greedy-token agreement is reported, not required.
+LOGIT_TOL = 0.10
 MIGRATIONS = (
     ("linreg", "host_to_device", LIN_UNITS + 128),
     ("linreg", "device_to_host", 2 * LIN_UNITS - 256),
@@ -185,9 +220,10 @@ def timed(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    """Least time for the work on the card, and whether bytes or operations set it."""
-    tb, tf = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+def bound_ms(n_bytes: float, flops: float, peak: float = PEAK_FP32) -> tuple[float, str]:
+    """Least time for the work on the card, and whether bytes or operations
+    (at the ``peak`` rate of their type) set it."""
+    tb, tf = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -454,6 +490,290 @@ def batched_phase(dev, walk_inputs) -> list[dict]:
             library_ms=timed(library, 10), library_call=library_call, shapes=shapes,
             **dict(zip(("bound_ms", "bound_by"), bound_ms(b_bytes, b_flops)))))
     return rows_out
+
+
+def cc_iteration_phase(G, c, step) -> dict:
+    """One CC iteration on the walker's CC-iteration program, 1 and 2
+    shards, one launch each; bitwise against ``cc_propagate_ref``, the CC
+    step ``step`` (K2) and the plain walk. Returns the kernel's row."""
+    import torch
+
+    from repro_torch.core.device_schedule import build_dag_tables_cached
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dag_walk import dag_walk, dag_walk_plain
+    from repro_torch.kernels.ref import cc_propagate_ref
+    from repro_torch.vee import apps
+
+    n = G.shape[0]
+    want = cc_propagate_ref(G, c)
+    flips = int((want != c).sum())
+    runs = {}
+    for n_shards in (1, 2):
+        for k in _build.KERNELS:
+            k.launches.clear()
+        t = time.perf_counter()
+        out = apps.cc_iteration_device(G, c, n_shards=n_shards)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = launch_counts(_build.KERNELS)
+        require(launches == {"walk_cc": n_shards},
+                f"cc_iteration, {n_shards} shards: launches {launches}")
+        require(torch.equal(out["propagate"], want),
+                f"cc_iteration, {n_shards} shards: labels differ from cc_propagate_ref")
+        require(torch.equal(out["propagate"], step),
+                f"cc_iteration, {n_shards} shards: labels differ from the CC step")
+        require(int(out["changed"][0]) == flips,
+                f"cc_iteration, {n_shards} shards: changed {int(out['changed'][0])} "
+                f"!= {flips}")
+        runs[n_shards] = dict(launches=launches, seconds=seconds)
+    dag, stages, operands = apps.cc_iteration_lowering(n)
+    table = build_dag_tables_cached(dag, 256, apps.CC_TECHNIQUES, n_workers=4).tables[0]
+    values = {"G": G, "c_col": c, "c_row": c}
+    walk = lambda: dag_walk(stages, operands, values, table, 256)  # noqa: E731
+    plain = lambda: dag_walk_plain(stages, operands, values, table, 256)  # noqa: E731
+    got, ref = walk(), plain()
+    for name in got:
+        require(torch.equal(got[name], ref[name]), f"cc_iteration walk {name} != plain")
+    slots = {s.name: int(((table[:, 0] == i) & (table[:, 2] > 0)).sum())
+             for i, s in enumerate(stages)}
+    emit("cc_iteration", n=n, tiles=[256, 1024], inner_steps=stages[0].inner,
+         slots=slots, changed=flips, bitwise=True,
+         runs={str(k): v for k, v in runs.items()})
+    cc_bytes = 4 * (n * n + 3 * n + 1) + 12 * len(table)
+    return dict(
+        name="dag_walk[cc_iteration]", route="cuda",
+        source="src/repro_torch/csrc/dag_walk.cu",
+        replaces="src/repro/kernels/dag_walk.py:218 (CC-iteration program, "
+                 "tests/test_device_dag.py:193)",
+        launches=runs[1]["launches"]["walk_cc"], max_abs_err=max_err(got["propagate"], want),
+        ms=timed(walk, 20), plain_ms=timed(plain, 3),
+        library_ms=timed(lambda: torch.maximum((G * c).amax(1), c), 10),
+        library_call="torch.maximum((G * c).amax(1), c) (propagate only)",
+        shapes=f"G ({n}, {n}) f32, {len(table)} slots, tiles 256 x 1024",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(cc_bytes, 2 * n * n + 2 * n))))
+
+
+def decode_profile(model, params, tok, cache, index: int, served_step_ms: float,
+                   steps: int = 3) -> dict:
+    """Device ms of a decode step by ``torch.profiler``: the device rows'
+    time (a CPU op's device time repeats its kernels', so only device rows
+    are summed); "not measured" where the profiler reports no device row.
+    The profiler slows the host, so the busy share is given twice: of the
+    profiled step's wall time, and of ``served_step_ms``, the same run's
+    unprofiled decode step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for i in range(steps):
+            model.decode_step(params, tok, cache, index + i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
+                served_step_ms=served_step_ms,
+                device_ms_per_step=device_ms / steps if rows else "not measured",
+                device_busy_share_profiled=device_ms / wall_ms if rows
+                else "not measured",
+                device_busy_share_served=device_ms / steps / served_step_ms if rows
+                else "not measured",
+                device_launches_per_step=sum(e.count for e in rows) / steps,
+                top_device_rows_ms={e.key[:60]: e.self_device_time_total / 1e3 / steps
+                                    for e in top})
+
+def serve_phase(dev) -> dict:
+    """Granite-8B LM serving at full size through ``serve_lm``: K4 on every
+    prefill layer and nowhere else. Returns K4's row."""
+    import argparse
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import attention as attention_module
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = argparse.Namespace(**SERVE)
+    for k in _build.KERNELS:
+        k.launches.clear()
+    t0 = time.perf_counter()
+    res = serve_lm(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(_build.KERNELS)
+    k4_launches = GRANITE_LAYERS * SERVE_BATCHES
+    require(launches == {"flash_attention": k4_launches},
+            f"serve_lm: launches {launches}, want {k4_launches} flash_attention")
+    model, params, cfg = res.model, res.params, res.model.cfg
+    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+              cfg.d_ff, cfg.vocab_size)
+    require(widths == (36, 4096, 32, 8, 128, 14336, 49152),
+            f"serve_lm widths {widths} are not Granite-8B's")
+
+    def numel(tree):
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        if isinstance(tree, list):
+            return sum(numel(t) for t in tree)
+        return tree.numel()
+
+    n_params = numel(params)
+    require(n_params == cfg.param_count(), "served params differ from param_count")
+    sizes = [len(set(r)) for r in res.requests]
+    require(len(res.requests) == SERVE_BATCHES and sum(sizes) == SERVE["requests"],
+            f"serve_lm slot batches {res.requests}")
+    for toks, logits in zip(res.tokens, res.logits):
+        require(toks.shape == (SERVE["slots"], SERVE["gen_len"])
+                and logits.shape == (SERVE["slots"], SERVE["gen_len"], cfg.padded_vocab)
+                and bool(torch.isfinite(logits).all()), "serve_lm output malformed")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the first batch again: K4 launches once a layer in prefill, never in
+    # decode, and repeats the served logits
+    rows = res.requests[0]
+    toks = torch.from_numpy(res.prompts[rows]).to(dev)
+    s_max = SERVE["prompt_len"] + SERVE["gen_len"]
+    for k in _build.KERNELS:
+        k.launches.clear()
+    served_call = {}  # the last layer's K4 call and its inputs
+
+    def keep(q, k, v, *args, **kwargs):
+        served_call.update(q=q, k=k, v=v, args=args, kwargs=kwargs)
+        return flash_attention(q, k, v, *args, **kwargs)
+
+    with mock.patch.object(attention_module, "flash_attention", keep):
+        logits_k, cache = model.prefill(params, {"tokens": toks}, model.init_cache(
+            len(rows), s_max, device=dev))
+    prefill_launches = launch_counts(_build.KERNELS)
+    nxt = logits_k[:, -1].argmax(-1)[:, None]
+    model.decode_step(params, nxt, cache, SERVE["prompt_len"])
+    torch.cuda.synchronize()
+    require(launch_counts(_build.KERNELS) == prefill_launches
+            == {"flash_attention": GRANITE_LAYERS},
+            f"K4 launches {prefill_launches} in a prefill, then "
+            f"{launch_counts(_build.KERNELS)} after a decode step")
+    decode_steps = SERVE_BATCHES * (SERVE["gen_len"] - 1)
+    decode_busy = decode_profile(model, params, nxt, cache, SERVE["prompt_len"] + 1,
+                                 res.decode_seconds / decode_steps * 1e3)
+    del cache
+    repeat_equal = torch.equal(logits_k[:, -1], res.logits[0][:, 0])
+    with mock.patch.object(attention_module, "flash_attention", flash_attention_plain):
+        logits_p, _ = model.prefill(params, {"tokens": toks}, model.init_cache(
+            len(rows), s_max, device=dev))
+    lk, lp = logits_k[:, -1].float(), logits_p[:, -1].float()
+    logit_scale = float(lp.abs().max())
+    logit_err = max_err(lk, lp)
+    require(logit_err <= LOGIT_TOL * logit_scale,
+            f"serve_lm first-batch logits through K4 vs plain: max abs err "
+            f"{logit_err:.4g} > {LOGIT_TOL} x {logit_scale:.4g}")
+    greedy = float((lk[:, :cfg.vocab_size].argmax(-1)
+                    == lp[:, :cfg.vocab_size].argmax(-1)).float().mean())
+
+    # K4 alone at the serving shape: on the served call's own bf16 inputs
+    # (the last layer of the first batch's prefill: q and k leave RoPE
+    # contiguous, v is _split_heads's transposed view), then on contiguous
+    # randn tensors
+    b, h, kvh, sq, dh = SERVE["slots"], cfg.n_heads, cfg.n_kv_heads, SERVE["prompt_len"], \
+        cfg.head_dim
+    q, k, v = served_call["q"], served_call["k"], served_call["v"]
+    require(q.shape == (b, h, sq, dh) and k.shape == v.shape == (b, kvh, sq, dh)
+            and q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and not v.is_contiguous()
+            and served_call["args"] == () and served_call["kwargs"]
+            == dict(causal=True, tile_k=cfg.attn_chunk_kv),
+            f"served K4 call: q {tuple(q.shape)} {q.dtype} strides {q.stride()}, "
+            f"k {tuple(k.shape)} strides {k.stride()}, {served_call['args']} "
+            f"{served_call['kwargs']}")
+    served_strides = [list(t.stride()) for t in (q, k, v)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    randn = [torch.randn((b, n_h, sq, dh), generator=gen, device=dev).bfloat16()
+             for n_h in (h, kvh, kvh)]
+    g = h // kvh
+    mask = torch.arange(sq, device=dev)[:, None] >= torch.arange(sq, device=dev)[None, :]
+    k4_checks = {}
+    for what, (q_, k_, v_) in (("served", (q, k, v)), ("randn", randn)):
+        got = flash_attention(q_, k_, v_, causal=True, tile_k=cfg.attn_chunk_kv)
+        want = flash_attention_plain(q_, k_, v_, causal=True, tile_k=cfg.attn_chunk_kv)
+        worst = dict(err_o=0.0, share_o=0.0, err_p=0.0, share_p=0.0)
+        for i in range(b):
+            k64 = k_[i].double().repeat_interleave(g, dim=0)
+            v64 = v_[i].double().repeat_interleave(g, dim=0)
+            s = (q_[i].double() @ k64.transpose(1, 2)) / math.sqrt(dh)
+            w = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+            o = w @ v64
+            wv = w @ v64.abs()
+            lim = K4_ULP * (o.abs() + wv) + K4_FP32 * wv
+            bad_o, err_o, share_o = beyond(got[i], o, lim)
+            bad_p, err_p, share_p = beyond(got[i], want[i], 2 * lim)
+            require(bad_o == 0, f"K4 ({what}) vs float64: {bad_o} entries beyond the "
+                                f"limit (batch {i}), max abs err {err_o:.3g}")
+            require(bad_p == 0, f"K4 ({what}) vs plain: {bad_p} entries beyond twice "
+                                f"the limit (batch {i}), max abs err {err_p:.3g}")
+            for key, val in (("err_o", err_o), ("share_o", share_o),
+                             ("err_p", err_p), ("share_p", share_p)):
+                worst[key] = max(worst[key], val)
+            del k64, v64, s, w, o, wv, lim
+        k4_checks[what] = worst
+        del got, want
+    kernel = lambda: flash_attention(  # noqa: E731
+        q, k, v, causal=True, tile_k=cfg.attn_chunk_kv)
+    plain = lambda: flash_attention_plain(  # noqa: E731
+        q, k, v, causal=True, tile_k=cfg.attn_chunk_kv)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    k4_ms, plain_ms, library_ms = timed(kernel, 10), timed(plain, 3), timed(library, 10)
+    # the per-use weight casts of one forward: every layer's matrices and the head
+    weights = [t for lp_ in params["layers"] for part in (lp_["attn"], lp_["mlp"])
+               for t in part.values() if t.dim() == 2] + [params["head"]["w"]]
+    cast_ms = timed(lambda: [w_.to(torch.bfloat16) for w_ in weights], 3)
+    forwards = SERVE_BATCHES * SERVE["gen_len"]
+    tokens = SERVE["requests"] * SERVE["gen_len"]
+    pairs = sq * (sq + 1) // 2
+    k4_flops = 4 * b * h * dh * pairs
+    k4_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    emit("serve_lm", arch=SERVE["arch"], requests=SERVE["requests"], slots=SERVE["slots"],
+         prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"],
+         technique=SERVE["technique"], batches=res.requests, params=n_params,
+         launches=launches, prefill_launches=prefill_launches,
+         seconds_with_weights=seconds, seconds=res.seconds,
+         prefill_seconds=res.prefill_seconds, decode_seconds=res.decode_seconds,
+         tokens_per_second=tokens / res.seconds,
+         k4_seconds=launches["flash_attention"] * k4_ms / 1e3,
+         weight_cast_ms_per_forward=cast_ms, forwards=forwards,
+         weight_cast_seconds=forwards * cast_ms / 1e3, peak_memory_gb=peak_gb,
+         first_batch_repeats_bitwise=repeat_equal, decode_step_profile=decode_busy,
+         logits_vs_plain=[logit_err, logit_err / (LOGIT_TOL * logit_scale)],
+         logit_scale=logit_scale, greedy_agreement=greedy,
+         k4_tol="2^-8 (|o| + sum w|v|) + 2^-16 sum w|v| vs float64; x2 vs plain",
+         k4_inputs={"served": f"the last layer's q, k, v of the first batch's prefill, "
+                              f"strides {served_strides}", "randn": "contiguous"},
+         k4_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in k4_checks.items()},
+         k4_vs_plain={w_: [c["err_p"], c["share_p"]] for w_, c in k4_checks.items()})
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:63",
+        launches=launches["flash_attention"],
+        max_abs_err=max(c["err_p"] for c in k4_checks.values()),
+        max_abs_err_vs_float64=max(c["err_o"] for c in k4_checks.values()),
+        ms=k4_ms, plain_ms=plain_ms, library_ms=library_ms,
+        library_call="F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)",
+        shapes=f"q ({b}, {h}, {sq}, {dh}), k and v ({b}, {kvh}, {sq}, {dh}) bf16, causal, "
+               "the served call's inputs (v a transposed view)",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(k4_bytes, k4_flops, PEAK_BF16))))
 
 
 def main() -> None:
@@ -836,6 +1156,8 @@ def main() -> None:
 
     kernels.append(moe_phase(dev, walk_inputs))
     kernels.extend(batched_phase(dev, walk_inputs))
+    kernels.append(cc_iteration_phase(G, c, u))
+    kernels.append(serve_phase(dev))
 
     emit("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)

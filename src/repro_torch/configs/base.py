@@ -5,7 +5,8 @@ input shapes are ``ShapeConfig``s. ``reduced()`` returns the same family at
 smoke-test scale (small layers/width/experts, tiny vocab) for CPU tests.
 The registry holds the same ten architectures as ``repro/configs``, field
 for field; the MoE dispatch lowering (``vee/ml_apps.py``) runs at either
-the full or the reduced widths.
+the full or the reduced widths, and the model stack (``models/``) builds
+the dense family from them.
 
 Vocab sizes are padded to a multiple of 256 (``vocab_pad``) so the embedding
 shards evenly over the model axis (Megatron-style padding); routed expert
@@ -149,13 +150,13 @@ class ArchConfig:
         return self.moe.padded(model_axis) if self.moe else None
 
     def param_count(self) -> int:
-        """Approximate parameter count (embeddings + blocks), for 6ND.
+        """Parameter count (embeddings + blocks), for 6ND.
 
-        Needs the model stack, which the port does not hold yet.
+        Counted on the ``meta`` device by ``models/model.py:count_params``;
+        raises for the families the port's model stack does not hold yet.
         """
-        raise NotImplementedError(
-            "ArchConfig.param_count needs the model stack (models/model.py), "
-            "which is not ported yet")
+        from ..models.model import count_params  # lazy, avoids a cycle
+        return count_params(self)
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test scale config of the same family."""

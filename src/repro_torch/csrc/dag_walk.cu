@@ -1,12 +1,13 @@
 // The multi-stage super-table walker: one cooperative launch drains a whole
 // (stage, start, size) super-table.
 //
-// Replaces the Pallas kernel repro/kernels/dag_walk.py:dag_walk for three
+// Replaces the Pallas kernel repro/kernels/dag_walk.py:dag_walk for four
 // programs, whose stage bodies are written out here (repro/vee/apps.py and
 // repro/vee/ml_apps.py define them over refs): the linear-regression
 // pipeline (moments -> syrk_gemv), the recommendation pipeline (item_norms,
-// user_bias -> scores) and the MoE expert program (one gated expert FFN per
-// slot). Each program also runs batched: up to MAX_MEMBERS members of the
+// user_bias -> scores), the MoE expert program (one gated expert FFN per
+// slot) and the CC-iteration program (propagate -> changed, the one program
+// with an inner axis). Each program also runs batched: up to MAX_MEMBERS members of the
 // same program in one table, as the front door's merge_device_lowerings
 // builds it, each stage id mapped to its member's pointers and sizes.
 //
@@ -43,6 +44,21 @@
 // owner thread walks the slots in order, so the time is the number of
 // slots times one tile's latency. A two-phase partial-and-fold design is
 // the way to the bound.
+//
+// The CC-iteration program (tests/test_device_dag.py's super-table, the
+// body of repro/kernels/cc_propagate.py:propagate_body): `propagate` is a
+// concat stage whose slot walks `inner` column tiles, `changed` a sum
+// stage counting flipped labels. The Pallas grid's second axis carries
+// the running max from one column tile to the next; blocks on Hopper have
+// no order, so nothing may carry between them. Here a slot's inner steps
+// run inside the slot: the warp that owns a row loops over the column
+// tiles in ascending order with 16-byte loads and keeps the running max
+// in a register, started from the row's own label. `changed` has one
+// owner (warp 0 of CTA 0), which counts a slot's flips and adds them in
+// slot order; the `rows` edge is covered by the barrier before the first
+// `changed` slot after `propagate` slots. Max and an int32 count are
+// exact, so the result is bitwise the plain walk's. Bound: bytes, G read
+// once (4 n^2: 1 GiB at n = 16,384, 0.32 ms at 3.35 TB/s), as K2.
 //
 // The MoE program (repro/vee/ml_apps.py:moe_device_lowering): a slot is
 // expert g's fixed-capacity slab, C rows of the dispatch buffer, and the
@@ -452,6 +468,77 @@ struct Moe {
   }
 };
 
+// -------------------------------------------------------------------- cc
+struct Cc {
+  struct Args {
+    const float* G;        // (n, n) {0, 1} adjacency, or null
+    const float* c_col;    // (n,) labels read along a row, or null
+    const float* c_row;    // (n,) labels a row starts from / is compared with
+    float* propagate;      // (n,) concat output, or null
+    int* changed;          // (1,) sum output, or null
+    const float* prop_in;  // propagate as `changed` reads it
+    int n, tile_c;         // tile_c = n / inner: one inner step's columns
+  };
+
+  // propagate: one warp per row; the row's inner steps (column tiles) run
+  // in ascending order inside the slot, the running max in a register.
+  static __device__ void propagate(const Args& a, int row0, int rows,
+                                   int slot) {
+    const int n = a.n, lane = threadIdx.x & 31;
+    const int n_gw = grid_threads() >> 5;
+    const float4* c4 = reinterpret_cast<const float4*>(a.c_col);
+    for (int r = first_row(slot, rows); r < rows; r += n_gw) {
+      const int row = row0 + r;
+      const float4* g4 = reinterpret_cast<const float4*>(a.G + (size_t)row * n);
+      float m = __ldg(a.c_row + row);  // inner step 0 seeds the running max
+      for (int j0 = 0; j0 < n; j0 += a.tile_c) {
+        const int k_end = (j0 + a.tile_c) >> 2;
+#pragma unroll 4
+        for (int k = (j0 >> 2) + lane; k < k_end; k += 32) {
+          const float4 g = __ldcs(g4 + k);
+          const float4 c = __ldg(c4 + k);
+          m = fmaxf(m, g.x > 0.f ? c.x : 0.f);
+          m = fmaxf(m, g.y > 0.f ? c.y : 0.f);
+          m = fmaxf(m, g.z > 0.f ? c.z : 0.f);
+          m = fmaxf(m, g.w > 0.f ? c.w : 0.f);
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (lane == 0) a.propagate[row] = m;
+    }
+  }
+
+  // changed: warp 0 of CTA 0 owns the count; it adds each slot's flips in
+  // slot order (propagate was written earlier in this launch: __ldcg).
+  static __device__ void changed(const Args& a, int row0, int rows) {
+    if (global_thread() >= 32) return;
+    const int lane = threadIdx.x;
+    int flips = 0;
+    for (int r = lane; r < rows; r += 32)
+      flips += __ldcg(a.prop_in + row0 + r) != __ldg(a.c_row + row0 + r);
+    for (int off = 16; off > 0; off >>= 1)
+      flips += __shfl_xor_sync(0xffffffffu, flips, off);
+    if (lane == 0) a.changed[0] += flips;
+  }
+
+  static __device__ int n_rows(const Args& a) { return a.n; }
+
+  static __device__ void run(int body, const Args& a, const Walk& w, int row0,
+                             int slot, float*) {
+    if (body == 0) propagate(a, row0, w.tile, slot);
+    else changed(a, row0, w.tile);
+  }
+
+  // host side: G, c_col, c_row, propagate, changed, prop_in; n, tile_c
+  static constexpr int NP = 6, ND = 2;
+  static Args unpack(void* const* p, const int* d) {
+    return Args{(const float*)p[0], (const float*)p[1], (const float*)p[2],
+                (float*)p[3], (int*)p[4], (const float*)p[5], d[0], d[1]};
+  }
+  static size_t smem(const Args&, int) { return 0; }
+};
+
 // Per-member arguments of a (possibly batched) walk, by value in the launch.
 template <class P>
 struct Members {
@@ -547,6 +634,7 @@ int walk(const int* table, int n_slots, const int* body_of_sid,
 WALK_ENTRY(walk_linreg, Linreg)
 WALK_ENTRY(walk_recommendation, Recommendation)
 WALK_ENTRY(walk_moe, Moe)
+WALK_ENTRY(walk_cc, Cc)
 
 extern "C" const char* error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -106,7 +106,8 @@ class Kernel:
 
 DAG_WALK = Kernel("dag_walk.cu")
 CC_PROPAGATE = Kernel("cc_propagate.cu")
-KERNELS = (DAG_WALK, CC_PROPAGATE)
+FLASH_ATTENTION = Kernel("flash_attention.cu")
+KERNELS = (DAG_WALK, CC_PROPAGATE, FLASH_ATTENTION)
 
 
 def build_all() -> None:

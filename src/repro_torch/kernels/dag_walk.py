@@ -19,8 +19,12 @@ Each ``WalkStage`` carries two forms of its body. ``body(ctx, ins, out)``
 is plain PyTorch over tile views (``out`` is written in place); the plain
 walker ``dag_walk_plain`` runs it on any device. ``device_body`` names the
 body's CUDA counterpart in ``csrc/dag_walk.cu``, which holds one walker
-template instantiated per program (linreg, recommendation, moe); it
-replaces the Pallas kernel ``repro/kernels/dag_walk.py:dag_walk``. The
+template instantiated per program (linreg, recommendation, moe, cc); it
+replaces the Pallas kernel ``repro/kernels/dag_walk.py:dag_walk``. A
+stage with ``inner > 1`` steps runs on the CUDA walker only when its
+device body loops over the inner steps itself (``INNER_BODIES``): the
+slot's owner walks them in ascending order inside the slot, where the
+Pallas grid had a second axis. The
 source note there gives the kernel's design and its bound.
 
 A batched walk (``vee/apps.py:merge_device_lowerings``) holds up to
@@ -29,8 +33,9 @@ pointers and sizes its body runs with, so one launch drains the batch.
 
 ``dag_walk`` takes the plain walker for CPU tensors only. For CUDA tensors
 it launches the kernel, or raises — naming the stage — when a stage has
-no device body, when no compiled program runs the stages' bodies, or when
-a batch mixes programs or has more than ``MAX_MEMBERS`` members.
+no device body, when no compiled program runs the stages' bodies, when a
+stage has inner steps its body does not loop over, or when a batch mixes
+programs or has more than ``MAX_MEMBERS`` members.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from ._build import DAG_WALK, ptr, stream
 __all__ = ["WalkOperand", "WalkStage", "WalkCtx", "dag_walk", "dag_walk_plain",
            "dag_walk_stagewise", "dag_walk_sharded", "cuda_program",
            "sync_flags", "device_table_cache_stats", "clear_device_table_cache",
-           "MAX_MEMBERS"]
+           "MAX_MEMBERS", "INNER_BODIES"]
 
 #: most members one batched launch holds (``BatchPolicy.max_batch``)
 MAX_MEMBERS = 8
@@ -331,7 +336,11 @@ _PROGRAMS = {
     "recommendation": ("recommendation.item_norms", "recommendation.user_bias",
                        "recommendation.scores"),
     "moe": ("moe.experts",),
+    "cc": ("cc.propagate", "cc.changed"),
 }
+
+#: device bodies that loop over their stage's inner steps inside the slot
+INNER_BODIES = frozenset({"cc.propagate"})
 
 
 def _program_of(bodies: list[str]) -> str | None:
@@ -343,7 +352,9 @@ def _program_of(bodies: list[str]) -> str | None:
 def cuda_program(stages: list[WalkStage]) -> tuple[str, list[int]]:
     """The compiled program that runs ``stages`` and its stage -> body map.
 
-    Raises, naming the stage, when a stage has no device body. Raises when
+    Raises, naming the stage, when a stage has no device body, and when a
+    stage has inner steps that its device body does not loop over (a body
+    outside ``INNER_BODIES``). Raises when
     no single program holds every stage's body, when a member runs a body
     twice, and for a batch (stages of several ``member`` values) that
     mixes programs, whose members differ in their bodies, or that has more
@@ -354,6 +365,10 @@ def cuda_program(stages: list[WalkStage]) -> tuple[str, list[int]]:
             raise ValueError(
                 f"stage {s.name!r} has no device body: the CUDA walker cannot "
                 "run it (use dag_walk_plain, or give it a device_body)")
+        if s.inner != 1 and s.device_body not in INNER_BODIES:
+            raise ValueError(
+                f"stage {s.name!r} has {s.inner} inner steps, but its device "
+                f"body {s.device_body!r} has no inner loop")
     if not stages:
         raise ValueError("no stages to walk")
     members = sorted({s.member for s in stages})
@@ -423,11 +438,11 @@ def _checked(t: torch.Tensor, shape: tuple, what: str, dtype=torch.float32) -> t
 
 
 # Each program's argument builder turns one member's inputs ({body: [input
-# tensors]}) and outputs ({body: output}) into the pointers (tensors, or
-# None for a null pointer) and int sizes that csrc/dag_walk.cu's P::unpack
-# reads, in its order.
+# tensors]}), outputs ({body: output}) and inner step counts ({body:
+# inner}) into the pointers (tensors, or None for a null pointer) and int
+# sizes that csrc/dag_walk.cu's P::unpack reads, in its order.
 
-def _linreg_args(inputs: dict, outs: dict, tile: int) -> tuple[list, list]:
+def _linreg_args(inputs: dict, outs: dict, tile: int, inner: dict) -> tuple[list, list]:
     """X, y, moments, mom_in, syrk; n, d."""
     X = next(ins[0] for ins in inputs.values())
     n, d = X.shape
@@ -448,7 +463,8 @@ def _linreg_args(inputs: dict, outs: dict, tile: int) -> tuple[list, list]:
     return [X, y, mom, mom_in, syrk], [n, d]
 
 
-def _recommendation_args(inputs: dict, outs: dict, tile: int) -> tuple[list, list]:
+def _recommendation_args(inputs: dict, outs: dict, tile: int,
+                         inner: dict) -> tuple[list, list]:
     """R, item_norms, user_bias, scores, norms_in, bias_in; n_users, n_items."""
     R = next(ins[0] for ins in inputs.values())
     n_users, n_items = R.shape
@@ -473,7 +489,7 @@ def _recommendation_args(inputs: dict, outs: dict, tile: int) -> tuple[list, lis
     return [R, norms, bias, scores, norms_in, bias_in], [n_users, n_items]
 
 
-def _moe_args(inputs: dict, outs: dict, tile: int) -> tuple[list, list]:
+def _moe_args(inputs: dict, outs: dict, tile: int, inner: dict) -> tuple[list, list]:
     """x, wi, wo, out, h scratch; E*C, d, f (C = tile, one slab a slot)."""
     x, wi, wo = inputs["moe.experts"]
     e, d, f2 = wi.shape
@@ -486,8 +502,43 @@ def _moe_args(inputs: dict, outs: dict, tile: int) -> tuple[list, list]:
     return [x, wi, wo, out, h], [e * tile, d, f]
 
 
+def _cc_args(inputs: dict, outs: dict, tile: int, inner: dict) -> tuple[list, list]:
+    """G, c_col, c_row, propagate, changed, prop_in; n, tile_c."""
+    G = c_col = prop_in = None
+    tile_c = 0
+    if "cc.propagate" in inputs:
+        G, c_col, c_row = inputs["cc.propagate"]
+        n = G.shape[0]
+        _checked(G, (n, n), "cc G")
+        _checked(c_col, (n,), "cc c_col")
+        steps = inner["cc.propagate"]
+        tile_c = n // steps
+        if tile_c * steps != n or tile_c % 4:
+            raise ValueError(f"cc propagate: {steps} inner steps must cut n={n} "
+                             "into column tiles of a multiple of 4")
+        if G.data_ptr() % 16 or c_col.data_ptr() % 16:
+            raise ValueError("cc propagate reads 16-byte vectors: G and c_col "
+                             "must be 16-byte aligned")
+    if "cc.changed" in inputs:
+        c_row_changed, prop_in = inputs["cc.changed"]
+        if G is not None and c_row_changed.data_ptr() != c_row.data_ptr():
+            raise ValueError("cc.changed must compare with the c_row that "
+                             "cc.propagate starts from")
+        c_row = c_row_changed
+    n = c_row.shape[0] if G is None else G.shape[0]
+    _checked(c_row, (n,), "cc c_row")
+    if prop_in is not None:
+        _checked(prop_in, (n,), "propagate read by changed")
+    prop, changed = outs.get("cc.propagate"), outs.get("cc.changed")
+    if prop is not None:
+        _checked(prop, (n,), "cc propagate output")
+    if changed is not None:
+        _checked(changed, (1,), "cc changed output", torch.int32)
+    return [G, c_col, c_row, prop, changed, prop_in], [n, tile_c]
+
+
 _ARGS = {"linreg": _linreg_args, "recommendation": _recommendation_args,
-         "moe": _moe_args}
+         "moe": _moe_args, "cc": _cc_args}
 
 
 def _walk_cuda(stages, operands, values, table, tile, table_key, dev_table,
@@ -500,8 +551,6 @@ def _walk_cuda(stages, operands, values, table, tile, table_key, dev_table,
     if n_slots == 0:
         return (outs, np.zeros((0, 4), dtype=np.int32)) if stamp else outs
     for s in stages:
-        if s.inner != 1:
-            raise ValueError(f"stage {s.name!r}: the CUDA walker has no inner axis")
         if s.n_rows % tile:
             raise ValueError(f"stage {s.name!r}: n_rows={s.n_rows} is not a "
                              f"multiple of tile={tile}")
@@ -510,6 +559,7 @@ def _walk_cuda(stages, operands, values, table, tile, table_key, dev_table,
     n_members = len(dense)
     inputs = [{} for _ in range(n_members)]
     by_body = [{} for _ in range(n_members)]
+    inner = [{} for _ in range(n_members)]
     for s in stages:
         names = s.operands + tuple(p for p, _ in s.reads)
         ins = [outs[n] if n in outs else values[n] for n in names]
@@ -519,9 +569,10 @@ def _walk_cuda(stages, operands, values, table, tile, table_key, dev_table,
                                  f"the walk on {device}")
         inputs[dense[s.member]][s.device_body] = ins
         by_body[dense[s.member]][s.device_body] = outs[s.name]
+        inner[dense[s.member]][s.device_body] = s.inner
     ptrs, dims = [], []
     for m in range(n_members):
-        p, d = _ARGS[prog](inputs[m], by_body[m], tile)
+        p, d = _ARGS[prog](inputs[m], by_body[m], tile, inner[m])
         ptrs += p
         dims += d
     # host arrays of the members' pointers and sizes; `ptrs` keeps every

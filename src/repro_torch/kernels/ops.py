@@ -1,4 +1,5 @@
-"""Public wrappers around the kernels: the DLS-scheduled CC step."""
+"""Public wrappers around the kernels: the DLS-scheduled CC step and
+GQA-aware attention."""
 
 from __future__ import annotations
 
@@ -7,8 +8,9 @@ import torch
 
 from ..core.device_schedule import build_task_table
 from .cc_propagate import cc_propagate
+from .flash_attention import flash_attention
 
-__all__ = ["cc_step", "dls_tile_schedule"]
+__all__ = ["cc_step", "attention", "dls_tile_schedule"]
 
 
 def dls_tile_schedule(technique: str, n_rows: int, tile_r: int,
@@ -37,3 +39,11 @@ def cc_step(G: torch.Tensor, c: torch.Tensor, technique: str = "MFSC",
     schedule = torch.from_numpy(dls_tile_schedule(
         technique, G.shape[0], tile_r, n_workers)).to(G.device)
     return cc_propagate(G, c, schedule, tile_r=tile_r, tile_c=tile_c)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, tile_k: int = 512) -> torch.Tensor:
+    """GQA-aware attention through K4: q ``(B, H, S, dh)``, k and v
+    ``(B, KV, S, dh)``. Query head ``h`` reads kv head ``h // (H // KV)``,
+    the reference's ``repeat`` without the copy."""
+    return flash_attention(q, k, v, causal=causal, tile_k=tile_k)

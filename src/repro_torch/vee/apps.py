@@ -6,8 +6,10 @@ Linear regression training (dense, balanced — paper Listing 2):
     A = syrk(X1) + lambda*I ; b = gemv(X1, y) ; beta = solve(A, b)
 
 as two sum stages joined by a barrier edge (``moments`` -> ``syrk_gemv``),
-and the two-branch recommendation pipeline (``item_norms``, ``user_bias``
--> ``scores``). Each is frozen into a super-table by
+the two-branch recommendation pipeline (``item_norms``, ``user_bias``
+-> ``scores``), and one connected-components iteration (``propagate`` ->
+``changed``, the walker program with an inner axis over column tiles).
+Each is frozen into a super-table by
 ``core/device_schedule.py:build_dag_tables_cached`` and drained by the
 walker (kernels/dag_walk.py) in one launch. Data is made with numpy from a
 seed, exactly as the JAX package's lowerings make it, and lies on the
@@ -35,8 +37,10 @@ from ..core.device_schedule import build_dag_tables_cached, dag_signature
 from ..core.executor import SchedulerConfig
 from ..core.preempt import (PreemptiveRunner, migrate_to_device,
                             resume_on_host, run_device_prefix)
+from ..kernels.cc_propagate import propagate_body
 from ..kernels.dag_walk import (WalkOperand, WalkStage, dag_walk_sharded,
                                 dag_walk_stagewise)
+from .sparse import CSRMatrix
 
 __all__ = [
     "linear_regression_oracle", "recommendation_oracle", "DeviceLowering",
@@ -44,6 +48,8 @@ __all__ = [
     "recommendation_device_lowering", "recommendation_device",
     "scores_plain", "values_from_reference", "linear_regression_migrated",
     "recommendation_migrated", "merge_device_lowerings", "split_device_values",
+    "CC_TECHNIQUES", "cc_iteration_dag", "cc_iteration_lowering",
+    "cc_iteration_device",
 ]
 
 
@@ -451,6 +457,105 @@ def recommendation_device(
                                          device=device)
     vals, ddt = run_device_dag(low, stage_techniques, stagewise=stagewise)
     return vals["scores"], vals, ddt
+
+
+# ------------------------------------------------------ CC iteration
+
+#: per-stage techniques of the CC-iteration super-table: MFSC over the
+#: skewed ``propagate`` rows, STATIC over the uniform ``changed`` count
+CC_TECHNIQUES = {"propagate": "MFSC", "changed": "STATIC"}
+
+
+def cc_iteration_dag(G: CSRMatrix, c_cur: np.ndarray) -> PipelineDAG:
+    """One CC iteration as a two-stage host DAG.
+
+    ``propagate`` (sparse, skewed: per-row cost ~ nnz) produces the new
+    labels; ``changed`` (dense, uniform) counts label flips. The edge is
+    elementwise, so convergence checking streams over completed label
+    chunks instead of waiting for the propagation barrier.
+    """
+    n = G.n_rows
+    row_nnz = G.row_nnz()
+
+    def cost_of_range(start: int, size: int) -> float:
+        return float(row_nnz[start:start + size].sum() + size)
+
+    propagate = Stage(
+        "propagate", n,
+        lambda inputs, s, z: G.row_max_gather(c_cur, s, s + z),
+        combine="concat", cost_of_range=cost_of_range)
+    changed = Stage(
+        "changed", n,
+        lambda inputs, s, z: int((inputs["propagate"][s:s + z]
+                                  != c_cur[s:s + z]).sum()),
+        combine="sum", deps=(StageDep("propagate", DEP_ELEMENTWISE),))
+    return PipelineDAG([propagate, changed])
+
+
+def cc_iteration_lowering(n: int, tile_r: int = 256, tile_c: int = 1024):
+    """The CC iteration as a walker super-table over a dense ``(n, n)`` G.
+
+    Returns ``(dag, stages, operands)``: the row-unit host DAG that
+    ``build_dag_tables`` freezes (tile ``tile_r``), and the walker's
+    specs. ``propagate`` is a float32 concat stage with ``n // tile_c``
+    inner steps over ``G (tile_r, tile_c)`` blocks (``("row", "inner")``),
+    ``c_col (tile_c,)`` (``("inner",)``) and ``c_row (tile_r,)``
+    (``("row",)``), running ``propagate_body``; ``changed`` is an int32
+    ``(1,)`` sum stage that reads ``propagate`` by rows and counts
+    ``propagate != c_row``. Values: ``G``, ``c_col`` and ``c_row`` (the
+    labels, twice).
+    """
+    if n % tile_r or n % tile_c:
+        raise ValueError(f"n={n} must be a multiple of tile_r={tile_r} and "
+                         f"tile_c={tile_c}")
+
+    def prop_body(ctx, ins, out):
+        propagate_body(ctx.inner, ins["G"], ins["c_col"], ins["c_row"], out)
+
+    def changed_body(ctx, ins, out):
+        out += (ins["propagate"] != ins["c_row"]).sum().to(torch.int32)[None]
+
+    dag = PipelineDAG([
+        Stage("propagate", n, None, combine="concat"),
+        Stage("changed", n, None, combine="sum",
+              deps=(StageDep("propagate", DEP_ELEMENTWISE),)),
+    ])
+    stages = [
+        WalkStage("propagate", n, (n,), torch.float32, "concat", prop_body,
+                  operands=("G", "c_col", "c_row"), inner=n // tile_c,
+                  device_body="cc.propagate"),
+        WalkStage("changed", n, (1,), torch.int32, "sum", changed_body,
+                  operands=("c_row",), reads=(("propagate", "rows"),),
+                  device_body="cc.changed"),
+    ]
+    operands = [
+        WalkOperand("G", (tile_r, tile_c), ("row", "inner")),
+        WalkOperand("c_col", (tile_c,), ("inner",)),
+        WalkOperand("c_row", (tile_r,), ("row",)),
+    ]
+    return dag, stages, operands
+
+
+def cc_iteration_device(G: torch.Tensor, c: torch.Tensor, n_shards: int = 1,
+                        tile_r: int = 256,
+                        tile_c: int = 1024) -> dict[str, torch.Tensor]:
+    """One CC iteration (``propagate`` then ``changed``) on the walker.
+
+    ``G`` is the dense ``(n, n)`` float32 {0, 1} adjacency, ``c`` the
+    labels; the walk runs on ``G``'s device, one launch per shard of the
+    super-table (``CC_TECHNIQUES``, four workers). Returns
+    ``{"propagate": (n,) float32 new labels, "changed": (1,) int32 flips}``.
+    """
+    n = G.shape[0]
+    dag, stages, operands = cc_iteration_lowering(n, tile_r, tile_c)
+    key = dag_signature(dag, tile_r, CC_TECHNIQUES, n_shards=n_shards,
+                        n_workers=4)
+    ddt = build_dag_tables_cached(dag, tile_r, CC_TECHNIQUES, n_shards=n_shards,
+                                  n_workers=4)
+    c = c.to(device=G.device, dtype=torch.float32).contiguous()
+    values = {"G": G, "c_col": c, "c_row": c}
+    return dag_walk_sharded(stages, operands, values, ddt.tables, tile_r,
+                            table_key=("cc_iteration", key))
 
 
 # ------------------------------------------------ mid-flight migration

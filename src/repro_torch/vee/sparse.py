@@ -48,6 +48,26 @@ class CSRMatrix:
         np.cumsum(counts, out=indptr[1:])
         return cls(indptr, dst.astype(np.int32), n)
 
+    def row_max_gather(self, c: np.ndarray, lo: int = 0,
+                       hi: int | None = None) -> np.ndarray:
+        """u[i] = max(max_{j in N(i)} c[j], c[i]) for rows in [lo, hi).
+
+        The paper's Listing-1 kernel ``max(rowMaxs(G * t(c)), c)``
+        restricted to a row block: the host CC body, one chunk of the
+        ``propagate`` stage (``vee/apps.py:cc_iteration_dag``).
+        """
+        hi = self.n_rows if hi is None else hi
+        ip = self.indptr[lo:hi + 1]
+        vals = c[self.indices[ip[0]:ip[-1]]]
+        offsets = (ip - ip[0])[:-1]
+        out = c[lo:hi].copy()
+        if len(vals) == 0:
+            return out
+        seg_max = np.maximum.reduceat(vals, np.minimum(offsets, len(vals) - 1))
+        nonempty = np.diff(ip) > 0
+        out[nonempty] = np.maximum(out[nonempty], seg_max[nonempty])
+        return out
+
     def to_dense(self) -> np.ndarray:
         """Dense ``(n_rows, n_cols)`` float32 {0, 1} adjacency."""
         d = np.zeros((self.n_rows, self.n_cols), dtype=np.float32)

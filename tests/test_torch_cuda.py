@@ -325,3 +325,127 @@ def test_batch_refusals_launch_nothing(cuda):
     out = twalk.dag_walk(mixed.stages, mixed.operands, cpu_vals, rows, mixed.tile)
     assert set(out) == {s.name for s in mixed.stages}
     assert _launches() == before
+
+
+# ---------------------------------------------------------------------------
+# the CC-iteration program (the walker's inner axis) and K4 flash attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_cc_iteration_walk_bitwise(cuda, n_shards):
+    """Max and an int32 count are exact: the walk equals the plain walk,
+    the reference step and the flip count bitwise, one launch a shard."""
+    n = 2048
+    rng = np.random.default_rng(7)
+    G = torch.from_numpy((rng.uniform(size=(n, n)) < 0.02).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.integers(1, 1000, n).astype(np.float32)).to(cuda)
+    before = _build.DAG_WALK.launches["walk_cc"]
+    got = tapps.cc_iteration_device(G, c, n_shards=n_shards, tile_r=256, tile_c=512)
+    assert _build.DAG_WALK.launches["walk_cc"] == before + n_shards
+    want = tref.cc_propagate_ref(G, c)
+    assert torch.equal(got["propagate"], want)
+    assert int(got["changed"][0]) == int((want != c).sum())
+    dag, stages, operands = tapps.cc_iteration_lowering(n, 256, 512)
+    tables = build_dag_tables(dag, 256, tapps.CC_TECHNIQUES, n_shards=n_shards,
+                              n_workers=4).tables
+    values = {"G": G, "c_col": c, "c_row": c}
+    for s in range(n_shards):
+        walked = twalk.dag_walk(stages, operands, values, tables[s], 256)
+        plain = twalk.dag_walk_plain(stages, operands, values, tables[s], 256)
+        for k in walked:
+            assert torch.equal(walked[k], plain[k]), k
+
+
+def test_inner_steps_without_an_inner_loop_launch_nothing(cuda):
+    low = tapps.linreg_device_lowering(512, 9, device=cuda)
+    odd = [dataclasses.replace(low.stages[0], inner=2), low.stages[1]]
+    before = sum(_build.DAG_WALK.launches.values())
+    with pytest.raises(ValueError, match="'moments' has 2 inner steps"):
+        twalk.dag_walk(odd, low.operands, low.values, _rows(low, "GSS")[0], low.tile)
+    assert sum(_build.DAG_WALK.launches.values()) == before
+
+
+# K4 against its plain version: the kernel groups the online softmax in
+# 64-key tiles and sums in its own order, so fp32 outputs agree to 2e-5;
+# bf16 outputs round to 8 bits (and p is rounded to bf16 before p . v), so
+# they agree to 2e-2, the reference's kernel-test tolerances.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("group", [1, 4, 7])
+def test_flash_attention_matches_plain(cuda, dtype, causal, dh, group):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(dh * 10 + group)
+    b, kv, s = 2, 2, 200  # 200 is no multiple of the 64-row tiles
+    q = torch.randn((b, kv * group, s, dh), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, kv, s, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, kv, s, dh), generator=gen, device=cuda).to(dtype)
+    before = _build.FLASH_ATTENTION.launches["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, tile_k=64)
+    torch.cuda.synchronize()
+    assert _build.FLASH_ATTENTION.launches["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, tile_k=64)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_strided_views_and_offset(cuda):
+    """``_split_heads``'s transposed views go in as they are, over more
+    keys than queries, causal and not."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    x = torch.randn((2, 192, 8 * 64), generator=gen, device=cuda)
+    q = x.reshape(2, 192, 8, 64).transpose(1, 2)[:, :, 64:]   # 128 queries
+    k = x[:, :, :128].reshape(2, 192, 2, 64).transpose(1, 2)
+    v = x[:, :, 128:256].reshape(2, 192, 2, 64).transpose(1, 2)
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal, tile_k=64)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    with pytest.raises(ValueError, match="dh in"):
+        flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention(q, k.bfloat16(), v)
+
+
+def test_model_prefill_on_card_matches_cpu(cuda):
+    """A reduced Granite prefill of 1,088 tokens (the chunked impl: K4 on
+    the card, its plain version on the CPU). bf16 activations round at
+    different places in cuBLAS and on the CPU, so logits and caches agree
+    to 4% of their largest magnitude (about ten bf16 steps there)."""
+    from repro_torch.models import Model
+
+    cfg = get_config("granite-8b").reduced()
+    model = Model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = model.init_params(gen, "cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(cuda)
+
+    on_card = to_card(params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 1088)))
+    before = _build.FLASH_ATTENTION.launches["flash_attention"]
+    lg, cg = model.prefill(on_card, {"tokens": toks.to(cuda)},
+                           model.init_cache(2, 1092, device=cuda))
+    assert _build.FLASH_ATTENTION.launches["flash_attention"] == before + cfg.n_layers
+    lc, cc = model.prefill(params, {"tokens": toks}, model.init_cache(2, 1092))
+    for got, want in ((lg, lc), (cg["k"], cc["k"]), (cg["v"], cc["v"])):
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0,
+                                   atol=0.04 * scale)
