@@ -20,7 +20,15 @@ super-table walker kernel and the DLS-scheduled CC step — at real sizes:
 * LM serving of Granite-8B at full size (36 layers, d_model 4,096, 32 heads
   over 8 kv heads, d_ff 14,336, vocab 49,152; 33.0 GB of fp32 weights drawn
   on the card): 8 requests of 2,048 tokens in GSS chunks over 4 slots, 16
-  tokens each, its prefill attention through K4 (flash attention).
+  tokens each, its prefill attention through K4 (flash attention);
+* LM serving of RWKV6-3B (32 layers, d_model 2,560, 40 WKV heads x 64,
+  d_ff 8,960, vocab 65,536; 3.07 B parameters, 12.3 GB fp32) and of
+  Zamba2-7B (81 Mamba2 layers in 13 super-blocks of 6, each followed by
+  the shared attention block, then 3 tail layers; d_model 3,584, 112 SSM
+  heads x 64, d_state 64, shared attention 32 heads x 112; 6.75 B
+  parameters, 27.0 GB fp32), each at full size with Granite's traffic,
+  their prefills through K6 (rwkv6_scan) and K5 (ssm_scan) and K4 at
+  dh 112.
 
 Phases, each printed as one JSON line with its seconds: environment, build
 of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
@@ -43,14 +51,23 @@ its single-launch walk). Then the CC-iteration path
 exact) and the serving path (``serve_lm``: exactly 36 x 6 = 216 K4
 launches, none in decode; the first batch's logits through K4 against the
 same weights through K4's plain version; K4 alone at the serving shape
-against its plain version and a float64 oracle). TF32 is off for every check and time
-(``allow_tf32 = False``), so library calls run in full fp32. Any failed
+against its plain version and a float64 oracle), then the two recurrent
+serving paths (``serve_lm --arch rwkv6-3b``: exactly 32 x 6 = 192 K6
+launches and no other; ``--arch zamba2-7b``: exactly 81 x 6 = 486 K5 and
+13 x 6 = 78 K4 launches at dh 112), each scan held to its float64 oracle
+and its plain version, output and final state, on the served call's own
+inputs and on randn (fast decay for K6), and K4 at dh 112 to its float64
+oracle. Each phase frees its weights before the next draws its own. TF32
+is off for every check and time (``allow_tf32 = False``), so library
+calls run in full fp32. Any failed
 check exits non-zero. Without a CUDA device, or without the
 repository around it, the script fails and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import statistics
@@ -133,6 +150,32 @@ K4_ULP, K4_FP32 = 2.0 ** -8, 2.0 ** -16
 # largest logit over 2 layers (ten-odd roundings each). Limit: 10% of the
 # largest |logit|; greedy-token agreement is reported, not required.
 LOGIT_TOL = 0.10
+# LM serving of the two recurrent families, at full size, with the same
+# traffic as Granite's: RWKV6-3B (32 layers: one K6 launch a layer in a
+# prefill) and Zamba2-7B (81 Mamba2 layers: one K5 launch each; 13
+# super-blocks, each followed by the shared attention block: one K4 launch
+# at dh 112).
+RWKV_SERVE = dict(SERVE, arch="rwkv6-3b")
+ZAMBA_SERVE = dict(SERVE, arch="zamba2-7b")
+RWKV_LAYERS, ZAMBA_MAMBA_LAYERS, ZAMBA_SUPER_BLOCKS = 32, 81, 13
+# K5 and K6 against a float64 oracle of the same recurrence, per entry.
+# Let M be the entry's sum of |terms| (the oracle run on |inputs|: every
+# gate and decay is positive) and c the largest |chunk-end cumsum| of the
+# log-decays of its (batch, head). The kernel's sums round about
+# k = 2 dh + Q = 3 Q times along any term's path, each by eps32 of at most
+# M, and roundings of either sign add as sqrt(k) (K1's sums: eps32 sqrt(k)
+# M). Each gate exp(cum_a - cum_b) takes a difference of two fp32 prefix
+# sums, whose roundings are eps32 of |cum| <= c, so its relative error
+# grows with c. The limit is eps32 sqrt(3 Q) (1 + c) M; the state takes the
+# same limit with M its own sum of |terms|. Against the plain version both
+# sides round, so twice the limit. The control that shows the limit can
+# fail: the kernel on the same inputs with its decays (K6's logw, K5's dt)
+# rounded to bfloat16, held to the oracle of the unrounded inputs, must
+# pass the limit somewhere.
+SCAN_ROUNDINGS = 3
+# H100 SXM special-function units: 16 results (expf's ex2) a clock per SM,
+# 132 SMs at 1.98 GHz (the clock that gives PEAK_FP32)
+PEAK_SFU = 132 * 16 * 1.98e9
 MIGRATIONS = (
     ("linreg", "host_to_device", LIN_UNITS + 128),
     ("linreg", "device_to_host", 2 * LIN_UNITS - 256),
@@ -225,6 +268,22 @@ def bound_ms(n_bytes: float, flops: float, peak: float = PEAK_FP32) -> tuple[flo
     (at the ``peak`` rate of their type) set it."""
     tb, tf = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def scan_bound(n_bytes: float, work, q_max: int) -> dict:
+    """Least time for a chunked scan's function on the card: its bytes at
+    the memory rate, or the least over chunk lengths q dividing ``q_max``
+    (q = 1 is the step-by-step recurrence) of its fp32 operations and its
+    ``expf``, each at its peak rate. ``work(q)`` gives ``(flops, exps)``
+    for the whole input at chunk q: chunk boundaries choose how the sums
+    are grouped, not what the function is."""
+    t_ops, q, flops, exps = min(
+        (max(f / PEAK_FP32, e / PEAK_SFU) * 1e3, q, f, e)
+        for q in range(1, q_max + 1) if q_max % q == 0 for f, e in [work(q)])
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_chunk=q, flops=flops, exps=exps, bytes=n_bytes)
 
 
 def card_line() -> str:
@@ -586,90 +645,78 @@ def decode_profile(model, params, tok, cache, index: int, served_step_ms: float,
                 top_device_rows_ms={e.key[:60]: e.self_device_time_total / 1e3 / steps
                                     for e in top})
 
+
+def k4_check(dev, served, tile_k: int) -> dict:
+    """K4 (causal) against its float64 oracle and its plain version, on
+    the served call's inputs and on contiguous bf16 randn of their shapes
+    (seed 1). Fails on an entry beyond its limit (see K4_ULP); returns the
+    worst absolute error and share of the limit of each comparison."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    q, k, v = served
+    b, h, sq, dh = q.shape
+    kvh = k.shape[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    randn = [torch.randn((b, n_h, sq, dh), generator=gen, device=dev).bfloat16()
+             for n_h in (h, kvh, kvh)]
+    g = h // kvh
+    mask = torch.arange(sq, device=dev)[:, None] >= torch.arange(sq, device=dev)[None, :]
+    checks = {}
+    for what, (q_, k_, v_) in (("served", (q, k, v)), ("randn", randn)):
+        got = flash_attention(q_, k_, v_, causal=True, tile_k=tile_k)
+        want = flash_attention_plain(q_, k_, v_, causal=True, tile_k=tile_k)
+        worst = dict(err_o=0.0, share_o=0.0, err_p=0.0, share_p=0.0)
+        for i in range(b):
+            k64 = k_[i].double().repeat_interleave(g, dim=0)
+            v64 = v_[i].double().repeat_interleave(g, dim=0)
+            s = (q_[i].double() @ k64.transpose(1, 2)) / math.sqrt(dh)
+            w = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+            o = w @ v64
+            wv = w @ v64.abs()
+            lim = K4_ULP * (o.abs() + wv) + K4_FP32 * wv
+            bad_o, err_o, share_o = beyond(got[i], o, lim)
+            bad_p, err_p, share_p = beyond(got[i], want[i], 2 * lim)
+            require(bad_o == 0, f"K4 ({what}, dh {dh}) vs float64: {bad_o} entries beyond "
+                                f"the limit (batch {i}), max abs err {err_o:.3g}")
+            require(bad_p == 0, f"K4 ({what}, dh {dh}) vs plain: {bad_p} entries beyond "
+                                f"twice the limit (batch {i}), max abs err {err_p:.3g}")
+            for key, val in (("err_o", err_o), ("share_o", share_o),
+                             ("err_p", err_p), ("share_p", share_p)):
+                worst[key] = max(worst[key], val)
+            del k64, v64, s, w, o, wv, lim
+        checks[what] = worst
+        del got, want
+    return checks
+
+
 def serve_phase(dev) -> dict:
     """Granite-8B LM serving at full size through ``serve_lm``: K4 on every
     prefill layer and nowhere else. Returns K4's row."""
-    import argparse
     from unittest import mock
 
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    from repro_torch.launch.serve import serve_lm
     from repro_torch.models import attention as attention_module
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    args = argparse.Namespace(**SERVE)
-    for k in _build.KERNELS:
-        k.launches.clear()
-    t0 = time.perf_counter()
-    res = serve_lm(args)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = launch_counts(_build.KERNELS)
-    k4_launches = GRANITE_LAYERS * SERVE_BATCHES
-    require(launches == {"flash_attention": k4_launches},
-            f"serve_lm: launches {launches}, want {k4_launches} flash_attention")
+    res, numbers, kept, logits_k = serve_checked(
+        dev, SERVE, dict(n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+                         d_ff=14336, vocab_size=49152),
+        {"flash_attention": GRANITE_LAYERS * SERVE_BATCHES},
+        {attention_module: "flash_attention"})
     model, params, cfg = res.model, res.params, res.model.cfg
-    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-              cfg.d_ff, cfg.vocab_size)
-    require(widths == (36, 4096, 32, 8, 128, 14336, 49152),
-            f"serve_lm widths {widths} are not Granite-8B's")
-
-    def numel(tree):
-        if isinstance(tree, dict):
-            tree = list(tree.values())
-        if isinstance(tree, list):
-            return sum(numel(t) for t in tree)
-        return tree.numel()
-
-    n_params = numel(params)
-    require(n_params == cfg.param_count(), "served params differ from param_count")
-    sizes = [len(set(r)) for r in res.requests]
-    require(len(res.requests) == SERVE_BATCHES and sum(sizes) == SERVE["requests"],
-            f"serve_lm slot batches {res.requests}")
-    for toks, logits in zip(res.tokens, res.logits):
-        require(toks.shape == (SERVE["slots"], SERVE["gen_len"])
-                and logits.shape == (SERVE["slots"], SERVE["gen_len"], cfg.padded_vocab)
-                and bool(torch.isfinite(logits).all()), "serve_lm output malformed")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    # the first batch again: K4 launches once a layer in prefill, never in
-    # decode, and repeats the served logits
+    # the first batch's logits through K4 against K4's plain version
     rows = res.requests[0]
     toks = torch.from_numpy(res.prompts[rows]).to(dev)
-    s_max = SERVE["prompt_len"] + SERVE["gen_len"]
-    for k in _build.KERNELS:
-        k.launches.clear()
-    served_call = {}  # the last layer's K4 call and its inputs
-
-    def keep(q, k, v, *args, **kwargs):
-        served_call.update(q=q, k=k, v=v, args=args, kwargs=kwargs)
-        return flash_attention(q, k, v, *args, **kwargs)
-
-    with mock.patch.object(attention_module, "flash_attention", keep):
-        logits_k, cache = model.prefill(params, {"tokens": toks}, model.init_cache(
-            len(rows), s_max, device=dev))
-    prefill_launches = launch_counts(_build.KERNELS)
-    nxt = logits_k[:, -1].argmax(-1)[:, None]
-    model.decode_step(params, nxt, cache, SERVE["prompt_len"])
-    torch.cuda.synchronize()
-    require(launch_counts(_build.KERNELS) == prefill_launches
-            == {"flash_attention": GRANITE_LAYERS},
-            f"K4 launches {prefill_launches} in a prefill, then "
-            f"{launch_counts(_build.KERNELS)} after a decode step")
-    decode_steps = SERVE_BATCHES * (SERVE["gen_len"] - 1)
-    decode_busy = decode_profile(model, params, nxt, cache, SERVE["prompt_len"] + 1,
-                                 res.decode_seconds / decode_steps * 1e3)
-    del cache
-    repeat_equal = torch.equal(logits_k[:, -1], res.logits[0][:, 0])
     with mock.patch.object(attention_module, "flash_attention", flash_attention_plain):
         logits_p, _ = model.prefill(params, {"tokens": toks}, model.init_cache(
-            len(rows), s_max, device=dev))
+            len(rows), SERVE["prompt_len"] + SERVE["gen_len"], device=dev))
     lk, lp = logits_k[:, -1].float(), logits_p[:, -1].float()
     logit_scale = float(lp.abs().max())
     logit_err = max_err(lk, lp)
@@ -678,6 +725,9 @@ def serve_phase(dev) -> dict:
             f"{logit_err:.4g} > {LOGIT_TOL} x {logit_scale:.4g}")
     greedy = float((lk[:, :cfg.vocab_size].argmax(-1)
                     == lp[:, :cfg.vocab_size].argmax(-1)).float().mean())
+    served_call = dict(zip(("q", "k", "v"), kept["flash_attention"][0][:3]),
+                       args=kept["flash_attention"][0][3:],
+                       kwargs=kept["flash_attention"][1])
 
     # K4 alone at the serving shape: on the served call's own bf16 inputs
     # (the last layer of the first batch's prefill: q and k leave RoPE
@@ -695,37 +745,7 @@ def serve_phase(dev) -> dict:
             f"k {tuple(k.shape)} strides {k.stride()}, {served_call['args']} "
             f"{served_call['kwargs']}")
     served_strides = [list(t.stride()) for t in (q, k, v)]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    randn = [torch.randn((b, n_h, sq, dh), generator=gen, device=dev).bfloat16()
-             for n_h in (h, kvh, kvh)]
-    g = h // kvh
-    mask = torch.arange(sq, device=dev)[:, None] >= torch.arange(sq, device=dev)[None, :]
-    k4_checks = {}
-    for what, (q_, k_, v_) in (("served", (q, k, v)), ("randn", randn)):
-        got = flash_attention(q_, k_, v_, causal=True, tile_k=cfg.attn_chunk_kv)
-        want = flash_attention_plain(q_, k_, v_, causal=True, tile_k=cfg.attn_chunk_kv)
-        worst = dict(err_o=0.0, share_o=0.0, err_p=0.0, share_p=0.0)
-        for i in range(b):
-            k64 = k_[i].double().repeat_interleave(g, dim=0)
-            v64 = v_[i].double().repeat_interleave(g, dim=0)
-            s = (q_[i].double() @ k64.transpose(1, 2)) / math.sqrt(dh)
-            w = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
-            o = w @ v64
-            wv = w @ v64.abs()
-            lim = K4_ULP * (o.abs() + wv) + K4_FP32 * wv
-            bad_o, err_o, share_o = beyond(got[i], o, lim)
-            bad_p, err_p, share_p = beyond(got[i], want[i], 2 * lim)
-            require(bad_o == 0, f"K4 ({what}) vs float64: {bad_o} entries beyond the "
-                                f"limit (batch {i}), max abs err {err_o:.3g}")
-            require(bad_p == 0, f"K4 ({what}) vs plain: {bad_p} entries beyond twice "
-                                f"the limit (batch {i}), max abs err {err_p:.3g}")
-            for key, val in (("err_o", err_o), ("share_o", share_o),
-                             ("err_p", err_p), ("share_p", share_p)):
-                worst[key] = max(worst[key], val)
-            del k64, v64, s, w, o, wv, lim
-        k4_checks[what] = worst
-        del got, want
+    k4_checks = k4_check(dev, (q, k, v), cfg.attn_chunk_kv)
     kernel = lambda: flash_attention(  # noqa: E731
         q, k, v, causal=True, tile_k=cfg.attn_chunk_kv)
     plain = lambda: flash_attention_plain(  # noqa: E731
@@ -735,26 +755,14 @@ def serve_phase(dev) -> dict:
         return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
     k4_ms, plain_ms, library_ms = timed(kernel, 10), timed(plain, 3), timed(library, 10)
-    # the per-use weight casts of one forward: every layer's matrices and the head
-    weights = [t for lp_ in params["layers"] for part in (lp_["attn"], lp_["mlp"])
-               for t in part.values() if t.dim() == 2] + [params["head"]["w"]]
-    cast_ms = timed(lambda: [w_.to(torch.bfloat16) for w_ in weights], 3)
     forwards = SERVE_BATCHES * SERVE["gen_len"]
-    tokens = SERVE["requests"] * SERVE["gen_len"]
     pairs = sq * (sq + 1) // 2
     k4_flops = 4 * b * h * dh * pairs
     k4_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    emit("serve_lm", arch=SERVE["arch"], requests=SERVE["requests"], slots=SERVE["slots"],
-         prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"],
-         technique=SERVE["technique"], batches=res.requests, params=n_params,
-         launches=launches, prefill_launches=prefill_launches,
-         seconds_with_weights=seconds, seconds=res.seconds,
-         prefill_seconds=res.prefill_seconds, decode_seconds=res.decode_seconds,
-         tokens_per_second=tokens / res.seconds,
-         k4_seconds=launches["flash_attention"] * k4_ms / 1e3,
-         weight_cast_ms_per_forward=cast_ms, forwards=forwards,
-         weight_cast_seconds=forwards * cast_ms / 1e3, peak_memory_gb=peak_gb,
-         first_batch_repeats_bitwise=repeat_equal, decode_step_profile=decode_busy,
+    launches = numbers["launches"]
+    emit("serve_lm", **numbers, k4_seconds=launches["flash_attention"] * k4_ms / 1e3,
+         forwards=forwards,
+         weight_cast_seconds=forwards * numbers["weight_cast_ms_per_forward"] / 1e3,
          logits_vs_plain=[logit_err, logit_err / (LOGIT_TOL * logit_scale)],
          logit_scale=logit_scale, greedy_agreement=greedy,
          k4_tol="2^-8 (|o| + sum w|v|) + 2^-16 sum w|v| vs float64; x2 vs plain",
@@ -774,6 +782,370 @@ def serve_phase(dev) -> dict:
         shapes=f"q ({b}, {h}, {sq}, {dh}), k and v ({b}, {kvh}, {sq}, {dh}) bf16, causal, "
                "the served call's inputs (v a transposed view)",
         **dict(zip(("bound_ms", "bound_by"), bound_ms(k4_bytes, k4_flops, PEAK_BF16))))
+
+
+def scan_limits(abs_oracle, cmaxes, q: int) -> tuple:
+    """Each entry's limit against the float64 oracle, for y and the state
+    (``abs_oracle``: each entry's sum of |terms|; ``cmaxes``: the largest
+    |chunk cumsum|, broadcast to the entries)."""
+    return tuple(EPS32 * math.sqrt(SCAN_ROUNDINGS * q) * (1.0 + c) * m
+                 for m, c in zip(abs_oracle, cmaxes))
+
+
+def scan_check(name: str, got, plain, oracle, limits, control) -> dict:
+    """Hold a scan's (y, state) to the float64 oracle within ``limits``
+    and to the plain version within twice them; fail on an entry beyond.
+    ``control`` (the scan with its decays rounded to bfloat16) must pass
+    the limit in y or the state. Returns the worst absolute errors and
+    shares of the limit, the control's included."""
+    out = {}
+    control_bad = 0
+    for part, g, p, o, lim, ctl in zip(("y", "state"), got, plain, oracle, limits, control):
+        bad_o, err_o, share_o = beyond(g, o, lim)
+        bad_p, err_p, share_p = beyond(g, p, 2 * lim)
+        bad_c, err_c, share_c = beyond(ctl, o, lim)
+        require(bad_o == 0, f"{name} {part} vs float64: {bad_o} entries beyond the limit, "
+                            f"max abs err {err_o:.3g}")
+        require(bad_p == 0, f"{name} {part} vs plain: {bad_p} entries beyond twice the "
+                            f"limit, max abs err {err_p:.3g}")
+        control_bad += bad_c
+        out[part] = dict(vs_float64=[err_o, share_o], vs_plain=[err_p, share_p],
+                         bf16_decay_control_vs_float64=[err_c, share_c, bad_c])
+    require(control_bad > 0, f"{name}: the scan with bfloat16 decays stayed within the "
+                             "limit; the limit cannot tell that precision apart")
+    return out
+
+
+def rwkv6_checks(inputs: dict, chunk: int) -> tuple[dict, float]:
+    """K6 on ``inputs`` (r, k, v, logw, u) against the float64 oracle and
+    the plain version. Returns the checks and the largest abs error."""
+    import torch
+
+    from repro_torch.kernels.ref import rwkv6_scan_ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain, rwkv6_scan_state
+
+    r, k, v, logw, u = (inputs[n] for n in ("r", "k", "v", "logw", "u"))
+    b, h, s, dh = r.shape
+    q = min(chunk, s)
+    got = rwkv6_scan_state(r, k, v, logw, u, chunk)
+    plain = rwkv6_scan_plain(r, k, v, logw, u, chunk)
+    control = rwkv6_scan_state(r, k, v, logw.bfloat16().float(), u, chunk)
+    oracle = rwkv6_scan_ref(r, k, v, logw, u, dtype=torch.float64, return_state=True)
+    abs_oracle = rwkv6_scan_ref(r.abs(), k.abs(), v.abs(), logw, u.abs(),
+                                dtype=torch.float64, return_state=True)
+    cmax = logw.double().reshape(b, h, s // q, q, dh).sum(3).abs().amax((2, 3))
+    cmaxes = (cmax[:, :, None, None], cmax[:, :, None, None])
+    checks = scan_check("K6", got, plain, oracle, scan_limits(abs_oracle, cmaxes, q),
+                        control)
+    err = max(max_err(g, p) for g, p in zip(got, plain))
+    checks["largest_chunk_cumsum"] = float(cmax.max())
+    return checks, err
+
+
+def ssm_checks(inputs: dict, chunk: int) -> tuple[dict, float]:
+    """K5 on ``inputs`` (x, dt, A, B, C) against the float64 oracle and
+    the plain version (both without D * x, which lies outside the scan).
+    Returns the checks and the largest abs error."""
+    import torch
+
+    from repro_torch.kernels.ref import ssm_scan_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain, ssm_scan_state
+
+    x, dt, A, B, C = (inputs[n] for n in ("x", "dt", "A", "B", "C"))
+    bt, s, h, dh = x.shape
+    q = min(chunk, s)
+    got = ssm_scan_state(x, dt, A, B, C, chunk)
+    plain = ssm_scan_plain(x, dt, A, B, C, chunk)
+    control = ssm_scan_state(x, dt.bfloat16().float(), A, B, C, chunk)
+    zero = torch.zeros_like(A)
+    oracle = ssm_scan_ref(x, dt, A, B, C, zero, dtype=torch.float64, return_state=True)
+    abs_oracle = ssm_scan_ref(x.abs(), dt, A, B.abs(), C.abs(), zero,
+                              dtype=torch.float64, return_state=True)
+    cmax = (dt.double() * A.double()).reshape(bt, s // q, q, h).sum(2).abs().amax(1)
+    cmaxes = (cmax[:, None, :, None], cmax[:, :, None, None])
+    checks = scan_check("K5", got, plain, oracle, scan_limits(abs_oracle, cmaxes, q),
+                        control)
+    err = max(max_err(g, p) for g, p in zip(got, plain))
+    checks["largest_chunk_cumsum"] = float(cmax.max())
+    return checks, err
+
+
+def serve_checked(dev, serve: dict, widths: dict, want_launches: dict, patches: dict):
+    """``serve_lm`` of ``serve["arch"]`` at full size, launch counters set
+    to 0 just before and read just after, its config's ``widths`` and its
+    parameter count checked; then the first batch's prefill again with
+    each kernel wrapper of ``patches`` (module -> wrapper name) wrapped to
+    keep its last call's arguments, and decode steps, which must launch
+    nothing (one, then three under ``torch.profiler``). Returns the serve
+    result, its numbers, the kept calls and the repeated prefill's
+    logits."""
+    import argparse
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.model import _leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = argparse.Namespace(**serve)
+    for k in _build.KERNELS:
+        k.launches.clear()
+    t0 = time.perf_counter()
+    res = serve_lm(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(_build.KERNELS)
+    require(launches == want_launches,
+            f"serve_lm {serve['arch']}: launches {launches}, want {want_launches}")
+    model, params, cfg = res.model, res.params, res.model.cfg
+    got_widths = {name: getattr(cfg, name) for name in widths}
+    require(got_widths == widths, f"serve_lm {serve['arch']} widths {got_widths}, "
+                                  f"want {widths}")
+    n_params = sum(t.numel() for t in _leaves(params))
+    require(n_params == cfg.param_count(),
+            f"serve_lm {serve['arch']}: served params {n_params} != param_count")
+    require(len(res.requests) == SERVE_BATCHES
+            and sum(len(set(r)) for r in res.requests) == serve["requests"],
+            f"serve_lm slot batches {res.requests}")
+    for toks, logits in zip(res.tokens, res.logits):
+        require(toks.shape == (serve["slots"], serve["gen_len"])
+                and logits.shape == (serve["slots"], serve["gen_len"], cfg.padded_vocab)
+                and bool(torch.isfinite(logits).all()),
+                f"serve_lm {serve['arch']} output malformed")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    rows = res.requests[0]
+    toks = torch.from_numpy(res.prompts[rows]).to(dev)
+    kept: dict = {}
+    with contextlib.ExitStack() as stack:
+        for module, fn_name in patches.items():
+            fn = getattr(module, fn_name)
+
+            def keep(*a, _fn=fn, _name=fn_name, **kw):
+                kept[_name] = (a, kw)
+                return _fn(*a, **kw)
+
+            stack.enter_context(mock.patch.object(module, fn_name, keep))
+        for k in _build.KERNELS:
+            k.launches.clear()
+        logits, cache = model.prefill(params, {"tokens": toks}, model.init_cache(
+            len(rows), serve["prompt_len"] + serve["gen_len"], device=dev))
+    prefill_launches = launch_counts(_build.KERNELS)
+    nxt = logits[:, -1].argmax(-1)[:, None]
+    model.decode_step(params, nxt, cache, serve["prompt_len"])
+    torch.cuda.synchronize()
+    per_prefill = {e: n // SERVE_BATCHES for e, n in want_launches.items()}
+    require(prefill_launches == per_prefill == launch_counts(_build.KERNELS),
+            f"{serve['arch']}: launches {prefill_launches} in a prefill (want "
+            f"{per_prefill}), then {launch_counts(_build.KERNELS)} after a decode step")
+    repeat_equal = torch.equal(logits[:, -1], res.logits[0][:, 0])
+    decode_steps = SERVE_BATCHES * (serve["gen_len"] - 1)
+    decode_busy = decode_profile(model, params, nxt, cache, serve["prompt_len"] + 1,
+                                 res.decode_seconds / decode_steps * 1e3)
+    del cache
+    # the per-use casts of one forward: every 2-D weight but the embedding table
+    weights = [t for key, part in params.items() if key != "embed"
+               for t in _leaves(part) if t.dim() == 2]
+    cast_ms = timed(lambda: [w_.to(torch.bfloat16) for w_ in weights], 3)
+    tokens = serve["requests"] * serve["gen_len"]
+    numbers = dict(arch=serve["arch"], requests=serve["requests"], slots=serve["slots"],
+                   prompt_len=serve["prompt_len"], gen_len=serve["gen_len"],
+                   technique=serve["technique"], batches=res.requests, params=n_params,
+                   launches=launches, prefill_launches=prefill_launches,
+                   seconds_with_weights=seconds, seconds=res.seconds,
+                   prefill_seconds=res.prefill_seconds, decode_seconds=res.decode_seconds,
+                   tokens_per_second=tokens / res.seconds, peak_memory_gb=peak_gb,
+                   first_batch_repeats_bitwise=repeat_equal,
+                   weight_cast_ms_per_forward=cast_ms, decode_step_profile=decode_busy)
+    return res, numbers, kept, logits
+
+
+def rwkv6_phase(dev) -> dict:
+    """RWKV6-3B LM serving at full size through ``serve_lm``: K6 on every
+    prefill layer and nowhere else. Returns K6's row."""
+    import torch
+
+    from repro_torch.configs.base import RWKVConfig
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain, rwkv6_scan_state
+    from repro_torch.models import rwkv as rwkv_module
+
+    res, numbers, kept, _ = serve_checked(
+        dev, RWKV_SERVE, dict(n_layers=32, d_model=2560, n_heads=40, d_ff=8960,
+                              vocab_size=65536, rwkv=RWKVConfig(64, 64, 64)),
+        {"rwkv6_scan": RWKV_LAYERS * SERVE_BATCHES}, {rwkv_module: "rwkv6_scan_state"})
+    cfg = res.model.cfg
+    chunk = cfg.rwkv.chunk
+    del res
+    (r, k, v, logw, u, q_), kw = kept["rwkv6_scan_state"]
+    b, h, s, dh = SERVE["slots"], cfg.n_heads, SERVE["prompt_len"], cfg.rwkv.head_dim
+    require(r.shape == k.shape == v.shape == logw.shape == (b, h, s, dh)
+            and r.dtype == torch.bfloat16 and logw.dtype == torch.float32
+            and not r.is_contiguous() and q_ == chunk and not kw,
+            f"served K6 call: r {tuple(r.shape)} {r.dtype} strides {r.stride()}, "
+            f"logw {logw.dtype}, chunk {q_}")
+    served = dict(r=r, k=k, v=v, logw=logw, u=u)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    rnd = [torch.randn((b, h, s, dh), generator=gen, device=dev).bfloat16()
+           for _ in range(3)]
+    fast = torch.clamp(-torch.exp(torch.randn((b, h, s, dh), generator=gen, device=dev)
+                                  * 4.0), min=-30.0)
+    randn = dict(r=rnd[0], k=rnd[1], v=rnd[2], logw=fast,
+                 u=torch.randn((h, dh), generator=gen, device=dev) * 0.1)
+    checks, errs = {}, []
+    for what, inputs in (("served", served), ("randn_fast_decay", randn)):
+        checks[what], err = rwkv6_checks(inputs, chunk)
+        errs.append(err)
+    del randn
+    kernel = lambda: rwkv6_scan_state(r, k, v, logw, u, chunk)  # noqa: E731
+    plain = lambda: rwkv6_scan_plain(r, k, v, logw, u, chunk)  # noqa: E731
+    k6_ms, plain_ms = timed(kernel, 10), timed(plain, 3)
+    # per token and head at chunk q: the carry-in r' S and the update k'^T v
+    # (2 dh^2 each), the state's decay once a chunk, (q - 1) / 2 earlier
+    # steps of the chunk each (gate product and A: 3 dh; A v: 2 dh), the
+    # bonus (5 dh), the scalings and the cumsum (3 dh); expf: the exact
+    # gate's (q - 1) / 2 dh, exp(cum_{t-1}) and exp(cum_q - cum) for all
+    # but one step of the chunk, exp(cum_q) once a chunk
+    bound = scan_bound(
+        sum(t.numel() * t.element_size() for t in (r, k, v, logw, u))
+        + 4 * (b * h * s * dh + b * h * dh * dh),
+        lambda q: (b * h * s * (4 * dh * dh + dh * dh / q + (q - 1) / 2 * 5 * dh + 8 * dh),
+                   b * h * s * ((q - 1) / 2 * dh + 2 * (q - 1) / q * dh + dh / q)),
+        chunk)
+    launches = numbers["launches"]["rwkv6_scan"]
+    emit("serve_rwkv6", **numbers, k6_seconds=launches * k6_ms / 1e3,
+         k6_share_of_prefill=launches * k6_ms / 1e3 / numbers["prefill_seconds"],
+         k6_tol="eps32 sqrt(3 Q) (1 + max|chunk cumsum|) sum|terms| vs float64; x2 vs "
+                "plain; the scan on bf16-rounded logw must pass it",
+         k6_inputs={"served": f"the last layer's r, k, v, logw, u of the first batch's "
+                              f"prefill, r strides {list(r.stride())}",
+                    "randn_fast_decay": "bf16 randn r, k, v; logw = max(-exp(4 randn), -30)"},
+         k6_checks=checks)
+    return dict(
+        name="rwkv6_scan", route="cuda", source="src/repro_torch/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:70",
+        launches=launches, max_abs_err=max(errs),
+        max_abs_err_vs_float64=max(c[p]["vs_float64"][0] for c in checks.values()
+                                   for p in ("y", "state")),
+        ms=k6_ms, plain_ms=plain_ms, library_ms=None,
+        library_call="none: no one PyTorch call computes the RWKV6 WKV recurrence",
+        shapes=f"r, k, v ({b}, {h}, {s}, {dh}) bf16 (transposed views), logw f32, "
+               f"chunk {chunk}; y and final state f32",
+        **bound)
+
+
+def zamba2_phase(dev) -> list[dict]:
+    """Zamba2-7B LM serving at full size through ``serve_lm``: K5 on every
+    Mamba2 prefill layer and K4 (dh 112) on every shared-attention prefill
+    call, nowhere else. Returns K5's row and K4's dh 112 row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain, ssm_scan_state
+    from repro_torch.models import attention as attention_module
+    from repro_torch.models import ssm as ssm_module
+
+    res, numbers, kept, _ = serve_checked(
+        dev, ZAMBA_SERVE, dict(n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32,
+                               head_dim=112, d_ff=14336, vocab_size=32000,
+                               ssm=SSMConfig(d_state=64, head_dim=64, expand=2, chunk=64,
+                                             conv_width=4, attn_every=6)),
+        {"ssm_scan": ZAMBA_MAMBA_LAYERS * SERVE_BATCHES,
+         "flash_attention": ZAMBA_SUPER_BLOCKS * SERVE_BATCHES},
+        {ssm_module: "ssm_scan_state", attention_module: "flash_attention"})
+    cfg = res.model.cfg
+    chunk, tile_k = cfg.ssm.chunk, cfg.attn_chunk_kv
+    del res
+    (x, dt, A, B, C, q_), kw = kept["ssm_scan_state"]
+    bt, s, h, dh, n = SERVE["slots"], SERVE["prompt_len"], 112, 64, 64
+    require(x.shape == (bt, s, h, dh) and B.shape == C.shape == (bt, s, n)
+            and dt.shape == (bt, s, h) and x.dtype == B.dtype == torch.bfloat16
+            and not x.is_contiguous() and not B.is_contiguous() and q_ == chunk and not kw,
+            f"served K5 call: x {tuple(x.shape)} {x.dtype} strides {x.stride()}, "
+            f"B strides {B.stride()}, chunk {q_}")
+    served = dict(x=x, dt=dt, A=A, B=B, C=C)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    randn = dict(x=torch.randn((bt, s, h, dh), generator=gen, device=dev).bfloat16(),
+                 dt=F.softplus(torch.randn((bt, s, h), generator=gen, device=dev)),
+                 A=-torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.5),
+                 B=torch.randn((bt, s, n), generator=gen, device=dev).bfloat16(),
+                 C=torch.randn((bt, s, n), generator=gen, device=dev).bfloat16())
+    checks, errs = {}, []
+    for what, inputs in (("served", served), ("randn", randn)):
+        checks[what], err = ssm_checks(inputs, chunk)
+        errs.append(err)
+    del randn
+    kernel = lambda: ssm_scan_state(x, dt, A, B, C, chunk)  # noqa: E731
+    plain = lambda: ssm_scan_plain(x, dt, A, B, C, chunk)  # noqa: E731
+    k5_ms, plain_ms = timed(kernel, 10), timed(plain, 3)
+    # per token and head at chunk q: the carry-in C S^T and the update
+    # (dt x w)^T B (2 dh N each), the state's decay once a chunk, (q + 1) / 2
+    # steps of the chunk each (gate and dt: 2; scores x: 2 dh; C B^T: 2 N,
+    # once for all h heads), the carry-in's scaling and dt x (2 dh), the
+    # cumsum and w dt (2); expf: the gate's (q - 1) / 2, exp(cum_t) and
+    # exp(cum_q - cum_s) for all but one step, exp(cum_q) once a chunk
+    bound = scan_bound(
+        x.numel() * 2 + dt.numel() * 4 + A.numel() * 4 + 2 * B.numel() * 2
+        + 4 * (bt * s * h * dh + bt * h * dh * n),
+        lambda q: (bt * s * h * (4 * dh * n + dh * n / q
+                                 + (q + 1) / 2 * (2 + 2 * dh + 2 * n / h) + 2 * dh + 2),
+                   bt * s * h * ((q - 1) / 2 + 2 * (q - 1) / q + 1 / q)),
+        chunk)
+
+    # K4 at dh 112: the last shared-attention call of the first prefill
+    (q, k, v), kw4 = kept["flash_attention"]
+    ha = cfg.n_heads
+    require(q.shape == k.shape == v.shape == (bt, ha, s, 112) and q.dtype == torch.bfloat16
+            and kw4 == dict(causal=True, tile_k=tile_k),
+            f"served K4 call: q {tuple(q.shape)} {q.dtype}, {kw4}")
+    k4 = k4_check(dev, (q, k, v), tile_k)
+    k4_ms = timed(lambda: flash_attention(q, k, v, causal=True, tile_k=tile_k), 10)
+    k4_plain_ms = timed(lambda: flash_attention_plain(q, k, v, causal=True, tile_k=tile_k), 3)
+    k4_library_ms = timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 10)
+    k4_pairs = s * (s + 1) // 2
+    k5_launches = numbers["launches"]["ssm_scan"]
+    k4_launches = numbers["launches"]["flash_attention"]
+    emit("serve_zamba2", **numbers, k5_seconds=k5_launches * k5_ms / 1e3,
+         k4_seconds=k4_launches * k4_ms / 1e3,
+         kernel_share_of_prefill=(k5_launches * k5_ms + k4_launches * k4_ms) / 1e3
+         / numbers["prefill_seconds"],
+         k5_tol="eps32 sqrt(3 Q) (1 + max|chunk cumsum|) sum|terms| vs float64; x2 vs "
+                "plain; the scan on bf16-rounded dt must pass it",
+         k5_inputs={"served": f"the last Mamba2 layer's x, dt, A, B, C of the first "
+                              f"batch's prefill, x strides {list(x.stride())}, B strides "
+                              f"{list(B.stride())}", "randn": "bf16 randn x, B, C; "
+                              "dt = softplus(randn), A = -exp(randn / 2)"},
+         k5_checks=checks,
+         k4_dh112_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in k4.items()},
+         k4_dh112_vs_plain={w_: [c["err_p"], c["share_p"]] for w_, c in k4.items()})
+    return [dict(
+        name="ssm_scan", route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:57",
+        launches=k5_launches, max_abs_err=max(errs),
+        max_abs_err_vs_float64=max(c[p]["vs_float64"][0] for c in checks.values()
+                                   for p in ("y", "state")),
+        ms=k5_ms, plain_ms=plain_ms, library_ms=None,
+        library_call="none: no one PyTorch call computes the Mamba2 SSD scan",
+        shapes=f"x ({bt}, {s}, {h}, {dh}) bf16 (a strided view of the conv output), "
+               f"B, C ({bt}, {s}, {n}) bf16 views, dt f32, chunk {chunk}; y and final "
+               "state f32",
+        **bound), dict(
+        name="flash_attention[dh 112, Zamba2]", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:63",
+        launches=k4_launches, max_abs_err=max(c["err_p"] for c in k4.values()),
+        max_abs_err_vs_float64=max(c["err_o"] for c in k4.values()),
+        ms=k4_ms, plain_ms=k4_plain_ms, library_ms=k4_library_ms,
+        library_call="F.scaled_dot_product_attention(q, k, v, is_causal=True)",
+        shapes=f"q, k, v ({bt}, {ha}, {s}, 112) bf16, causal, the served call's inputs",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            2 * 4 * q.numel(), 4 * bt * ha * 112 * k4_pairs, PEAK_BF16))))]
 
 
 def main() -> None:
@@ -1158,6 +1530,10 @@ def main() -> None:
     kernels.extend(batched_phase(dev, walk_inputs))
     kernels.append(cc_iteration_phase(G, c, u))
     kernels.append(serve_phase(dev))
+    gc.collect()
+    kernels.append(rwkv6_phase(dev))
+    gc.collect()
+    kernels.extend(zamba2_phase(dev))
 
     emit("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,8 +24,10 @@
 // threads, each owning 4 query rows x 4 keys of a score tile (row max and
 // sum by shuffles over the 16 threads of a row group) and 4 rows x dh/16
 // output columns, with m, l and acc in registers; fp32 FMA for both
-// products, each sum in ascending order. The tensor cores (mma.sync or
-// wgmma), TMA and a pipelined K/V ring are the way to the bound.
+// products, each sum in ascending order. Compiled for dh 16, 64, 112
+// (Zamba2-7B's shared attention: NC = 7 accumulator columns a thread) and
+// 128. The tensor cores (mma.sync or wgmma), TMA and a pipelined K/V ring
+// are the way to the bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,16 +95,18 @@ __device__ __forceinline__ void stage(float* dst, const T* base,
 }
 
 // Output column of a thread's jj-th accumulator (NC = DH / 16 of them):
-// four neighbouring columns per 64 when NC >= 4, else one per 16.
+// four neighbouring columns per 64 when NC is a multiple of 4 (dh 64 and
+// 128: float4 reads of a V row), else one per 16 (dh 16 and 112).
 template <int NC>
 __device__ __forceinline__ int out_col(int c, int jj) {
-  if constexpr (NC >= 4) return (jj / 4) * 64 + 4 * c + (jj % 4);
+  if constexpr (NC % 4 == 0) return (jj / 4) * 64 + 4 * c + (jj % 4);
   else return c + 16 * jj;
 }
 
 template <class T, int DH>
 __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
-  constexpr int LD = DH + 4;  // padded rows: conflict-free float4 reads
+  constexpr int LD = DH + 4;  // padded rows (116 floats at dh 112): conflict-
+                              // free, 16-byte aligned float4 reads
   constexpr int LP = BK + 4;
   constexpr int NC = DH / 16;
   extern __shared__ __align__(16) float smem[];
@@ -216,7 +220,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
       for (int u = 0; u < 4; ++u) {
         const float* vrow = KVs + (kk + u) * LD;
         float vv[NC];
-        if constexpr (NC >= 4) {
+        if constexpr (NC % 4 == 0) {
 #pragma unroll
           for (int g = 0; g < NC / 4; ++g) {
             const float4 t = *reinterpret_cast<const float4*>(vrow + g * 64 + 4 * c);
@@ -263,6 +267,7 @@ int dispatch(const Params& p, int B, int dh, void* stream) {
   switch (dh) {
     case 16: return launch<T, 16>(p, B, stream);
     case 64: return launch<T, 64>(p, B, stream);
+    case 112: return launch<T, 112>(p, B, stream);
     case 128: return launch<T, 128>(p, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -107,7 +107,9 @@ class Kernel:
 DAG_WALK = Kernel("dag_walk.cu")
 CC_PROPAGATE = Kernel("cc_propagate.cu")
 FLASH_ATTENTION = Kernel("flash_attention.cu")
-KERNELS = (DAG_WALK, CC_PROPAGATE, FLASH_ATTENTION)
+SSM_SCAN = Kernel("ssm_scan.cu")
+RWKV6_SCAN = Kernel("rwkv6_scan.cu")
+KERNELS = (DAG_WALK, CC_PROPAGATE, FLASH_ATTENTION, SSM_SCAN, RWKV6_SCAN)
 
 
 def build_all() -> None:
@@ -115,6 +117,24 @@ def build_all() -> None:
     procs = [(k, k.start_build()) for k in KERNELS]
     for k, p in procs:
         k.finish_build(p)
+
+
+def seq_chunk(s: int, chunk: int) -> int:
+    """The chunk a scan over ``s`` steps takes: ``min(chunk, s)``, which
+    must divide ``s``."""
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"chunk {q} must divide the sequence length {s}")
+    return q
+
+
+def kernel_chunk(q: int, max_chunk: int) -> int:
+    """The chunk a scan kernel built for chunks of at most ``max_chunk``
+    runs in place of ``q``: ``q``, or else its largest divisor below
+    ``max_chunk``. Chunk boundaries only choose how the scan's sums are
+    grouped, so a chunk of 128 run as two of 64 computes the same
+    function."""
+    return max(d for d in range(1, min(q, max_chunk) + 1) if q % d == 0)
 
 
 def ptr(t) -> ctypes.c_void_p:

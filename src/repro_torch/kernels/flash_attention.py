@@ -35,8 +35,8 @@ __all__ = ["NEG_INF", "HEAD_DIMS", "flash_attention", "flash_attention_plain"]
 
 NEG_INF = -1e30
 #: head widths the CUDA kernel is compiled for (every dense config's 128,
-#: 64, and the reduced configs' 16)
-HEAD_DIMS = (16, 64, 128)
+#: Zamba2-7B's shared attention's 112, 64, and the reduced configs' 16)
+HEAD_DIMS = (16, 64, 112, 128)
 
 
 def _shapes(q: torch.Tensor, k: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Public wrappers around the kernels: the DLS-scheduled CC step and
-GQA-aware attention."""
+"""Public wrappers around the kernels: the DLS-scheduled CC step,
+GQA-aware attention and the two recurrent scans."""
 
 from __future__ import annotations
 
@@ -9,8 +9,10 @@ import torch
 from ..core.device_schedule import build_task_table
 from .cc_propagate import cc_propagate
 from .flash_attention import flash_attention
+from .rwkv6_scan import rwkv6_scan
+from .ssm_scan import ssm_scan
 
-__all__ = ["cc_step", "attention", "dls_tile_schedule"]
+__all__ = ["cc_step", "attention", "mamba2_chunk_scan", "wkv6", "dls_tile_schedule"]
 
 
 def dls_tile_schedule(technique: str, n_rows: int, tile_r: int,
@@ -47,3 +49,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(B, KV, S, dh)``. Query head ``h`` reads kv head ``h // (H // KV)``,
     the reference's ``repeat`` without the copy."""
     return flash_attention(q, k, v, causal=causal, tile_k=tile_k)
+
+
+def mamba2_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                      chunk: int = 128) -> torch.Tensor:
+    """Mamba2's SSD scan plus ``D * x`` through K5: x ``(Bt, S, H, dh)``,
+    dt ``(Bt, S, H)``, A and D ``(H,)``, B and C ``(Bt, S, N)``."""
+    return ssm_scan(x, dt, A, B, C, D, chunk=chunk)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+         u: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """RWKV6's WKV through K6: r, k, v, logw ``(Bt, H, S, dh)``, u ``(H, dh)``."""
+    return rwkv6_scan(r, k, v, logw, u, chunk=chunk)

@@ -30,3 +30,54 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(mask, s, torch.full_like(s, -1e30))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w.to(q.dtype), v)
+
+
+def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                 dtype=torch.float32, return_state: bool = False):
+    """Sequential Mamba2 (SSD) recurrence oracle.
+
+    x ``(Bt, S, H, dh)``; dt ``(Bt, S, H)``; A ``(H,)`` (negative); B and C
+    ``(Bt, S, N)``. Returns ``(Bt, S, H, dh)`` in ``dtype`` (float64 for a
+    card check), and with ``return_state`` the final state ``(Bt, H, dh,
+    N)`` too.
+    """
+    bt, s, h, dh = x.shape
+    n = B.shape[-1]
+    xf, dtf, Af = x.to(dtype), dt.to(dtype), A.to(dtype)
+    Bf, Cf = B.to(dtype), C.to(dtype)
+    state = torch.zeros((bt, h, dh, n), dtype=dtype, device=x.device)
+    ys = []
+    for t in range(s):
+        dA = torch.exp(dtf[:, t] * Af[None, :])                           # (Bt, H)
+        upd = (dtf[:, t, :, None, None] * xf[:, t, :, :, None]) \
+            * Bf[:, t, None, None, :]
+        state = state * dA[..., None, None] + upd
+        ys.append(torch.einsum("bhdn,bn->bhd", state, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + D.to(dtype)[None, None, :, None] * xf
+    return (y, state) if return_state else y
+
+
+def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   logw: torch.Tensor, u: torch.Tensor, dtype=torch.float32,
+                   return_state: bool = False):
+    """Sequential RWKV6 recurrence oracle.
+
+    r, k, v, logw ``(Bt, H, S, dh)`` (logw <= 0); u ``(H, dh)``.
+    ``y_t = r_t (S_{t-1} + diag(u) k_t v_t^T)``,
+    ``S_t = diag(w_t) S_{t-1} + k_t v_t^T``. Returns ``(Bt, H, S, dh)`` in
+    ``dtype``, and with ``return_state`` the final state ``(Bt, H, dh, dh)``.
+    """
+    bt, h, s, dh = r.shape
+    rf, kf, vf, lwf = (t.to(dtype) for t in (r, k, v, logw))
+    uf = u.to(dtype)
+    state = torch.zeros((bt, h, dh, dh), dtype=dtype, device=r.device)
+    ys = []
+    for t in range(s):
+        r_t, k_t, v_t = rf[:, :, t], kf[:, :, t], vf[:, :, t]
+        ys.append(torch.einsum("bhc,bhcd->bhd", r_t, state)
+                  + (r_t * uf[None] * k_t).sum(-1, keepdim=True) * v_t)
+        state = state * torch.exp(lwf[:, :, t])[..., None] \
+            + k_t[..., :, None] * v_t[..., None, :]
+    y = torch.stack(ys, dim=2)
+    return (y, state) if return_state else y

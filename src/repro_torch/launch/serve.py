@@ -4,6 +4,7 @@
     # on the card, Granite-8B at full size
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --requests 8 --slots 4 --prompt-len 2048 --gen-len 16 --technique GSS
+    # RWKV6-3B or Zamba2-7B the same way: --arch rwkv6-3b / zamba2-7b
     # on the CPU, the reduced config
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
@@ -14,9 +15,13 @@ gets a fresh cache, one prefill and ``gen_len - 1`` greedy decode steps
 (argmax over the unmasked padded-vocab logits, the token at position
 ``prompt_len + t``). The weights are fp32, drawn on ``--device`` from a
 ``torch.Generator`` seeded 0 (the reference's ``jax.random`` key 0 gives
-other numbers). The KV cache is updated in place where the reference
-donates it to a functional update. On a CUDA device a prompt over 1,024
-tokens prefills through K4 (``models/attention.py:chunked_attention``).
+other numbers). The cache (KV for the dense family; token shifts and
+the WKV state for RWKV6; conv rows, SSM state and the shared attention's
+KV for Zamba2) is updated in place where the reference donates it to a
+functional update. On a CUDA device a prompt over 1,024 tokens prefills
+its attention through K4 (``models/attention.py:chunked_attention``), an
+RWKV6 prompt its WKV through K6 and a Zamba2 prompt its SSD scan through
+K5.
 
 ``--mode pipelines`` and ``--mode openloop`` wait for the server and
 front-door stack (ROADMAP A14).

@@ -1,11 +1,13 @@
-"""Decoder layers (the port's copy of the dense part of ``models/blocks.py``).
+"""Decoder layers (the port's copy of the dense, Mamba2 and RWKV6 parts of
+``models/blocks.py``).
 
 Every layer apply has the reference's uniform signature
 
     apply(params, x, cfg, *, positions, impl, cache, cache_index) -> (x, cache, aux)
 
-``aux`` is a scalar (the MoE load-balance loss; 0 for a dense layer). The
-MoE, MLA, Mamba2, RWKV6 and Whisper layers wait for ROADMAP A11.1-A11.5.
+``aux`` is a scalar (the MoE load-balance loss; 0 for the layers here);
+the Mamba2 and RWKV6 layers take no positions and no attention impl. The
+MoE, MLA and Whisper layers wait for ROADMAP A11.1, A11.2 and A11.5.
 """
 
 from __future__ import annotations
@@ -13,9 +15,12 @@ from __future__ import annotations
 import torch
 
 from .attention import gqa_attention, init_attention
-from .layers import Params, init_mlp, mlp, rms_norm
+from .layers import Params, init_mlp, layer_norm, mlp, rms_norm
+from .rwkv import init_rwkv6, rwkv6_channel_mix, rwkv6_time_mix
+from .ssm import init_mamba2, mamba2_block
 
-__all__ = ["ZERO", "init_dense_layer", "apply_dense_layer"]
+__all__ = ["ZERO", "init_dense_layer", "apply_dense_layer", "init_mamba_layer",
+           "apply_mamba_layer", "init_rwkv_layer", "apply_rwkv_layer"]
 
 #: the aux loss of a layer that has none
 ZERO = 0.0
@@ -45,3 +50,52 @@ def apply_dense_layer(params: Params, x: torch.Tensor, cfg, *, positions,
     x = x + h
     x = x + mlp(params["mlp"], rms_norm(x, params["ln2"], cfg.norm_eps))
     return x, cache, ZERO
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 layer (Zamba2's trunk)
+# ---------------------------------------------------------------------------
+
+def init_mamba_layer(generator: torch.Generator, cfg, device=None,
+                     dtype=torch.float32) -> Params:
+    """The pre-norm scale and one Mamba2 block."""
+    mamba = init_mamba2(generator, cfg, device, dtype)
+    return {"ln": torch.ones((cfg.d_model,), dtype=dtype,
+                             device=mamba["in_proj"].device),
+            "mamba": mamba}
+
+
+def apply_mamba_layer(params: Params, x: torch.Tensor, cfg, *, cache, cache_index):
+    """Pre-norm Mamba2 block added to the residual."""
+    h, cache = mamba2_block(params["mamba"], rms_norm(x, params["ln"], cfg.norm_eps),
+                            cfg, cache=cache, cache_index=cache_index)
+    return x + h, cache, ZERO
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 layer
+# ---------------------------------------------------------------------------
+
+def init_rwkv_layer(generator: torch.Generator, cfg, device=None,
+                    dtype=torch.float32) -> Params:
+    """Time mix, channel mix and their two layer norms."""
+    p = init_rwkv6(generator, cfg, device, dtype)
+    dev = p["tm"]["wr"].device
+    for name, value in (("ln1", 1.0), ("ln1b", 0.0), ("ln2", 1.0), ("ln2b", 0.0)):
+        p[name] = torch.full((cfg.d_model,), value, dtype=dtype, device=dev)
+    return p
+
+
+def apply_rwkv_layer(params: Params, x: torch.Tensor, cfg, *, cache, cache_index):
+    """Time mix then channel mix, each layer-normed and added to the
+    residual; the new cache entries are the two mixes' together."""
+    h, tm_cache = rwkv6_time_mix(
+        params, layer_norm(x, params["ln1"], params["ln1b"], cfg.norm_eps), cfg,
+        cache=cache, cache_index=cache_index)
+    x = x + h
+    h, cm_cache = rwkv6_channel_mix(
+        params, layer_norm(x, params["ln2"], params["ln2b"], cfg.norm_eps), cache=cache)
+    new_cache = None
+    if cache is not None:
+        new_cache = {**(tm_cache or {}), **(cm_cache or {})}
+    return x + h, new_cache, ZERO

@@ -1,18 +1,23 @@
-"""Model assembly for the dense decoder family (the port's copy of the dense
-path of ``models/model.py``): init, caches, prefill and decode.
+"""Model assembly for the dense decoder, RWKV6 and Zamba2 families (the
+port's copy of those paths of ``models/model.py``): init, caches, prefill
+and decode.
 
 The reference stacks the layers on a leading axis and runs them with
 ``lax.scan``; the port keeps one params dict per layer and runs them in a
-Python loop. The KV cache keeps the reference's stacked layout, ``{'k',
-'v'}`` of ``(L, B, KV, S_max, dh)``, and each layer writes its slice in
+Python loop (Zamba2's ``mamba_main`` is a list of super-blocks, each a list
+of ``attn_every`` Mamba2 layers, then ``mamba_tail``; the shared attention
+block is one dense layer). The caches keep the reference's stacked layouts
+— dense ``{'k', 'v'}`` of ``(L, B, KV, S_max, dh)``; RWKV6 ``{'shift_tm',
+'shift_cm', 'state'}`` with a leading L; Zamba2 ``{'mamba_main': {'conv',
+'state'}}`` with leading ``(n_sb, attn_every)``, ``'attn'`` (one KV cache
+per super-block) and ``'mamba_tail'`` — and each layer writes its slice in
 place. ``model_params_from_reference`` turns the reference's params (numpy
 arrays, layers stacked) into the port's.
 
 Other families raise ``NotImplementedError`` naming their ROADMAP item:
-MoE layers (A11.1), MLA (A11.2), Zamba2's Mamba2 layers with K5 (A11.3),
-RWKV6 with K6 (A11.4), Whisper's encoder-decoder (A11.5) and the InternVL2
-vision frontend (A11.6). Training (``train_loss``, ``cross_entropy``) waits
-for A12.
+MoE layers (A11.1), MLA (A11.2), Whisper's encoder-decoder (A11.5) and the
+InternVL2 vision frontend (A11.6). Training (``train_loss``,
+``cross_entropy``) waits for A12.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import torch
 from . import blocks
 from .blocks import ZERO
 from .layers import Params, embed, he_init, init_embedding, rms_norm, unembed
+from .rwkv import init_rwkv6_cache
+from .ssm import init_mamba2_cache
 
 __all__ = ["NEG_INF", "Model", "unported_part", "mask_vocab_padding",
            "param_shapes", "count_params", "count_active_params",
@@ -37,11 +44,9 @@ NEG_INF = -1e30
 
 def unported_part(cfg) -> str | None:
     """What of ``cfg``'s architecture the port lacks (with its ROADMAP
-    item), or None for the dense family."""
-    if cfg.rwkv is not None:
-        return "RWKV6 layers and their scan K6 (ROADMAP A11.4)"
-    if cfg.ssm is not None:
-        return "Zamba2's Mamba2 layers and their scan K5 (ROADMAP A11.3)"
+    item), or None for the dense, RWKV6 and Zamba2 families."""
+    if cfg.rwkv is not None or cfg.ssm is not None:
+        return None
     if cfg.encdec is not None:
         return "Whisper's encoder-decoder (ROADMAP A11.5)"
     if cfg.mla is not None:
@@ -64,7 +69,8 @@ def mask_vocab_padding(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
 
 @dataclass
 class Model:
-    """Config-driven dense GQA decoder: init / prefill / decode_step."""
+    """Config-driven LM (dense GQA, RWKV6, Zamba2): init / prefill /
+    decode_step."""
 
     cfg: Any
 
@@ -72,7 +78,8 @@ class Model:
         missing = unported_part(self.cfg)
         if missing is not None:
             raise NotImplementedError(
-                f"{self.cfg.name}: the port has only the dense decoder family; "
+                f"{self.cfg.name}: the port has the dense, RWKV6 and Zamba2 "
+                f"families; "
                 f"{missing} is not ported")
 
     # ---- init ------------------------------------------------------------------
@@ -90,18 +97,53 @@ class Model:
         if not cfg.tie_embeddings:
             params["head"] = {"w": he_init(generator, (cfg.d_model, cfg.padded_vocab),
                                            cfg.d_model, device)}
-        params["layers"] = [blocks.init_dense_layer(generator, cfg, device)
-                            for _ in range(cfg.n_layers)]
+        if cfg.rwkv is not None:
+            params["layers"] = [blocks.init_rwkv_layer(generator, cfg, device)
+                                for _ in range(cfg.n_layers)]
+        elif cfg.ssm is not None:
+            n_sb, ae, tail = self._hybrid_dims()
+            params["mamba_main"] = [[blocks.init_mamba_layer(generator, cfg, device)
+                                     for _ in range(ae)] for _ in range(n_sb)]
+            if tail:
+                params["mamba_tail"] = [blocks.init_mamba_layer(generator, cfg, device)
+                                        for _ in range(tail)]
+            params["shared_attn"] = blocks.init_dense_layer(generator, cfg, device)
+        else:
+            params["layers"] = [blocks.init_dense_layer(generator, cfg, device)
+                                for _ in range(cfg.n_layers)]
         return params
+
+    def _hybrid_dims(self) -> tuple[int, int, int]:
+        """Zamba2's super-blocks, Mamba2 layers per super-block, tail layers."""
+        ae = self.cfg.ssm.attn_every
+        n_sb = self.cfg.n_layers // ae
+        return n_sb, ae, self.cfg.n_layers - n_sb * ae
 
     # ---- caches ----------------------------------------------------------------
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16,
                    device=None) -> Params:
-        """Zeroed ``{'k', 'v'}`` of ``(L, B, KV, S_max, dh)``."""
+        """The zeroed cache of the family, stacked as the reference's."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, cfg.n_kv_heads, s_max, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+        def kv_cache(n: int):
+            shape = (n, batch, cfg.n_kv_heads, s_max, cfg.head_dim)
+            return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+        def stacked(one: Params, *lead: int) -> Params:
+            return {k: torch.zeros((*lead, *t.shape), dtype=t.dtype, device=t.device)
+                    for k, t in one.items()}
+
+        if cfg.rwkv is not None:
+            return stacked(init_rwkv6_cache(cfg, batch, dtype, device), cfg.n_layers)
+        if cfg.ssm is not None:
+            n_sb, ae, tail = self._hybrid_dims()
+            one = init_mamba2_cache(cfg, batch, dtype, device)
+            cache = {"mamba_main": stacked(one, n_sb, ae), "attn": kv_cache(n_sb)}
+            if tail:
+                cache["mamba_tail"] = stacked(one, tail)
+            return cache
+        return kv_cache(cfg.n_layers)
 
     # ---- trunk -----------------------------------------------------------------
     def _embed_inputs(self, params: Params, batch_inputs: dict) -> torch.Tensor:
@@ -120,6 +162,31 @@ class Model:
         cfg = self.cfg
         impl = impl or self._impl(x.shape[1])
         aux = ZERO
+        if cfg.rwkv is not None:
+            for i, lp in enumerate(params["layers"]):
+                x, _, a = _recurrent(blocks.apply_rwkv_layer, lp, x, cfg, cache,
+                                     (i,), cache_index)
+                aux = aux + a
+            return x, cache, aux
+        if cfg.ssm is not None:
+            main = None if cache is None else cache["mamba_main"]
+            for sb, layers in enumerate(params["mamba_main"]):
+                for j, lp in enumerate(layers):
+                    x, _, a = _recurrent(blocks.apply_mamba_layer, lp, x, cfg, main,
+                                         (sb, j), cache_index)
+                    aux = aux + a
+                c = None if cache is None else {"k": cache["attn"]["k"][sb],
+                                                "v": cache["attn"]["v"][sb]}
+                x, _, a = blocks.apply_dense_layer(params["shared_attn"], x, cfg,
+                                                   positions=positions, impl=impl,
+                                                   cache=c, cache_index=cache_index)
+                aux = aux + a
+            tail = None if cache is None else cache.get("mamba_tail")
+            for i, lp in enumerate(params.get("mamba_tail", [])):
+                x, _, a = _recurrent(blocks.apply_mamba_layer, lp, x, cfg, tail,
+                                     (i,), cache_index)
+                aux = aux + a
+            return x, cache, aux
         for i, lp in enumerate(params["layers"]):
             c = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
             x, _, a = blocks.apply_dense_layer(lp, x, cfg, positions=positions,
@@ -157,6 +224,17 @@ class Model:
         return self._logits(params, x), cache
 
 
+def _recurrent(apply, lp: Params, x: torch.Tensor, cfg, cache: Params | None,
+               index: tuple, cache_index):
+    """Apply a Mamba2 or RWKV6 layer on its slice ``index`` of a stacked
+    cache and write the entries it returns into that slice, in place."""
+    c = None if cache is None else {k: t[index] for k, t in cache.items()}
+    x, new, a = apply(lp, x, cfg, cache=c, cache_index=cache_index)
+    for k, t in (new or {}).items():
+        c[k].copy_(t)
+    return x, c, a
+
+
 # ---------------------------------------------------------------------------
 # parameter accounting (for MODEL_FLOPS = 6 N D)
 # ---------------------------------------------------------------------------
@@ -183,29 +261,33 @@ def count_params(cfg) -> int:
 
 
 def count_active_params(cfg) -> int:
-    """Active params per token: all of them in the dense family (the MoE
-    scaling of routed experts comes with ROADMAP A11.1)."""
+    """Active params per token: all of them in the dense, RWKV6 and Zamba2
+    families (the MoE scaling of routed experts comes with ROADMAP A11.1)."""
     return count_params(cfg)
 
 
 def model_params_from_reference(tree, device: str | torch.device = "cuda") -> Params:
     """The reference's ``Model.init_params`` tree (arrays as numpy) as the
     port's params on ``device``: the same names and layouts, with the
-    stacked ``layers`` split into one dict per layer. Arrays are copied
-    (JAX hands out read-only buffers)."""
+    stacked ``layers`` and ``mamba_tail`` split into one dict per layer and
+    ``mamba_main`` (stacked ``(n_sb, attn_every, ...)``) into a list of
+    super-blocks of such lists. Arrays are copied (JAX hands out read-only
+    buffers)."""
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
         return torch.from_numpy(np.array(t)).to(device)
-
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    stacked = conv(tree["layers"])
-    n_layers = next(_leaves(stacked)).shape[0]
 
     def pick(t, i):
         if isinstance(t, dict):
             return {k: pick(v, i) for k, v in t.items()}
         return t[i].clone()
 
-    out["layers"] = [pick(stacked, i) for i in range(n_layers)]
-    return out
+    def split(t, depth: int):
+        if depth == 0:
+            return t
+        n = next(_leaves(t)).shape[0]
+        return [split(pick(t, i), depth - 1) for i in range(n)]
+
+    depths = {"layers": 1, "mamba_tail": 1, "mamba_main": 2}
+    return {k: split(conv(v), depths.get(k, 0)) for k, v in tree.items()}

@@ -374,7 +374,7 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("dh", [16, 64, 112, 128])
 @pytest.mark.parametrize("group", [1, 4, 7])
 def test_flash_attention_matches_plain(cuda, dtype, causal, dh, group):
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -449,3 +449,217 @@ def test_model_prefill_on_card_matches_cpu(cuda):
         scale = float(want.float().abs().max())
         torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0,
                                    atol=0.04 * scale)
+
+
+# ---------------------------------------------------------------------------
+# K5 (ssm_scan) and K6 (rwkv6_scan)
+# ---------------------------------------------------------------------------
+
+# The kernels and their plain versions compute the same fp32 chunk
+# recurrence from the same inputs (bf16 inputs convert exactly), summing in
+# other orders, and the float64 oracles compute it step by step. Outputs
+# and states agree to the reference's kernel-test tolerances, taken of the
+# largest magnitude: 2e-3 for K6 (the fp32 cumsum's resolution under fast
+# decay), 2e-4 for K5.
+K6_TOL, K5_TOL = 2e-3, 2e-4
+
+
+def _close_scaled(got, want, tol, what):
+    scale = float(want.abs().max())
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= tol * scale, (what, err, tol * scale)
+
+
+def _rwkv6_inputs(cuda, b, h, s, dtype, decay_scale, seed):
+    """r, k, v as transposed head views of a (B, S, H*64) projection, as
+    the model hands them over; logw likewise, float32."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    proj = torch.randn((b, s, 3 * h * 64), generator=gen, device=cuda).to(dtype)
+    r, k, v = (proj[..., i * h * 64:(i + 1) * h * 64].reshape(b, s, h, 64).transpose(1, 2)
+               for i in range(3))
+    logw = torch.clamp(-torch.exp(torch.randn((b, s, h * 64), generator=gen, device=cuda)
+                                  * decay_scale), min=-30.0)
+    logw = logw.reshape(b, s, h, 64).transpose(1, 2)
+    u = torch.randn((h, 64), generator=gen, device=cuda) * 0.1
+    return r, k, v, logw, u
+
+
+def _ssm_inputs(cuda, b, s, h, dtype, seed):
+    """x, B, C as strided views of one conv output (B, S, H*64 + 2*64), as
+    the model hands them over; dt and A float32."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    conv = torch.randn((b, s, h * 64 + 128), generator=gen, device=cuda).to(dtype)
+    x = conv[..., :h * 64].reshape(b, s, h, 64)
+    B, C = conv[..., h * 64:h * 64 + 64], conv[..., h * 64 + 64:]
+    dt = F.softplus(torch.randn((b, s, h), generator=gen, device=cuda))
+    A = -torch.exp(torch.randn((h,), generator=gen, device=cuda) * 0.5)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("decay_scale", [0.5, 4.0])
+def test_rwkv6_scan_matches_plain_and_float64(cuda, dtype, chunk, decay_scale):
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain, rwkv6_scan_state
+
+    r, k, v, logw, u = _rwkv6_inputs(cuda, 2, 3, 192, dtype, decay_scale, chunk)
+    before = _build.RWKV6_SCAN.launches["rwkv6_scan"]
+    y, state = rwkv6_scan_state(r, k, v, logw, u, chunk)
+    torch.cuda.synchronize()
+    assert _build.RWKV6_SCAN.launches["rwkv6_scan"] == before + 1
+    py, pstate = rwkv6_scan_plain(r, k, v, logw, u, chunk)
+    oy, ostate = tref.rwkv6_scan_ref(r, k, v, logw, u, dtype=torch.float64,
+                                     return_state=True)
+    for got, plain, oracle, what in ((y, py, oy, "y"), (state, pstate, ostate, "state")):
+        assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+        _close_scaled(got, plain, K6_TOL, f"{what} vs plain")
+        _close_scaled(got, oracle, K6_TOL, f"{what} vs float64")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_ssm_scan_matches_plain_and_float64(cuda, dtype, chunk):
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain, ssm_scan_state
+
+    x, dt, A, B, C = _ssm_inputs(cuda, 2, 192, 3, dtype, chunk)
+    before = _build.SSM_SCAN.launches["ssm_scan"]
+    y, state = ssm_scan_state(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert _build.SSM_SCAN.launches["ssm_scan"] == before + 1
+    py, pstate = ssm_scan_plain(x, dt, A, B, C, chunk)
+    zero = torch.zeros_like(A)
+    oy, ostate = tref.ssm_scan_ref(x, dt, A, B, C, zero, dtype=torch.float64,
+                                   return_state=True)
+    for got, plain, oracle, what in ((y, py, oy, "y"), (state, pstate, ostate, "state")):
+        assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+        _close_scaled(got, plain, K5_TOL, f"{what} vs plain")
+        _close_scaled(got, oracle, K5_TOL, f"{what} vs float64")
+    D = torch.rand((3,), device=cuda) + 0.5
+    torch.testing.assert_close(ssm_scan(x, dt, A, B, C, D, chunk),
+                               y + D[None, None, :, None] * x.float(), rtol=0, atol=0)
+
+
+def test_scans_at_the_serving_shapes(cuda):
+    """RWKV6-3B's (4, 40, 2,048, 64) and Zamba2-7B's (4, 2,048, 112, 64)
+    prefill shapes, bf16 views, against the plain versions."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain, rwkv6_scan_state
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain, ssm_scan_state
+
+    inputs = _rwkv6_inputs(cuda, 4, 40, 2048, torch.bfloat16, 0.5, 1)
+    for got, want in zip(rwkv6_scan_state(*inputs, 64), rwkv6_scan_plain(*inputs, 64)):
+        _close_scaled(got, want, K6_TOL, "K6")
+    inputs = _ssm_inputs(cuda, 4, 2048, 112, torch.bfloat16, 2)
+    for got, want in zip(ssm_scan_state(*inputs, 64), ssm_scan_plain(*inputs, 64)):
+        _close_scaled(got, want, K5_TOL, "K5")
+
+
+def test_scan_kernels_refuse_what_they_were_not_built_for(cuda):
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_state
+    from repro_torch.kernels.ssm_scan import ssm_scan_state
+
+    r, k, v, logw, u = _rwkv6_inputs(cuda, 1, 2, 128, torch.float32, 0.5, 3)
+    x, dt, A, B, C = _ssm_inputs(cuda, 1, 128, 2, torch.float32, 4)
+    k6, k5 = (_build.RWKV6_SCAN.launches["rwkv6_scan"],
+              _build.SSM_SCAN.launches["ssm_scan"])
+    with pytest.raises(ValueError, match="dh 64"):
+        rwkv6_scan_state(r[..., :32], k[..., :32], v[..., :32], logw[..., :32],
+                         u[:, :32], 64)
+    with pytest.raises(ValueError, match="divide"):
+        rwkv6_scan_state(r, k, v, logw, u, 96)
+    with pytest.raises(ValueError, match="float32 logw"):
+        rwkv6_scan_state(r, k, v, logw.bfloat16(), u, 64)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        rwkv6_scan_state(r.transpose(2, 3).contiguous().transpose(2, 3), k, v, logw, u, 64)
+    with pytest.raises(ValueError, match="dh 64 and N 64"):
+        ssm_scan_state(x[..., :16], dt, A, B, C, 64)
+    with pytest.raises(ValueError, match="one dtype"):
+        ssm_scan_state(x, dt, A, B.bfloat16(), C, 64)
+    with pytest.raises(ValueError, match="divide"):
+        ssm_scan_state(x, dt, A, B, C, 96)
+    assert (_build.RWKV6_SCAN.launches["rwkv6_scan"],
+            _build.SSM_SCAN.launches["ssm_scan"]) == (k6, k5)
+
+
+def test_scan_kernels_run_a_chunk_above_64_as_sub_chunks(cuda):
+    """The public ops' default chunks (``ssm_scan``'s 128, the Pallas
+    wrapper's) and a chunk of 128 for K6 run in one launch each, as chunks
+    of 64, against the plain versions at the chunk asked for."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain, rwkv6_scan_state
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
+
+    x, dt, A, B, C = _ssm_inputs(cuda, 2, 256, 3, torch.bfloat16, 5)
+    D = torch.rand((3,), device=cuda) + 0.5
+    before = _build.SSM_SCAN.launches["ssm_scan"]
+    got = ops.mamba2_chunk_scan(x, dt, A, B, C, D)
+    torch.cuda.synchronize()
+    assert _build.SSM_SCAN.launches["ssm_scan"] == before + 1
+    want = ssm_scan_plain(x, dt, A, B, C, 128)[0] + D[None, None, :, None] * x.float()
+    _close_scaled(got, want, K5_TOL, "K5 at the default chunk")
+    r, k, v, logw, u = _rwkv6_inputs(cuda, 1, 2, 256, torch.bfloat16, 4.0, 6)
+    before = _build.RWKV6_SCAN.launches["rwkv6_scan"]
+    got = rwkv6_scan_state(r, k, v, logw, u, 128)
+    torch.cuda.synchronize()
+    assert _build.RWKV6_SCAN.launches["rwkv6_scan"] == before + 1
+    for g, w, what in zip(got, rwkv6_scan_plain(r, k, v, logw, u, 128), ("y", "state")):
+        _close_scaled(g, w, K6_TOL, f"K6 {what} at chunk 128")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b"])
+def test_recurrent_model_on_card_matches_cpu(cuda, arch):
+    """A small RWKV6 / Zamba2 (head and state widths 64, the kernels'; two
+    Zamba2 super-blocks through the shared attention) with float32
+    activations and caches: a 1,088-token prefill (K5 / K6, and K4 at the
+    chunked impl) and two decode steps on the card, against the same
+    model on the CPU (the plain versions), to 1e-3 of the largest
+    magnitude (fp32 sum orders only)."""
+    from repro_torch.models import Model
+    from repro_torch.models.layers import embed
+    from repro_torch.models.model import _leaves
+
+    class Model32(Model):
+        def _embed_inputs(self, params, batch_inputs):
+            return embed(params["embed"], batch_inputs["tokens"]).float()
+
+    cfg = get_config(arch).reduced()
+    if cfg.rwkv is not None:
+        cfg = dataclasses.replace(cfg, d_model=128, n_heads=2, n_kv_heads=2,
+                                  rwkv=dataclasses.replace(cfg.rwkv, head_dim=64, chunk=64))
+    else:
+        cfg = dataclasses.replace(cfg, n_layers=5, ssm=dataclasses.replace(
+            cfg.ssm, head_dim=64, d_state=64, chunk=64, attn_every=2))
+    model = Model32(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = model.init_params(gen, "cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(cuda)
+
+    on_card = to_card(params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 1088)))
+    before = sum(sum(k.launches.values()) for k in _build.KERNELS)
+    lg, cg = model.prefill(on_card, {"tokens": toks.to(cuda)},
+                           model.init_cache(2, 1091, torch.float32, device=cuda))
+    lc, cc = model.prefill(params, {"tokens": toks}, model.init_cache(2, 1091, torch.float32))
+    launched = sum(sum(k.launches.values()) for k in _build.KERNELS) - before
+    # one scan a layer; Zamba2 adds one K4 call for each of its 2 super-blocks
+    assert launched == (cfg.n_layers if cfg.rwkv is not None else 5 + 2)
+    _close_scaled(lg.cpu(), lc, 1e-3, "prefill logits")
+    for step in range(2):
+        tok = lc[:, -1].argmax(-1)[:, None]
+        lg, cg = model.decode_step(on_card, tok.to(cuda), cg, 1088 + step)
+        lc, cc = model.decode_step(params, tok, cc, 1088 + step)
+        _close_scaled(lg.cpu(), lc, 1e-3, f"decode {step} logits")
+
+    for got, want in zip(_leaves(cg), _leaves(cc)):
+        if want.numel():
+            _close_scaled(got.cpu(), want, 1e-3, "cache")

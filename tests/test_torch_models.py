@@ -170,15 +170,20 @@ def test_serve_main_on_the_cpu(capsys):
 # (e) parameter counts
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+RECURRENT = {"rwkv6-3b": 3_073_477_120, "zamba2-7b": 6_751_130_832}
+
+
+@pytest.mark.parametrize("arch", DENSE + sorted(RECURRENT))
 def test_param_counts_match_reference(arch):
     cfg, jcfg = get_config(arch), jget_config(arch)
     assert count_params(cfg) == jmodel.count_params(jcfg) == cfg.param_count()
     assert count_active_params(cfg) == jmodel.count_active_params(jcfg)
     assert count_params(cfg.reduced()) == jmodel.count_params(jcfg.reduced())
+    if arch in RECURRENT:  # the reference's counts, as the configs cite them
+        assert count_params(cfg) == count_active_params(cfg) == RECURRENT[arch]
 
 
-@pytest.mark.parametrize("arch", sorted(set(list_configs()) - set(DENSE)))
+@pytest.mark.parametrize("arch", sorted(set(list_configs()) - set(DENSE) - set(RECURRENT)))
 def test_other_families_raise_naming_their_item(arch):
     with pytest.raises(NotImplementedError, match=r"ROADMAP A11\.[1-6]"):
         Model(get_config(arch))
@@ -201,7 +206,7 @@ _GUARD = textwrap.dedent("""
 
     sys.meta_path.insert(0, Block())
     import torch
-    from repro_torch.kernels.ops import attention
+    from repro_torch.kernels.ops import attention, mamba2_chunk_scan, wkv6
     from repro_torch.launch.serve import serve_lm
     from repro_torch.vee import apps
     from repro_torch.vee.sparse import rmat_graph
@@ -215,8 +220,19 @@ _GUARD = textwrap.dedent("""
                                    tile_c=128, n_shards=2)
     assert out["propagate"].shape == (256,)
     assert attention(*[torch.ones(1, 2, 8, 16)] * 3).shape == (1, 2, 8, 16)
+    for arch in ("rwkv6-3b", "zamba2-7b"):
+        res = serve_lm(argparse.Namespace(arch=arch, smoke=True, requests=2, slots=2,
+                                          prompt_len=16, gen_len=2, technique="GSS",
+                                          device="cpu"))
+        assert res.tokens[0].shape == (2, 2)
+    x = torch.ones(1, 8, 2, 16)
+    assert mamba2_chunk_scan(x, torch.ones(1, 8, 2), -torch.ones(2), x[:, :, 0],
+                             x[:, :, 0], torch.ones(2), chunk=4).shape == (1, 8, 2, 16)
+    assert wkv6(*[torch.ones(1, 2, 8, 16)] * 3, -torch.ones(1, 2, 8, 16),
+                torch.ones(2, 16), chunk=4).shape == (1, 2, 8, 16)
     for m in ("models.attention", "models.blocks", "models.model", "launch.serve",
-              "kernels.flash_attention", "kernels.ops", "vee.sparse"):
+              "kernels.flash_attention", "kernels.ops", "vee.sparse", "models.rwkv",
+              "models.ssm", "kernels.rwkv6_scan", "kernels.ssm_scan"):
         assert f"repro_torch.{m}" in sys.modules, m
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
@@ -236,4 +252,12 @@ def test_flash_attention_source_calls_no_library():
     """K4 is written by hand: its source names no library attention."""
     src = (ROOT / "src" / "repro_torch" / "csrc" / "flash_attention.cu").read_text()
     for word in ("scaled_dot_product_attention", "cudnn", "cublas", "cutlass", "torch"):
+        assert word not in src.lower(), word
+
+
+@pytest.mark.parametrize("source", ["ssm_scan.cu", "rwkv6_scan.cu"])
+def test_scan_sources_call_no_library(source):
+    """K5 and K6 are written by hand: their sources name no library."""
+    src = (ROOT / "src" / "repro_torch" / "csrc" / source).read_text()
+    for word in ("cudnn", "cublas", "cutlass", "torch", "triton"):
         assert word not in src.lower(), word
