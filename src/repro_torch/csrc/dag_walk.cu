@@ -11,39 +11,67 @@
 // same program in one table, as the front door's merge_device_lowerings
 // builds it, each stage id mapped to its member's pointers and sizes.
 //
-// Design: a persistent cooperative grid, sized by occupancy. Every CTA
-// walks every slot of the table in order; within a slot the CTAs split the
-// stage's work between them:
-//   * a `sum` stage's output entry e is owned by global thread e (grid
-//     stride), the same thread at every slot, which adds the slot's tile
-//     contribution to its entry. So each entry folds its per-tile
-//     contributions in ascending slot order, starting from what the
-//     wrapper put in the output buffer: zeros (guarantee 2 of the Pallas
-//     walker), or a resumed checkpoint's prefix accumulator (the seed of
-//     a migrated `sum` stage, which replaces the Pallas `_seeded` body of
-//     repro/core/preempt.py:migrate_to_device);
-//   * a `concat` stage's rows are written once each, one warp per row;
-//   * a grid-wide barrier runs before every slot that reads a producer
-//     written since the last barrier (the wrapper computes these flags
-//     from the table), so a producer is final before a consumer reads it,
-//     for `rows` and `full` edges alike (guarantee 1). Producer outputs
-//     are read with L1-bypassing loads (__ldcg);
+// Design: a persistent cooperative grid, sized by occupancy. The wrapper's
+// fold plan (kernels/dag_walk.py:fold_plan, numpy the CPU tests check) cuts
+// the table into segments at the grid barriers it needs: a barrier runs
+// before every slot that reads a producer written since the last barrier,
+// so a producer is final before a consumer reads it, for `rows` and `full`
+// edges alike (guarantee 1 of the Pallas walker). In each segment:
+//   * every CTA walks the segment's `concat` slots (and the int `sum` of
+//     the CC program) in table order. A `concat` stage's rows are written
+//     once each, one warp per row; the CC count has one owner, which adds
+//     each slot's flips in slot order. Producer outputs are read with
+//     L1-bypassing loads (__ldcg);
+//   * a float `sum` stage runs in two phases. Phase 1, partials: its
+//     slots are cut into groups of g consecutive stage-local ordinals
+//     (ordinal k in group k / g), g set by the stage's slot count alone
+//     (about FOLD_GROUPS = 512 groups). The CTAs take the segment's pieces
+//     of groups by grid stride; a CTA folds a piece's slots in ascending
+//     order into the group's partial, CTA-wide with coalesced reads and
+//     each thread's accumulators in registers, and stores it to a scratch
+//     buffer (n_groups, entries) the wrapper allocates. A group whose
+//     slots straddle a barrier continues from the partial its earlier
+//     piece stored. Phase 2, the fold: at the first barrier before a slot
+//     that reads the stage, or at the launch end when nothing in the
+//     launch reads it, each entry's owner computes
+//     out = buffer + partial_0 + partial_1 + ... in ascending group order,
+//     and a second barrier publishes the sums. `buffer` holds what the
+//     wrapper put there: zeros, or a resumed checkpoint's prefix
+//     accumulator (the seed of a migrated `sum` stage, which replaces the
+//     Pallas `_seeded` body of repro/core/preempt.py:migrate_to_device);
 //   * padding slots (size 0) and slots of stages without a body here do
 //     nothing (guarantee 3).
+// What stays true:
+//   * the sum order holds at both levels: slots (and the rows of each slot)
+//     fold in ascending order within a group, then groups fold in
+//     ascending order, starting from the seed (guarantee 2 of the Pallas
+//     walker, at two levels);
+//   * results do not depend on the grid: the groups, the pieces and every
+//     addition's order come from the table alone; the grid only decides
+//     which CTA computes a piece. So a member of a batch is bitwise equal
+//     to its lowering walked alone, the stagewise walk to the fused walk,
+//     and a seeded walk to the migrated entry point's;
+//   * a term passes through at most (group rows + number of groups)
+//     additions, fewer than the slot-at-a-time fold's;
+//   * a walk of a table prefix (core/preempt.py:run_device_prefix) folds
+//     at its launch end, so it reads the prefix accumulator.
 // The stage id -> body and stage id -> member maps come from the wrapper:
 // stage ids are the table builder's topological order, not assumed here.
-// Nothing a member computes depends on the grid size or on the other
-// members (each entry has one owner and one order), so a member of a batch
-// is bitwise equal to the same lowering walked alone.
 //
 // Bound on an H100: linreg reads X once (n x d float32) and needs about
 // n (d+1)(d+2) flop for one triangle of the symmetric syrk, 2 n (d+1) for
 // the gemv and 5 n d for moments and standardizing; at n = 1e6, d = 100
-// that is 0.12 ms of bytes and 0.16 ms of fp32 flop. Recommendation reads R once: bytes-bound. This
-// first kernel is latency-bound instead: a slot is one 64-row tile and each
-// owner thread walks the slots in order, so the time is the number of
-// slots times one tile's latency. A two-phase partial-and-fold design is
-// the way to the bound.
+// that is 0.12 ms of bytes and 0.16 ms of fp32 flop (operations-bound).
+// A linreg piece stages each slot's tile (its rows are contiguous in X)
+// into shared memory with cp.async, the next slot's copy in flight while
+// the CTA works on this one; `moments` gives each of d <= 256 threads a
+// column. The syrk body computes the upper triangle of 4 x 4 blocks of the
+// (d+1) x (d+2) output (two blocks a thread at d = 100), reads each row of
+// the standardized tile as float4s from shared memory and mirrors the lower
+// triangle when it stores a partial: fmaf(a, b, s) = fmaf(b, a, s), so the
+// mirror is the value the entry's own chain would give. Recommendation
+// reads R (65,536 x 2,048 float32) three times: bytes-bound. `item_norms`
+// gives each thread 8 columns 256 apart and 8 rows of loads in flight.
 //
 // The CC-iteration program (tests/test_device_dag.py's super-table, the
 // body of repro/kernels/cc_propagate.py:propagate_body): `propagate` is a
@@ -80,6 +108,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <stdint.h>
+
 #include <algorithm>
 
 namespace {
@@ -90,10 +120,19 @@ constexpr int MAX_MEMBERS = 8;        // BatchPolicy.max_batch
 struct Walk {
   const int* table;                   // (n_slots, 3): stage id, start, size
   int n_slots;
+  // the fold plan (kernels/dag_walk.py:FoldPlan), slices of one int32 array
   const int* body_of_sid;             // stage id -> body index, -1 = none
   const int* member_of_sid;           // stage id -> batch member
-  int n_stages;
-  const unsigned char* sync_before;   // per slot: grid barrier first
+  const int* walk;                    // slots walked one at a time
+  const int* walk_ptr;                // (n_seg + 1)
+  const int* pieces;                  // (n_pieces, 5): inst, group, first, count, cont
+  const int* piece_ptr;               // (n_seg + 1)
+  const int* piece_slots;             // each piece's slots, ascending
+  const int* fold_inst;               // instances folded at a segment start
+  const int* fold_ptr;                // (n_seg + 2): the last is the launch end
+  const int* inst;                    // (n_inst, 4): sid, n_groups, offset, entries
+  int n_seg;
+  float* scratch;                     // every instance's (n_groups, entries)
   int* stamps;                        // (n_slots, 4) or null
   unsigned int* barrier;              // {arrivals, generation}, zeroed
   int tile;                           // rows per slot
@@ -133,28 +172,40 @@ __device__ __forceinline__ int first_row(int slot, int rows) {
   return (gw - base + n_gw) % n_gw;
 }
 
-// Sum of col[r * stride] (squared when `square`) over r = 0 .. rows-1, in
-// ascending r. Loads go out BATCH at a time (a whole 64-row tile at once) so
-// their latencies overlap; the additions stay in row order.
-constexpr int BATCH = 64;
-
-__device__ __forceinline__ float column_sum(const float* col, int stride,
-                                            int rows, bool square) {
-  float s = 0.f;
-  for (int r0 = 0; r0 < rows; r0 += BATCH) {
-    float v[BATCH];
-#pragma unroll
-    for (int u = 0; u < BATCH; ++u)
-      v[u] = r0 + u < rows ? col[(size_t)(r0 + u) * stride] : 0.f;
-#pragma unroll
-    for (int u = 0; u < BATCH; ++u)
-      if (r0 + u < rows) s += square ? v[u] * v[u] : v[u];
-  }
-  return s;
+// The first row of the tile a slot names: the Pallas block index map,
+// start / tile clamped to the last whole tile of n_rows.
+__device__ __forceinline__ int slot_row0(const Walk& w, int slot, int n_rows) {
+  const int n_blocks = max(1, n_rows / w.tile);
+  return min(__ldg(w.table + 3 * slot + 1) / w.tile, n_blocks - 1) * w.tile;
 }
 
+
 // ---------------------------------------------------------------- linreg
-constexpr int STAGE = 32;  // loads in flight per thread when staging a tile
+constexpr int NB = 2;  // syrk 4 x 4 blocks a thread holds in a pass
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// n floats at src (global) to dst (shared), asynchronously: 16-byte copies
+// where both ends are 16-byte aligned and n is a multiple of 4, else 4-byte.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int n) {
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0
+      && (n & 3) == 0) {
+    for (int e = threadIdx.x; e < n / 4; e += blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   :: "r"(smem_u32(dst + 4 * e)), "l"(src + 4 * e) : "memory");
+  } else {
+    for (int e = threadIdx.x; e < n; e += blockDim.x)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                   :: "r"(smem_u32(dst + e)), "l"(src + e) : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 struct Linreg {
   struct Args {
@@ -166,30 +217,91 @@ struct Linreg {
     int n, d;
   };
 
-  // moments: entry (k, c) sums X[:, c] (k = 0) or X[:, c]^2 (k = 1).
-  static __device__ void moments(const Args& a, int row0, int rows) {
-    const int d = a.d;
-    for (int e = global_thread(); e < 2 * d; e += grid_threads()) {
-      const int k = e / d, c = e - k * d;
-      const float old = a.moments[e];
-      const float s = column_sum(a.X + (size_t)row0 * d + c, d, rows, k);
-      a.moments[e] = old + s;
+  // Shared memory of a piece: two raw tiles (tile x d, the rows are
+  // contiguous in X) and their y, filled with cp.async one slot ahead; then
+  // mean, std and the standardized tile z (tile x ld) for syrk_gemv.
+  struct Smem {
+    float* raw[2];
+    float* ys[2];
+    float* mean;
+    float* stdv;
+    float* z;
+    int ld;
+  };
+
+  static __device__ Smem carve(const Args& a, int tile, float* smem) {
+    const int d = a.d, td = (tile * d + 3) & ~3, ty = (tile + 3) & ~3;
+    Smem s;
+    s.raw[0] = smem;
+    s.raw[1] = smem + td;
+    s.ys[0] = smem + 2 * td;
+    s.ys[1] = s.ys[0] + ty;
+    s.mean = s.ys[1] + ty;
+    s.stdv = s.mean + ((d + 3) & ~3);
+    s.z = s.stdv + ((d + 3) & ~3);
+    s.ld = (d + 2 + 3) & ~3;
+    return s;
+  }
+
+  // Slot k's tile (and its y when `with_y`) into buffer k & 1.
+  static __device__ void fetch(const Args& a, const Walk& w, const Smem& sm,
+                               const int* slots, int k, bool with_y) {
+    const int row0 = slot_row0(w, __ldg(slots + k), a.n);
+    copy_async(sm.raw[k & 1], a.X + (size_t)row0 * a.d, w.tile * a.d);
+    if (with_y) copy_async(sm.ys[k & 1], a.y + row0, w.tile);
+  }
+
+  // moments: entry (k, c) sums X[:, c] (k = 0) or X[:, c]^2 (k = 1). Thread
+  // c owns column c's two accumulators and adds the staged tiles' rows in
+  // ascending order; the next slot's tile is in flight meanwhile.
+  static __device__ void moments_piece(const Args& a, const Walk& w,
+                                       const int* slots, int count, bool cont,
+                                       float* part, float* smem) {
+    const int d = a.d, tile = w.tile, c = threadIdx.x;
+    const Smem sm = carve(a, tile, smem);
+    float s = 0.f, q = 0.f;
+    if (cont && c < d) {
+      s = __ldcg(part + c);
+      q = __ldcg(part + d + c);
+    }
+    __syncthreads();  // the previous piece is done with shared memory
+    fetch(a, w, sm, slots, 0, false);
+    for (int k = 0; k < count; ++k) {
+      copy_wait();
+      __syncthreads();  // tile k is visible; every thread is done with k - 1
+      if (k + 1 < count) fetch(a, w, sm, slots, k + 1, false);
+      if (c < d) {
+        const float* col = sm.raw[k & 1] + c;
+#pragma unroll 8
+        for (int r = 0; r < tile; ++r) {
+          const float v = col[r * d];
+          s += v;
+          q = fmaf(v, v, q);
+        }
+      }
+    }
+    if (c < d) {
+      part[c] = s;
+      part[d + c] = q;
     }
   }
 
-  // syrk_gemv: standardize the tile against the full moments into shared
-  // memory, then entry (i, j) sums X1[:, i] * X1[:, j] (j <= d) or
-  // X1[:, i] * y (j = d + 1), X1 = [(X - mean) / std, 1].
-  static __device__ void syrk(const Args& a, int row0, int rows, float* smem) {
-    const int d = a.d, w = d + 1, n_entries = (d + 1) * (d + 2);
-    if (blockIdx.x * blockDim.x >= n_entries) return;  // owns no entry
-    float* mean = smem;
-    float* stdv = mean + d;
-    float* xs = stdv + d;          // (rows, d + 1)
-    float* ys = xs + rows * w;     // (rows,)
-    const int e0 = global_thread();
-    const float old = e0 < n_entries ? a.syrk[e0] : 0.f;  // issued early
-    __syncthreads();               // the previous slot is done with smem
+  // syrk_gemv: entry (i, j) sums z[:, i] * z[:, j] over the rows, z the
+  // row [X1 | y] with X1 = [(X - mean) / std, 1] standardized against the
+  // full moments (IEEE-rounded divide, subtract and square root, as the
+  // plain version). Each slot's staged tile is standardized into z; thread
+  // t owns the upper-triangle 4 x 4 blocks t, t + THREADS, ... (NB of them
+  // a pass; more passes only past d = 124) and keeps their sums in
+  // registers across the piece's rows.
+  static __device__ void syrk_piece(const Args& a, const Walk& w,
+                                    const int* slots, int count, bool cont,
+                                    float* part, float* smem) {
+    const int d = a.d, tile = w.tile, nz = d + 2;
+    const Smem sm = carve(a, tile, smem);
+    const int ld = sm.ld;
+    const int nbi = (d + 1 + 3) / 4, nbj = (nz + 3) / 4;
+    const int n_blocks = nbi * nbj - nbi * (nbi - 1) / 2;  // jb >= ib
+    __syncthreads();  // the previous piece is done with shared memory
     const float nf = (float)a.n;
     for (int c = threadIdx.x; c < d; c += blockDim.x) {
       const float m = __fdiv_rn(__ldcg(a.mom_in + c), nf);
@@ -197,51 +309,94 @@ struct Linreg {
           __fsub_rn(__fdiv_rn(__ldcg(a.mom_in + d + c), nf), __fmul_rn(m, m)),
           0.f);
       const float sd = __fsqrt_rn(var);
-      mean[c] = m;
-      stdv[c] = sd == 0.f ? 1.f : sd;
+      sm.mean[c] = m;
+      sm.stdv[c] = sd == 0.f ? 1.f : sd;
     }
-    __syncthreads();
-    // stage the tile: each thread's loads go out STAGE at a time
-    const int total = rows * d;
-    const float* tile = a.X + (size_t)row0 * d;
-    for (int base = threadIdx.x; base < total; base += STAGE * blockDim.x) {
-      float v[STAGE];
+    for (int pass = 0; pass < n_blocks; pass += NB * THREADS) {
+      int bi[NB], bj[NB];
+      float acc[NB][4][4];
 #pragma unroll
-      for (int u = 0; u < STAGE; ++u) {
-        const int idx = base + u * blockDim.x;
-        v[u] = idx < total ? tile[idx] : 0.f;
+      for (int nb = 0; nb < NB; ++nb) {
+        int t = pass + nb * THREADS + threadIdx.x, ib = 0;
+        while (ib < nbi && t >= nbj - ib) { t -= nbj - ib; ++ib; }
+        bi[nb] = ib < nbi ? 4 * ib : -1;   // -1: no block
+        bj[nb] = ib < nbi ? 4 * (ib + t) : 0;
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int i = bi[nb] + ii, j = bj[nb] + jj;
+            acc[nb][ii][jj] = cont && bi[nb] >= 0 && i <= d && j < nz
+                                  ? __ldcg(part + (size_t)i * nz + j) : 0.f;
+          }
       }
+      __syncthreads();  // z and the buffers are free (the previous pass)
+      fetch(a, w, sm, slots, 0, true);
+      for (int k = 0; k < count; ++k) {
+        copy_wait();
+        __syncthreads();  // tile k is visible; every thread is done with z
+        if (k + 1 < count) fetch(a, w, sm, slots, k + 1, true);
+        const float* raw = sm.raw[k & 1];
+        for (int idx = threadIdx.x, r = idx / d, c = idx - r * d; idx < tile * d;
+             idx += blockDim.x) {
+          sm.z[r * ld + c] = __fdiv_rn(__fsub_rn(raw[idx], sm.mean[c]), sm.stdv[c]);
+          c += blockDim.x;  // the next element: blockDim.x further
+          while (c >= d) { c -= d; ++r; }
+        }
+        for (int r = threadIdx.x; r < tile; r += blockDim.x) {
+          sm.z[r * ld + d] = 1.f;
+          sm.z[r * ld + d + 1] = sm.ys[k & 1][r];
+          for (int c = nz; c < ld; ++c) sm.z[r * ld + c] = 0.f;
+        }
+        __syncthreads();  // z holds tile k
+#pragma unroll 4
+        for (int r = 0; r < tile; ++r) {
+          const float* zr = sm.z + r * ld;
 #pragma unroll
-      for (int u = 0; u < STAGE; ++u) {
-        const int idx = base + u * blockDim.x;
-        if (idx < total) {
-          const int r = idx / d, c = idx - r * d;
-          xs[r * w + c] = __fdiv_rn(__fsub_rn(v[u], mean[c]), stdv[c]);
+          for (int nb = 0; nb < NB; ++nb) {
+            if (bi[nb] < 0) continue;
+            const float4 p = *reinterpret_cast<const float4*>(zr + bi[nb]);
+            const float4 q = *reinterpret_cast<const float4*>(zr + bj[nb]);
+            const float pv[4] = {p.x, p.y, p.z, p.w}, qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+            for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+                acc[nb][ii][jj] = fmaf(pv[ii], qv[jj], acc[nb][ii][jj]);
+          }
         }
       }
-    }
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      xs[r * w + d] = 1.f;
-      ys[r] = a.y[row0 + r];
-    }
-    __syncthreads();
-    for (int e = e0; e < n_entries; e += grid_threads()) {
-      const int i = e / (d + 2), j = e - i * (d + 2);
-      float s = 0.f;
-      const float* bj = j <= d ? xs + j : ys;
-      const int sj = j <= d ? w : 1;
-#pragma unroll 8
-      for (int r = 0; r < rows; ++r) s = fmaf(xs[r * w + i], bj[r * sj], s);
-      a.syrk[e] = (e == e0 ? old : a.syrk[e]) + s;
+      // store the partial, and the mirror of an off-diagonal block
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        if (bi[nb] < 0) continue;
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int i = bi[nb] + ii, j = bj[nb] + jj;
+            if (i > d || j >= nz) continue;
+            part[(size_t)i * nz + j] = acc[nb][ii][jj];
+            if (bj[nb] > bi[nb] && j <= d) part[(size_t)j * nz + i] = acc[nb][ii][jj];
+          }
+      }
     }
   }
 
   static __device__ int n_rows(const Args& a) { return a.n; }
 
-  static __device__ void run(int body, const Args& a, const Walk& w, int row0,
-                             int slot, float* smem) {
-    if (body == 0) moments(a, row0, w.tile);
-    else syrk(a, row0, w.tile, smem);
+  // linreg has no concat body: both stages fold
+  static __device__ void run(int, const Args&, const Walk&, int, int, float*) {}
+
+  static __device__ void piece(int body, const Args& a, const Walk& w,
+                               const int* slots, int count, bool cont,
+                               float* part, float* smem) {
+    if (body == 0) moments_piece(a, w, slots, count, cont, part, smem);
+    else syrk_piece(a, w, slots, count, cont, part, smem);
+  }
+
+  static __device__ float* sum_out(int body, const Args& a) {
+    return body == 0 ? a.moments : a.syrk;
   }
 
   // host side: X, y, moments, mom_in, syrk; n, d
@@ -251,7 +406,9 @@ struct Linreg {
                 (const float*)p[3], (float*)p[4], d[0], d[1]};
   }
   static size_t smem(const Args& a, int tile) {
-    return sizeof(float) * (2 * (size_t)a.d + (size_t)tile * (a.d + 1) + tile);
+    const size_t d = a.d, td = (tile * d + 3) & ~(size_t)3, ty = (tile + 3) & ~3;
+    return sizeof(float) * (2 * td + 2 * ty + 2 * ((d + 3) & ~(size_t)3)
+                            + (size_t)tile * ((d + 2 + 3) & ~(size_t)3));
   }
 };
 
@@ -267,13 +424,44 @@ struct Recommendation {
     int n_users, n_items;
   };
 
-  // item_norms: entry c sums R[:, c]^2.
-  static __device__ void item_norms(const Args& a, int row0, int rows) {
-    const int m = a.n_items;
-    for (int c = global_thread(); c < m; c += grid_threads()) {
-      const float old = a.item_norms[c];
-      const float s = column_sum(a.R + (size_t)row0 * m + c, m, rows, true);
-      a.item_norms[c] = old + s;
+  // item_norms: entry c sums R[:, c]^2. Thread t owns columns t + k
+  // THREADS (k < COLS) of each 2,048-column chunk; RB rows of loads go out
+  // at once (COLS * RB in flight), the rows in ascending order.
+  static constexpr int COLS = 8, RB = 8;
+
+  static __device__ void norms_piece(const Args& a, const Walk& w,
+                                     const int* slots, int count, bool cont,
+                                     float* part) {
+    const int m = a.n_items, tile = w.tile;
+    for (int c0 = 0; c0 < m; c0 += COLS * THREADS) {
+      float acc[COLS];
+#pragma unroll
+      for (int u = 0; u < COLS; ++u) {
+        const int c = c0 + u * THREADS + threadIdx.x;
+        acc[u] = cont && c < m ? __ldcg(part + c) : 0.f;
+      }
+      for (int k = 0; k < count; ++k) {
+        const float* base =
+            a.R + (size_t)slot_row0(w, __ldg(slots + k), a.n_users) * m + c0 + threadIdx.x;
+        for (int r0 = 0; r0 < tile; r0 += RB) {
+          float v[RB][COLS];
+#pragma unroll
+          for (int rr = 0; rr < RB; ++rr)
+#pragma unroll
+            for (int u = 0; u < COLS; ++u)
+              v[rr][u] = r0 + rr < tile && c0 + u * THREADS + (int)threadIdx.x < m
+                             ? __ldg(base + (size_t)(r0 + rr) * m + u * THREADS) : 0.f;
+#pragma unroll
+          for (int rr = 0; rr < RB; ++rr)
+#pragma unroll
+            for (int u = 0; u < COLS; ++u) acc[u] = fmaf(v[rr][u], v[rr][u], acc[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < COLS; ++u) {
+        const int c = c0 + u * THREADS + threadIdx.x;
+        if (c < m) part[c] = acc[u];
+      }
     }
   }
 
@@ -321,10 +509,17 @@ struct Recommendation {
 
   static __device__ void run(int body, const Args& a, const Walk& w, int row0,
                              int slot, float*) {
-    if (body == 0) item_norms(a, row0, w.tile);
-    else if (body == 1) user_bias(a, row0, w.tile, slot);
-    else scores(a, row0, w.tile, slot);
+    if (body == 1) user_bias(a, row0, w.tile, slot);
+    else if (body == 2) scores(a, row0, w.tile, slot);
   }
+
+  static __device__ void piece(int, const Args& a, const Walk& w,
+                               const int* slots, int count, bool cont,
+                               float* part, float*) {
+    norms_piece(a, w, slots, count, cont, part);
+  }
+
+  static __device__ float* sum_out(int, const Args& a) { return a.item_norms; }
 
   // host side: R, item_norms, user_bias, scores, norms_in, bias_in;
   // n_users, n_items
@@ -457,6 +652,11 @@ struct Moe {
     experts(a, w, row0, smem);
   }
 
+  // no float sum stage: nothing folds
+  static __device__ void piece(int, const Args&, const Walk&, const int*, int,
+                               bool, float*, float*) {}
+  static __device__ float* sum_out(int, const Args&) { return nullptr; }
+
   // host side: x, wi, wo, out, h; E*C, d, f
   static constexpr int NP = 5, ND = 3;
   static Args unpack(void* const* p, const int* d) {
@@ -530,6 +730,11 @@ struct Cc {
     else changed(a, row0, w.tile);
   }
 
+  // no float sum stage: nothing folds
+  static __device__ void piece(int, const Args&, const Walk&, const int*, int,
+                               bool, float*, float*) {}
+  static __device__ float* sum_out(int, const Args&) { return nullptr; }
+
   // host side: G, c_col, c_row, propagate, changed, prop_in; n, tile_c
   static constexpr int NP = 6, ND = 2;
   static Args unpack(void* const* p, const int* d) {
@@ -545,27 +750,74 @@ struct Members {
   typename P::Args m[MAX_MEMBERS];
 };
 
+// Phase 2 of instance j: out = buffer + partial_0 + partial_1 + ... in
+// ascending group order, one owner thread an entry; FOLD partials in flight.
+constexpr int FOLD = 16;
+
 template <class P>
-__global__ void __launch_bounds__(THREADS)
+__device__ void fold(const Walk& w, const Members<P>& b, int j) {
+  const int* in = w.inst + 4 * j;
+  const int sid = __ldg(in), n_groups = __ldg(in + 1), entries = __ldg(in + 3);
+  const float* part = w.scratch + __ldg(in + 2);
+  float* out = P::sum_out(__ldg(w.body_of_sid + sid),
+                          b.m[__ldg(w.member_of_sid + sid)]);
+  for (int e = global_thread(); e < entries; e += grid_threads()) {
+    float v = out[e];
+    for (int g0 = 0; g0 < n_groups; g0 += FOLD) {
+      float t[FOLD];
+#pragma unroll
+      for (int u = 0; u < FOLD; ++u)
+        t[u] = g0 + u < n_groups ? __ldcg(part + (size_t)(g0 + u) * entries + e) : 0.f;
+#pragma unroll
+      for (int u = 0; u < FOLD; ++u)
+        if (g0 + u < n_groups) v += t[u];
+    }
+    out[e] = v;
+  }
+}
+
+template <class P>
+__global__ void __launch_bounds__(THREADS, 2)
 walk_kernel(Walk w, Members<P> b) {
   extern __shared__ __align__(16) float smem[];
-  for (int i = 0; i < w.n_slots; ++i) {
-    const int sid = __ldg(w.table + 3 * i);
-    const int start = __ldg(w.table + 3 * i + 1);
-    const int size = __ldg(w.table + 3 * i + 2);
-    if (w.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+  if (w.stamps != nullptr)
+    for (int i = global_thread(); i < w.n_slots; i += grid_threads()) {
       int* st = w.stamps + 4 * i;
-      st[0] = sid; st[1] = start; st[2] = size; st[3] = i;
+      st[0] = __ldg(w.table + 3 * i);
+      st[1] = __ldg(w.table + 3 * i + 1);
+      st[2] = __ldg(w.table + 3 * i + 2);
+      st[3] = i;
     }
-    if (w.sync_before[i]) grid_barrier(w.barrier);
-    if (size <= 0 || sid < 0 || sid >= w.n_stages) continue;
-    const int body = __ldg(w.body_of_sid + sid);
-    if (body < 0) continue;
-    const typename P::Args& a = b.m[__ldg(w.member_of_sid + sid)];
-    // the Pallas block index map: the slot's row tile, clamped
-    const int n_blocks = max(1, P::n_rows(a) / w.tile);
-    const int row0 = min(start / w.tile, n_blocks - 1) * w.tile;
-    P::run(body, a, w, row0, i, smem);
+  for (int s = 0;; ++s) {
+    if (s > 0) {  // segment s starts with a barrier; folds due here follow it
+      const int f0 = __ldg(w.fold_ptr + s), f1 = __ldg(w.fold_ptr + s + 1);
+      if (s < w.n_seg || f1 > f0) grid_barrier(w.barrier);
+      if (f1 > f0) {
+        for (int f = f0; f < f1; ++f) fold<P>(w, b, __ldg(w.fold_inst + f));
+        if (s < w.n_seg) grid_barrier(w.barrier);
+      }
+    }
+    if (s == w.n_seg) break;
+    const int k1 = __ldg(w.walk_ptr + s + 1);
+    for (int k = __ldg(w.walk_ptr + s); k < k1; ++k) {
+      const int i = __ldg(w.walk + k);
+      const int sid = __ldg(w.table + 3 * i);
+      const int body = __ldg(w.body_of_sid + sid);
+      if (body < 0) continue;
+      const typename P::Args& a = b.m[__ldg(w.member_of_sid + sid)];
+      P::run(body, a, w, slot_row0(w, i, P::n_rows(a)), i, smem);
+    }
+    const int p1 = __ldg(w.piece_ptr + s + 1);
+    for (int p = __ldg(w.piece_ptr + s) + blockIdx.x; p < p1; p += gridDim.x) {
+      const int* pc = w.pieces + 5 * p;
+      const int* in = w.inst + 4 * __ldg(pc);
+      const int sid = __ldg(in);
+      const int body = __ldg(w.body_of_sid + sid);
+      float* part = w.scratch + __ldg(in + 2) + (size_t)__ldg(pc + 1) * __ldg(in + 3);
+      P::piece(body, b.m[__ldg(w.member_of_sid + sid)], w,
+               w.piece_slots + __ldg(pc + 2), __ldg(pc + 3), __ldg(pc + 4) != 0,
+               part, smem);
+    }
   }
 }
 
@@ -596,19 +848,22 @@ int launch(const Walk& w, const Members<P>& b, size_t smem, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// The host side of every entry point: `ptrs` holds P::NP pointers and
-// `dims` P::ND sizes for each of the n_members members (host arrays); the
-// dynamic shared memory is the largest member's.
+// The host side of every entry point. `plan` is the wrapper's int32 array
+// on the device: body_of_sid, member_of_sid, then the fold plan's arrays,
+// at the 10 offsets in the host array `off`. `ptrs` holds P::NP pointers
+// and `dims` P::ND sizes for each of the n_members members (host arrays);
+// the dynamic shared memory is the largest member's.
 template <class P>
-int walk(const int* table, int n_slots, const int* body_of_sid,
-         const int* member_of_sid, int n_stages,
-         const unsigned char* sync_before, int* stamps, unsigned int* barrier,
-         int tile, int n_members, void* const* ptrs, const int* dims,
-         void* stream) {
-  if (n_members < 1 || n_members > MAX_MEMBERS || tile < 1)
+int walk(const int* table, int n_slots, const int* plan,
+         const int* off, int n_seg, float* scratch, int* stamps,
+         unsigned int* barrier, int tile, int n_members, void* const* ptrs,
+         const int* dims, void* stream) {
+  if (n_members < 1 || n_members > MAX_MEMBERS || tile < 1 || n_seg < 1)
     return (int)cudaErrorInvalidValue;
-  const Walk w{table, n_slots, body_of_sid, member_of_sid, n_stages,
-               sync_before, stamps, barrier, tile};
+  const Walk w{table, n_slots, plan + off[0], plan + off[1],
+               plan + off[2], plan + off[3], plan + off[4], plan + off[5],
+               plan + off[6], plan + off[7], plan + off[8], plan + off[9],
+               n_seg, scratch, stamps, barrier, tile};
   Members<P> b{};
   size_t smem = 0;
   for (int m = 0; m < n_members; ++m) {
@@ -620,15 +875,13 @@ int walk(const int* table, int n_slots, const int* body_of_sid,
 
 }  // namespace
 
-#define WALK_ENTRY(NAME, PROGRAM)                                             \
-  extern "C" int NAME(const int* table, int n_slots, const int* body_of_sid, \
-                      const int* member_of_sid, int n_stages,                \
-                      const unsigned char* sync_before, int* stamps,         \
-                      unsigned int* barrier, int tile, int n_members,        \
-                      void* const* ptrs, const int* dims, void* stream) {    \
-    return walk<PROGRAM>(table, n_slots, body_of_sid, member_of_sid,         \
-                         n_stages, sync_before, stamps, barrier, tile,       \
-                         n_members, ptrs, dims, stream);                     \
+#define WALK_ENTRY(NAME, PROGRAM)                                              \
+  extern "C" int NAME(const int* table, int n_slots, const int* plan,         \
+                      const int* off, int n_seg, float* scratch, int* stamps, \
+                      unsigned int* barrier, int tile, int n_members,         \
+                      void* const* ptrs, const int* dims, void* stream) {     \
+    return walk<PROGRAM>(table, n_slots, plan, off, n_seg, scratch, stamps,   \
+                         barrier, tile, n_members, ptrs, dims, stream);       \
   }
 
 WALK_ENTRY(walk_linreg, Linreg)

@@ -1,33 +1,63 @@
 // Flash-attention forward (K4): causal or non-causal online-softmax
-// attention over (B, H, Sq, dh) queries and (B, KV, Skv, dh) keys/values.
+// attention over (B, H, Sq, dh) queries, (B, KV, Skv, dh) keys and
+// (B, KV, Skv, dv) values; dv may differ from dh (MLA: q/k 192, v 128).
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py:flash_attention
 // (and the GQA expansion of repro/kernels/ops.py:attention). The function is
 // the Pallas kernel's, step for step:
-//   s = (q . k^T in fp32) * scale, masked with -1e30 (key > query, or past
-//       the end of the keys);
+//   s = (q . k^T in fp32) * scale, scale = 1 / sqrt(dh), masked with -1e30
+//       (key > query, or past the end of the keys);
 //   m, l, acc in fp32; per kv tile m' = max(m, rowmax s), p = exp(s - m'),
 //   corr = exp(m - m'), l = l corr + rowsum p (the unrounded p),
 //   acc = acc corr + (p rounded to v's type) . v in fp32;
 //   out = acc / max(l, 1e-30), rounded to q's type.
 // Causal kv tiles wholly above the diagonal are skipped: key 0 is always
 // visible, so m is finite after the first tile, and a masked tile adds
-// exp(-1e30 - m) = 0 with corr = 1, which changes nothing. GQA: query head
-// h reads kv head h / (H / KV) in place, without the reference's repeat.
+// exp(-1e30 - m) = 0 with corr = 1, which changes nothing. Only a tile that
+// crosses the diagonal or the end of the keys is masked. GQA: query head h
+// reads kv head h / (H / KV) in place, without the reference's repeat.
 //
-// Bound on an H100: operations. At the serving shape (4 x 32 heads x 2,048
-// x 128, 8 kv heads, causal) the two products are 1.37e11 flop, 0.14 ms at
-// 989 TFLOP/s of bf16 tensor cores, against 0.05 ms of bytes (q, k, v read
-// once, out written once). Design: the simple one. One CTA per (b.h, 64-row
-// q tile), the heaviest causal tiles launched first; the q tile, then each
+// Bound on an H100: operations. At Granite-8B's prefill (4 x 32 heads x
+// 2,048 x 128, 8 kv heads, causal) the two products are 1.37e11 flop,
+// 0.14 ms at 989 TFLOP/s of bf16 tensor cores, against 0.05 ms of bytes
+// (q, k, v read once, out written once).
+//
+// The bf16 kernel (flash_wgmma), which serves every prefill, runs both
+// products on Hopper's tensor cores:
+//   * a CTA takes 128 query rows of one (batch, head): two consumer
+//     warpgroups of 64 rows each, sharing the K/V tiles. CTAs are ordered
+//     heaviest causal q tile first over all heads;
+//   * S = Q K^T is wgmma m64n128k16 with Q and a 128-key K tile in shared
+//     memory (K-major); O += P V is wgmma m64n{dv}k16 with P in registers
+//     (the S accumulator's layout is the A fragment's, so P is rounded to
+//     bf16 in place) and the V tile in shared memory (MN-major, transposed
+//     by the instruction), fp32 accumulators in registers;
+//   * K/V tiles come through a two-stage ring in shared memory, filled with
+//     cp.async (16-byte copies, zero-filled past the end) one tile ahead.
+//     mbarriers, not CTA barriers, pace the ring: a stage is `full` when
+//     every thread's copies have landed and `empty` when every thread is
+//     done with it, so one warpgroup's softmax can run beside the other's
+//     products. Tiles are stored in the no-swizzle core-matrix layout
+//     wgmma reads: 16-byte chunk c of row r at byte (c * rows + r) * 16, so
+//     neighbouring threads fill neighbouring chunks without bank conflicts,
+//     and _split_heads' strided views are read in place (cp.async rather
+//     than TMA: a plain C interface with no driver-API tensor maps);
+//   * the online softmax runs on the accumulator fragments between the two
+//     products: each thread holds 2 rows x 64 keys of S, row max and sum
+//     over the 4 threads of a row by shuffles; exp(x) is ex2.approx of
+//     x log2 e (relative error under 2^-21), inside the 2^-16 fp32 term of
+//     the kernel's limit against its float64 oracle.
+// Built for (dh, dv) in (16, 16), (64, 64), (112, 112) (Zamba2-7B's shared
+// attention), (128, 128) (every dense config) and (192, 128)
+// (DeepSeek-V2-Lite's MLA).
+//
+// The fp32 kernel (flash_fwd) keeps fp32 FMA: tensor cores would need
+// TF32, which the fp32 path's limits refuse; nothing on the serving path
+// sends it fp32. One CTA per (b.h, 64-row q tile); the q tile, then each
 // 64-row K tile and V tile are staged through shared memory as fp32; 256
 // threads, each owning 4 query rows x 4 keys of a score tile (row max and
-// sum by shuffles over the 16 threads of a row group) and 4 rows x dh/16
-// output columns, with m, l and acc in registers; fp32 FMA for both
-// products, each sum in ascending order. Compiled for dh 16, 64, 112
-// (Zamba2-7B's shared attention: NC = 7 accumulator columns a thread) and
-// 128. The tensor cores (mma.sync or wgmma), TMA and a pipelined K/V ring
-// are the way to the bound.
+// sum by shuffles over the 16 threads of a row group) and 4 rows x dv/16
+// output columns, with m, l and acc in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,83 +77,62 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  void* o;              // contiguous (B, H, Sq, dh)
+  void* o;              // contiguous (B, H, Sq, dv)
   Strides qs, ks, vs;
   int H, group;         // query heads, query heads per kv head
   int Sq, Skv, causal;
   float scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ------------------------------------------------------------ fp32 kernel
 
-template <class T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype
-}
-
-// Rows [row0, row0 + 64) of a (rows, DH) slice into shared memory as fp32,
-// row stride LD; rows at or past n_rows load as zero. 16-byte loads.
-template <class T, int DH, int LD>
-__device__ __forceinline__ void stage(float* dst, const T* base,
+// Rows [row0, row0 + 64) of a (rows, W) fp32 slice into shared memory, row
+// stride LD; rows at or past n_rows load as zero. 16-byte loads.
+template <int W, int LD>
+__device__ __forceinline__ void stage(float* dst, const float* base,
                                       long long row_stride, int row0,
                                       int n_rows) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = DH / VEC;
+  constexpr int PER_ROW = W / 4;
   for (int e = threadIdx.x; e < 64 * PER_ROW; e += THREADS) {
-    const int r = e / PER_ROW, cv = (e % PER_ROW) * VEC;
-    float vals[VEC];
-    if (row0 + r < n_rows) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          base + (long long)(row0 + r) * row_stride + cv);
-      const T* t = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int u = 0; u < VEC; ++u) vals[u] = to_f(t[u]);
-    } else {
-#pragma unroll
-      for (int u = 0; u < VEC; ++u) vals[u] = 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < VEC; u += 4)
-      *reinterpret_cast<float4*>(dst + r * LD + cv + u) =
-          make_float4(vals[u], vals[u + 1], vals[u + 2], vals[u + 3]);
+    const int r = e / PER_ROW, cv = (e % PER_ROW) * 4;
+    *reinterpret_cast<float4*>(dst + r * LD + cv) =
+        row0 + r < n_rows
+            ? *reinterpret_cast<const float4*>(base + (long long)(row0 + r) * row_stride + cv)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-// Output column of a thread's jj-th accumulator (NC = DH / 16 of them):
-// four neighbouring columns per 64 when NC is a multiple of 4 (dh 64 and
-// 128: float4 reads of a V row), else one per 16 (dh 16 and 112).
+// Output column of a thread's jj-th accumulator (NC = dv / 16 of them):
+// four neighbouring columns per 64 when NC is a multiple of 4 (dv 64 and
+// 128: float4 reads of a V row), else one per 16 (dv 16 and 112).
 template <int NC>
 __device__ __forceinline__ int out_col(int c, int jj) {
   if constexpr (NC % 4 == 0) return (jj / 4) * 64 + 4 * c + (jj % 4);
   else return c + 16 * jj;
 }
 
-template <class T, int DH>
+template <int DH, int DV>
 __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
-  constexpr int LD = DH + 4;  // padded rows (116 floats at dh 112): conflict-
-                              // free, 16-byte aligned float4 reads
+  constexpr int LD = DH + 4;   // padded rows (116 floats at dh 112): conflict-
+  constexpr int LDV = DV + 4;  // free, 16-byte aligned float4 reads
+  constexpr int LKV = LD > LDV ? LD : LDV;
   constexpr int LP = BK + 4;
-  constexpr int NC = DH / 16;
+  constexpr int NC = DV / 16;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;            // BQ x LD
-  float* KVs = Qs + BQ * LD;   // BK x LD: the K tile, then the V tile
-  float* Ps = KVs + BK * LD;   // BQ x LP: p rounded to v's type
+  float* KVs = Qs + BQ * LD;   // BK x LD: the K tile, then BK x LDV: the V tile
+  float* Ps = KVs + BK * LKV;  // BQ x LP: p
 
   const int n_qt = (p.Sq + BQ - 1) / BQ;
   const int qt = n_qt - 1 - (int)blockIdx.x;  // heaviest causal tiles first
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H, kvh = h / p.group;
-  const T* q = static_cast<const T*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const T* k = static_cast<const T*>(p.k) + b * p.ks.b + kvh * p.ks.h;
-  const T* v = static_cast<const T*>(p.v) + b * p.vs.b + kvh * p.vs.h;
+  const float* q = static_cast<const float*>(p.q) + b * p.qs.b + h * p.qs.h;
+  const float* k = static_cast<const float*>(p.k) + b * p.ks.b + kvh * p.ks.h;
+  const float* v = static_cast<const float*>(p.v) + b * p.vs.b + kvh * p.vs.h;
   const int q0 = qt * BQ;
   const int r = threadIdx.x >> 4, c = threadIdx.x & 15;  // rows 4r.., keys c+16j
 
-  stage<T, DH, LD>(Qs, q, p.qs.s, q0, p.Sq);
+  stage<DH, LD>(Qs, q, p.qs.s, q0, p.Sq);
   float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -141,7 +150,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile is done with K/V and P
-    stage<T, DH, LD>(KVs, k, p.ks.s, k0, p.Skv);
+    stage<DH, LD>(KVs, k, p.ks.s, k0, p.Skv);
     __syncthreads();
     float s[4][4];
 #pragma unroll
@@ -201,12 +210,11 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
       for (int jj = 0; jj < NC; ++jj) acc[i][jj] *= corr;
     }
     __syncthreads();  // every thread is done reading the K tile
-    stage<T, DH, LD>(KVs, v, p.vs.s, k0, p.Skv);
+    stage<DV, LDV>(KVs, v, p.vs.s, k0, p.Skv);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ps[(4 * r + i) * LP + c + 16 * j] = to_f(from_f<T>(s[i][j]));
+      for (int j = 0; j < 4; ++j) Ps[(4 * r + i) * LP + c + 16 * j] = s[i][j];
     __syncthreads();
 #pragma unroll 2
     for (int kk = 0; kk < BK; kk += 4) {
@@ -218,7 +226,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float* vrow = KVs + (kk + u) * LD;
+        const float* vrow = KVs + (kk + u) * LDV;
         float vv[NC];
         if constexpr (NC % 4 == 0) {
 #pragma unroll
@@ -238,7 +246,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
     }
   }
 
-  T* o = static_cast<T*>(p.o) + ((long long)b * p.H + h) * p.Sq * DH;
+  float* o = static_cast<float*>(p.o) + ((long long)b * p.H + h) * p.Sq * DV;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * r + i;
@@ -246,14 +254,15 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int jj = 0; jj < NC; ++jj)
-      o[(long long)row * DH + out_col<NC>(c, jj)] = from_f<T>(acc[i][jj] / den);
+      o[(long long)row * DV + out_col<NC>(c, jj)] = acc[i][jj] / den;
   }
 }
 
-template <class T, int DH>
-int launch(const Params& p, int B, void* stream) {
-  constexpr size_t smem = sizeof(float) * (2 * BQ * (DH + 4) + BQ * (BK + 4));
-  auto kernel = flash_fwd<T, DH>;
+template <int DH, int DV>
+int launch_fp32(const Params& p, int B, void* stream) {
+  constexpr int LKV = DH > DV ? DH + 4 : DV + 4;
+  constexpr size_t smem = sizeof(float) * (BQ * (DH + 4) + BK * LKV + BQ * (BK + 4));
+  auto kernel = flash_fwd<DH, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -262,25 +271,362 @@ int launch(const Params& p, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <class T>
-int dispatch(const Params& p, int B, int dh, void* stream) {
-  switch (dh) {
-    case 16: return launch<T, 16>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 112: return launch<T, 112>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
-    default: return (int)cudaErrorInvalidValue;
+// ------------------------------------------------------ bf16 kernel, wgmma
+
+using bf16 = __nv_bfloat16;
+constexpr int WQ = 128;      // query rows a CTA: two warpgroups of 64
+constexpr int WK = 128;      // keys a K/V tile
+constexpr int STAGES = 2;    // K/V ring depth
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of a (rows, W) bf16 slice into the no-swizzle
+// core-matrix layout: 16-byte chunk c of row r at byte (c * ROWS + r) * 16.
+// Rows at or past n_rows are zero. A pair of threads copies a row's two
+// neighbouring chunks (one 32-byte sector), a warp 16 rows.
+template <int ROWS, int W>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long row_stride, int row0,
+                                          int n_rows) {
+  constexpr int CH = W / 8;  // even: W is a multiple of 16
+  for (int e = threadIdx.x; e < ROWS * CH; e += THREADS) {
+    const int r = (e >> 1) % ROWS, c = (e & 1) + 2 * (e / (2 * ROWS));
+    const bool ok = row0 + r < n_rows;
+    const bf16* g = ok ? src + (long long)(row0 + r) * row_stride + c * 8 : src;
+    cp_async16(dst + (c * ROWS + r) * 8, g, ok);
   }
+}
+
+// wgmma shared-memory descriptor of a no-swizzle tile: start address,
+// leading (K-direction) and stride (M/N-direction) byte offsets between
+// neighbouring 8 x 16-byte core matrices.
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4)
+         | ((uint64_t)(lbo >> 4) & 0x3FFF) << 16
+         | ((uint64_t)(sbo >> 4) & 0x3FFF) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads across the async product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 128, fp32) += A B: A and B bf16 in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// D (64 x 16, fp32) += A B: A bf16 in registers, B bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 64, fp32) += A B: A bf16 in registers, B bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 112, fp32) += A B: A bf16 in registers, B bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 128, fp32) += A B: A bf16 in registers, B bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&d)[DV / 2], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  if constexpr (DV == 16) wgmma_rs_n16(d, a, b);
+  else if constexpr (DV == 64) wgmma_rs_n64(d, a, b);
+  else if constexpr (DV == 112) wgmma_rs_n112(d, a, b);
+  else wgmma_rs_n128(d, a, b);
+}
+
+// exp(x) as 2^(x log2 e) on the special-function unit (ex2.approx: a
+// relative error under 2^-22), for x <= 0; exp(-1e30 - m) is 0.
+__device__ __forceinline__ float exp2_(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // .x = lo
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// mbarriers of the K/V ring: `full` completes when every thread's copies
+// of a tile have landed (cp.async arrivals), `empty` when every thread is
+// done with it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+// arrives on `bar` once all of this thread's earlier cp.async copies land
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Accumulator fragment of m64nNk16 (fp32): thread t of the warpgroup holds
+// entry i at row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2) and column
+// 8 (i / 4) + 2 (t % 4) + i % 2.
+template <int DH, int DV>
+__global__ void __launch_bounds__(THREADS, 1) flash_wgmma(Params p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // two 64 x DH tiles
+  bf16* Ks = Qs + WQ * DH;                       // STAGES x WK x DH
+  bf16* Vs = Ks + STAGES * WK * DH;              // STAGES x WK x DV
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + STAGES * WK * DV);
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H, kvh = h / p.group;
+  const int n_qt = (p.Sq + WQ - 1) / WQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * WQ;  // heaviest tiles first
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qs.b + h * p.qs.h;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ks.b + kvh * p.ks.h;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vs.b + kvh * p.vs.h;
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int row_a = 16 * (t / 32) + (t % 32) / 4;  // and row_a + 8
+  const int col_t = 2 * (t % 4);
+  const int qw = q0 + 64 * wg;                       // the warpgroup's first row
+
+  int n_kt = (p.Skv + WK - 1) / WK, my_kt = n_kt;
+  if (p.causal) {
+    n_kt = min(n_kt, (min(q0 + WQ, p.Sq) - 1) / WK + 1);
+    my_kt = qw < p.Sq ? min(n_kt, (min(qw + 64, p.Sq) - 1) / WK + 1) : 0;
+  } else if (qw >= p.Sq) {
+    my_kt = 0;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + st, THREADS);
+      mbar_init(empty + st, THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load_kv = [&](int kt) {  // this thread's copies of tile kt
+    const int st = kt % STAGES;
+    load_tile<WK, DH>(Ks + st * WK * DH, k, p.ks.s, kt * WK, p.Skv);
+    load_tile<WK, DV>(Vs + st * WK * DV, v, p.vs.s, kt * WK, p.Skv);
+    mbar_arrive_copies(full + st);
+  };
+  load_tile<64, DH>(Qs, q, p.qs.s, q0, p.Sq);
+  load_tile<64, DH>(Qs + 64 * DH, q, p.qs.s, q0 + 64, p.Sq);
+  cp_async_commit();
+  for (int kt = 0; kt < STAGES - 1 && kt < n_kt; ++kt) load_kv(kt);
+  cp_async_wait<0>();  // Q (and the first tiles) of this thread
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();     // Q is visible CTA-wide
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  const bf16* qw_s = Qs + 64 * DH * wg;
+
+  // The two warpgroups meet only at the ring's barriers: a tile's copies
+  // wait until both are done with the tile STAGES - 1 before it, so one
+  // warpgroup may run up to STAGES - 1 tiles ahead of the other and its
+  // softmax overlaps the other's products.
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int nxt = kt + STAGES - 1;  // the tile whose copies go out now
+    if (nxt < n_kt) {
+      if (nxt >= STAGES) mbar_wait(empty + nxt % STAGES, (nxt / STAGES - 1) & 1);
+      load_kv(nxt);
+    }
+    mbar_wait(full + kt % STAGES, (kt / STAGES) & 1);
+    // make the copies visible to the tensor cores' (async) proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (kt < my_kt) {
+      const int k0 = kt * WK;
+      const bf16* ks = Ks + (kt % STAGES) * WK * DH;
+      const bf16* vs = Vs + (kt % STAGES) * WK * DV;
+      float s[WK / 2];
+#pragma unroll
+      for (int i = 0; i < WK / 2; ++i) s[i] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)  // chunks 2kk, 2kk + 1 of dh
+        wgmma_ss_n128(s, make_desc(qw_s + kk * 2 * 64 * 8, 64 * 16, 128),
+                      make_desc(ks + kk * 2 * WK * 8, WK * 16, 128));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+
+      // scale, mask where the tile crosses the diagonal or the key end, and
+      // the online-softmax update of the thread's two rows
+      const bool mask = k0 + WK > p.Skv || (p.causal && k0 + WK - 1 > qw);
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int i = 0; i < WK / 2; ++i) {
+        float x = s[i] * p.scale;
+        if (mask) {
+          const int qpos = qw + row_a + 8 * ((i / 2) % 2);
+          const int kpos = k0 + 8 * (i / 4) + col_t + i % 2;
+          if (kpos >= p.Skv || (p.causal && kpos > qpos)) x = NEG_INF;
+        }
+        s[i] = x;
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
+      }
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {  // a row lives on the 4 threads of a quad
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        mx[rr] = fmaxf(m[rr], mx[rr]);  // m'
+      }
+#pragma unroll
+      for (int i = 0; i < WK / 2; ++i) {
+        const float e = exp2_(s[i] - mx[(i / 2) % 2]);
+        s[i] = e;
+        sum[(i / 2) % 2] += e;
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 1);
+        sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 2);
+        corr[rr] = exp2_(m[rr] - mx[rr]);
+        l[rr] = l[rr] * corr[rr] + sum[rr];
+        m[rr] = mx[rr];
+      }
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) o[i] *= corr[(i / 2) % 2];
+      // p rounded to bf16: the S fragment of keys 16j.. is the A fragment
+      uint32_t a[WK / 16][4];
+#pragma unroll
+      for (int j = 0; j < WK / 16; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) a[j][u] = pack_bf16(s[8 * j + 2 * u], s[8 * j + 2 * u + 1]);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < WK / 16; ++j)  // keys 16j.. are rows 2j, 2j + 1 of 8
+        wgmma_pv<DV>(o, a[j], make_desc(vs + j * 2 * 8 * 8, 128, WK * 16));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(o);
+    }
+    mbar_arrive(empty + kt % STAGES);  // this thread is done with tile kt
+  }
+
+  if (qw >= p.Sq) return;
+  bf16* out = static_cast<bf16*>(p.o) + ((long long)b * p.H + h) * p.Sq * DV;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = qw + row_a + 8 * rr;
+    if (row >= p.Sq) continue;
+    const float den = fmaxf(l[rr], 1e-30f);
+#pragma unroll
+    for (int n8 = 0; n8 < DV / 8; ++n8) {
+      const int i = 4 * n8 + 2 * rr;
+      *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * DV + 8 * n8 + col_t) =
+          __floats2bfloat162_rn(o[i] / den, o[i + 1] / den);
+    }
+  }
+}
+
+template <int DH, int DV>
+int launch_bf16(const Params& p, int B, void* stream) {
+  constexpr size_t smem = sizeof(bf16) * (WQ * DH + STAGES * WK * (DH + DV))
+                          + 2 * STAGES * sizeof(uint64_t);
+  auto kernel = flash_wgmma<DH, DV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * p.H, (p.Sq + WQ - 1) / WQ);
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int DH, int DV>
+int launch(const Params& p, int B, int bf16_in, void* stream) {
+  return bf16_in ? launch_bf16<DH, DV>(p, B, stream) : launch_fp32<DH, DV>(p, B, stream);
 }
 
 }  // namespace
 
-// q: (B, H, Sq, dh), k and v: (B, KV, Skv, dh), each with element strides
-// (batch, head, seq) and a contiguous last axis, 16-byte aligned rows; out:
-// contiguous (B, H, Sq, dh). bf16 != 0: bfloat16 tensors, else float32.
+// q: (B, H, Sq, dh), k: (B, KV, Skv, dh), v: (B, KV, Skv, dv), each with
+// element strides (batch, head, seq) and a contiguous last axis, 16-byte
+// aligned rows; out: contiguous (B, H, Sq, dv). bf16 != 0: bfloat16
+// tensors, else float32.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int bf16, int B, int H, int KV,
-                               int Sq, int Skv, int dh, long long qsb,
+                               int Sq, int Skv, int dh, int dv, long long qsb,
                                long long qsh, long long qss, long long ksb,
                                long long ksh, long long kss, long long vsb,
                                long long vsh, long long vss, int causal,
@@ -290,8 +636,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const Params p{q, k, v, out, {qsb, qsh, qss}, {ksb, ksh, kss},
                  {vsb, vsh, vss}, H, H / KV, Sq, Skv, causal, scale};
-  return bf16 ? dispatch<__nv_bfloat16>(p, B, dh, stream)
-              : dispatch<float>(p, B, dh, stream);
+  if (dh == 16 && dv == 16) return launch<16, 16>(p, B, bf16, stream);
+  if (dh == 64 && dv == 64) return launch<64, 64>(p, B, bf16, stream);
+  if (dh == 112 && dv == 112) return launch<112, 112>(p, B, bf16, stream);
+  if (dh == 128 && dv == 128) return launch<128, 128>(p, B, bf16, stream);
+  if (dh == 192 && dv == 128) return launch<192, 128>(p, B, bf16, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* error_string(int err) {

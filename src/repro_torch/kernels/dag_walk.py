@@ -27,6 +27,14 @@ slot's owner walks them in ascending order inside the slot, where the
 Pallas grid had a second axis. The
 source note there gives the kernel's design and its bound.
 
+On the CUDA walker a float ``sum`` stage folds in two levels: groups of
+the stage's consecutive slots fold in ascending order into partials, and
+the partials fold in group order onto the buffer (zeros or the seed) at
+the first grid barrier before a slot that reads the stage, or at the
+launch end. ``fold_plan`` computes the groups, the pieces the CTAs take
+and the fold points from the table alone, so the result does not depend
+on the grid; the plain walker folds slot by slot.
+
 A batched walk (``vee/apps.py:merge_device_lowerings``) holds up to
 ``MAX_MEMBERS`` members of one program; each stage's ``member`` picks the
 pointers and sizes its body runs with, so one launch drains the batch.
@@ -42,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -52,7 +61,8 @@ from ._build import DAG_WALK, ptr, stream
 
 __all__ = ["WalkOperand", "WalkStage", "WalkCtx", "dag_walk", "dag_walk_plain",
            "dag_walk_stagewise", "dag_walk_sharded", "cuda_program",
-           "sync_flags", "device_table_cache_stats", "clear_device_table_cache",
+           "sync_flags", "fold_plan", "FoldPlan", "FOLD_GROUPS", "FOLD_BODIES",
+           "device_table_cache_stats", "clear_device_table_cache",
            "MAX_MEMBERS", "INNER_BODIES"]
 
 #: most members one batched launch holds (``BatchPolicy.max_batch``)
@@ -64,13 +74,30 @@ MAX_MEMBERS = 8
 #
 # The table is the one host->device transfer every launch pays even when
 # the schedule is frozen (jobs of a recurring shape walk the SAME table).
-# Keyed entries keep the transferred table on the device across launches;
-# the content fingerprint (shape + bytes) makes a stale hit impossible even
-# if a caller reuses a key for a rebalanced table.
+# One cache, keyed by the table's content (shape + bytes, so a stale hit is
+# impossible), keeps each table's device copy and, beside it, the CUDA
+# walker's fold plan of each stage list that walked it: a walk repeated on
+# the same table (a recurring job shape, a timing loop) pays neither the
+# transfer nor the plan's numpy again. Least recently used entries go first.
 # ---------------------------------------------------------------------------
 
-_DEVICE_TABLE_CACHE: dict[tuple, torch.Tensor] = {}
+_DEVICE_TABLE_CACHE: OrderedDict = OrderedDict()
+_DEVICE_TABLE_CACHE_SIZE = 16
 _DEVICE_TABLE_STATS = {"hits": 0, "misses": 0}
+
+
+@dataclass(frozen=True)
+class _DeviceTable:
+    table: torch.Tensor      # int32 copy of the table on the device
+    plans: dict              # stage signature -> _DevicePlan
+
+
+@dataclass(frozen=True)
+class _DevicePlan:
+    ints: torch.Tensor       # body_of_sid, member_of_sid, then FoldPlan.packed()
+    offs: tuple              # offsets of the 10 arrays in ``ints``
+    n_seg: int
+    scratch: int             # floats of partials
 
 
 def device_table_cache_stats() -> dict:
@@ -79,37 +106,56 @@ def device_table_cache_stats() -> dict:
 
 
 def clear_device_table_cache() -> None:
-    """Drop device-resident tables and reset the hit/miss counters."""
+    """Drop device-resident tables and their plans; reset the counters."""
     _DEVICE_TABLE_CACHE.clear()
     _DEVICE_TABLE_STATS["hits"] = 0
     _DEVICE_TABLE_STATS["misses"] = 0
 
 
-def _device_table(table: np.ndarray, key: tuple | None,
-                  device: torch.device) -> torch.Tensor:
-    """An int32 copy of a host super-table on ``device``.
+def _pinned_put(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An int32 copy of ``host`` on ``device``; on a CUDA device issued with
+    ``non_blocking=True`` from pinned memory, so it overlaps a running walk."""
+    t = torch.from_numpy(np.array(host, dtype=np.int32))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
-    On a CUDA device the copy is issued with ``non_blocking=True`` from
-    pinned memory, so issuing it for shard ``s+1`` before walking shard
-    ``s`` overlaps the transfer with the walk. Keyed: the copy happens
-    once per distinct table and later launches reuse the resident tensor.
-    """
-    def put() -> torch.Tensor:
-        host = torch.from_numpy(np.array(table, dtype=np.int32))
-        if device.type == "cuda":
-            return host.pin_memory().to(device, non_blocking=True)
-        return host.to(device)
 
-    if key is None:
-        return put()
-    ck = (key, str(device), table.shape, table.tobytes())
-    dev = _DEVICE_TABLE_CACHE.get(ck)
-    if dev is not None:
+def _device_table(table: np.ndarray, device: torch.device) -> _DeviceTable:
+    """The cache entry of a host super-table on ``device``: the copy
+    happens once per distinct table, later launches reuse it."""
+    key = (str(device), table.shape, table.tobytes())
+    hit = _DEVICE_TABLE_CACHE.get(key)
+    if hit is not None:
         _DEVICE_TABLE_STATS["hits"] += 1
-        return dev
+        _DEVICE_TABLE_CACHE.move_to_end(key)
+        return hit
     _DEVICE_TABLE_STATS["misses"] += 1
-    dev = _DEVICE_TABLE_CACHE[ck] = put()
-    return dev
+    entry = _DEVICE_TABLE_CACHE[key] = _DeviceTable(_pinned_put(table, device), {})
+    while len(_DEVICE_TABLE_CACHE) > _DEVICE_TABLE_CACHE_SIZE:
+        _DEVICE_TABLE_CACHE.popitem(last=False)
+    return entry
+
+
+def _device_plan(entry: _DeviceTable, stages: list, body_map: list, members: list,
+                 table: np.ndarray, device: torch.device) -> _DevicePlan:
+    """The device plan of ``table`` for ``stages`` (``body_map``: each
+    stage's body index; ``members``: each stage's dense member), kept in
+    the table's cache ``entry``."""
+    sig = tuple((s.name, s.combine, str(s.out_dtype), tuple(s.out_shape), s.reads, b, m)
+                for s, b, m in zip(stages, body_map, members))
+    hit = entry.plans.get(sig)
+    if hit is not None:
+        return hit
+    plan = fold_plan(stages, table)
+    packed, offs = plan.packed()
+    n = len(stages)
+    ints = np.concatenate([np.asarray(body_map, dtype=np.int32),
+                           np.asarray(members, dtype=np.int32), packed])
+    dp = entry.plans[sig] = _DevicePlan(
+        ints=_pinned_put(ints, device), offs=(0, n, *[2 * n + o for o in offs]),
+        n_seg=plan.n_seg, scratch=plan.scratch)
+    return dp
 
 
 @dataclass(frozen=True)
@@ -342,6 +388,14 @@ _PROGRAMS = {
 #: device bodies that loop over their stage's inner steps inside the slot
 INNER_BODIES = frozenset({"cc.propagate"})
 
+#: most feature columns the linreg program takes (csrc/dag_walk.cu: one
+#: moments column a thread of 256)
+LINREG_MAX_D = 256
+
+#: device bodies of float sums: they run as partials and a fold (``FoldPlan``)
+FOLD_BODIES = frozenset({"linreg.moments", "linreg.syrk_gemv",
+                         "recommendation.item_norms"})
+
 
 def _program_of(bodies: list[str]) -> str | None:
     """The program holding every body in ``bodies``, or None."""
@@ -430,6 +484,153 @@ def sync_flags(stages: list[WalkStage], table: np.ndarray) -> np.ndarray:
     return flags
 
 
+#: a float ``sum`` stage's slots are cut into about this many groups
+FOLD_GROUPS = 512
+
+
+def folds(stage: WalkStage) -> bool:
+    """Whether the CUDA walker runs ``stage`` as partials and a fold: a
+    ``sum`` stage of a floating type (an int count keeps its one owner)."""
+    return stage.combine == "sum" and stage.out_dtype.is_floating_point
+
+
+@dataclass(frozen=True)
+class FoldPlan:
+    """How the CUDA walker drains one table, computed from the table alone.
+
+    The table is cut into segments at the grid barriers ``sync_flags``
+    asks for. In each segment every CTA walks the segment's other slots
+    (``walk``) in order, then the CTAs take the segment's ``pieces`` by
+    grid stride. A piece is the part of one group of one float ``sum``
+    stage that lies in the segment: its slots fold in ascending order
+    into the group's partial, which starts from zero, or from the
+    partial its earlier piece stored (``cont``). At the start of a
+    segment (after its barrier) or at the launch end, each stage of
+    ``fold_at`` that is due has its buffer (zeros or the seed) plus its
+    partials added in ascending group order by each entry's owner, and a
+    second barrier publishes the sums.
+
+    Groups hold ``group_size[name]`` consecutive slots of the stage's own
+    slots (ordinal k goes to group k // group_size); the size depends
+    only on the stage's slot count in the table. Nothing here depends on
+    the grid that walks it.
+    """
+
+    flags: np.ndarray        # (n_slots,) uint8: a grid barrier before the slot
+    walk: np.ndarray         # slots walked one at a time, in table order
+    walk_ptr: np.ndarray     # (n_seg + 1,) each segment's range of ``walk``
+    pieces: np.ndarray       # (n_pieces, 5): instance, group, first, count, cont
+    piece_ptr: np.ndarray    # (n_seg + 1,) each segment's range of ``pieces``
+    piece_slots: np.ndarray  # the pieces' slots, ascending within a piece
+    fold_inst: np.ndarray    # instances folded at each segment start
+    fold_ptr: np.ndarray     # (n_seg + 2,) ranges of ``fold_inst``; n_seg = end
+    inst: np.ndarray         # (n_inst, 4): stage id, n_groups, offset, entries
+    group_size: dict         # stage name -> slots a group
+    groups: dict             # stage name -> group of each of its slots, in order
+    fold_at: dict            # stage name -> slot its fold precedes (n_slots: end)
+
+    @property
+    def n_seg(self) -> int:
+        return len(self.walk_ptr) - 1
+
+    @property
+    def scratch(self) -> int:
+        """Floats of partials the walk needs."""
+        return int((self.inst[:, 1].astype(np.int64) * self.inst[:, 3]).sum())
+
+    def packed(self) -> tuple[np.ndarray, list[int]]:
+        """The int arrays the kernel reads, in one int32 array, and the
+        offset of each (``walk``, ``walk_ptr``, ``pieces``, ``piece_ptr``,
+        ``piece_slots``, ``fold_inst``, ``fold_ptr``, ``inst``)."""
+        parts = [self.walk, self.walk_ptr, self.pieces.ravel(), self.piece_ptr,
+                 self.piece_slots, self.fold_inst, self.fold_ptr, self.inst.ravel()]
+        offs = np.cumsum([0] + [len(p) for p in parts[:-1]]).tolist()
+        return np.concatenate(parts).astype(np.int32), offs
+
+
+def fold_plan(stages: list[WalkStage], table: np.ndarray,
+              n_groups: int = FOLD_GROUPS) -> FoldPlan:
+    """The CUDA walker's plan for ``table`` (see ``FoldPlan``).
+
+    A float ``sum`` stage folds at the first barrier after its last slot
+    when a slot of this table reads it after that slot (build_dag_tables
+    puts a barrier there), and at the launch end otherwise.
+    """
+    table = _check_table(table)
+    n = len(table)
+    flags = sync_flags(stages, table)
+    sid = table[:, 0]
+    real = (table[:, 2] > 0) & (sid >= 0) & (sid < len(stages))
+    seg = np.cumsum(flags, dtype=np.int64)          # segment of each slot
+    starts = np.flatnonzero(flags)                  # segment k + 1 starts here
+    n_seg = len(starts) + 1
+    bounds = np.r_[0, starts, n]
+    fold_sids = [k for k, s in enumerate(stages) if folds(s)]
+    folded = real & np.isin(sid, fold_sids)
+    walk = np.flatnonzero(real & ~folded)
+    walk_ptr = np.searchsorted(walk, bounds)
+
+    names = [s.name for s in stages]
+    pieces, piece_slots, inst, fold_seg = [], [], [], []
+    group_size, groups, fold_at = {}, {}, {}
+    offset, first = 0, 0
+    for k in fold_sids:
+        idx = np.flatnonzero(folded & (sid == k))
+        if len(idx) == 0:
+            continue                                # the buffer is the answer
+        st = stages[k]
+        g = -(-len(idx) // n_groups)
+        grp = np.arange(len(idx)) // g
+        j = len(inst)
+        entries = int(np.prod(st.out_shape))
+        inst.append((k, int(grp[-1]) + 1, offset, entries))
+        offset += (int(grp[-1]) + 1) * entries
+        group_size[st.name], groups[st.name] = g, grp
+        # a piece ends where its group or its segment does
+        s_of = seg[idx]
+        cut = np.flatnonzero((grp[1:] != grp[:-1]) | (s_of[1:] != s_of[:-1])) + 1
+        lo = np.r_[0, cut]
+        hi = np.r_[cut, len(idx)]
+        cont = np.r_[False, grp[lo[1:]] == grp[lo[1:] - 1]]
+        pieces.append(np.stack([s_of[lo], np.full(len(lo), j), grp[lo], first + lo,
+                                hi - lo, cont], axis=1))
+        first += len(idx)
+        piece_slots.append(idx)
+        last = int(idx[-1])
+        readers = [r for r, s in enumerate(stages)
+                   if any(p == st.name for p, _ in s.reads)]
+        read = real & np.isin(sid, readers)
+        if read[:last].any():
+            early = int(np.flatnonzero(read[:last])[0])
+            raise ValueError(
+                f"slot {early} reads {st.name!r} before its last slot {last}: "
+                "a full read needs every slot of its producer first")
+        if read[last + 1:].any():
+            b = int(starts[np.searchsorted(starts, last, side="right")])
+            fold_seg.append((int(seg[b]), j))
+            fold_at[st.name] = b
+        else:
+            fold_seg.append((n_seg, j))
+            fold_at[st.name] = n
+    pieces = np.concatenate(pieces) if pieces else np.zeros((0, 6), np.int64)
+    pieces = pieces[np.argsort(pieces[:, 0], kind="stable")]  # by segment
+    fold_seg.sort(key=lambda f: f[0])
+    f_seg = np.array([f[0] for f in fold_seg], dtype=np.int64)
+    if offset >= 2 ** 31:
+        raise ValueError(f"the walk's partials need {offset} floats, past int32")
+    return FoldPlan(
+        flags=flags, walk=walk.astype(np.int32), walk_ptr=walk_ptr.astype(np.int32),
+        pieces=np.ascontiguousarray(pieces[:, 1:], dtype=np.int32),
+        piece_ptr=np.searchsorted(pieces[:, 0], np.arange(n_seg + 1)).astype(np.int32),
+        piece_slots=(np.concatenate(piece_slots) if piece_slots
+                     else np.zeros(0, np.int64)).astype(np.int32),
+        fold_inst=np.array([f[1] for f in fold_seg], dtype=np.int32),
+        fold_ptr=np.searchsorted(f_seg, np.arange(n_seg + 2)).astype(np.int32),
+        inst=np.array(inst, dtype=np.int32).reshape(-1, 4),
+        group_size=group_size, groups=groups,
+        fold_at={names[k]: fold_at[names[k]] for k in fold_sids if names[k] in fold_at})
+
+
 def _checked(t: torch.Tensor, shape: tuple, what: str, dtype=torch.float32) -> torch.Tensor:
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(f"{what}: need a contiguous {dtype} tensor of shape "
@@ -447,6 +648,9 @@ def _linreg_args(inputs: dict, outs: dict, tile: int, inner: dict) -> tuple[list
     X = next(ins[0] for ins in inputs.values())
     n, d = X.shape
     _checked(X, (n, d), "linreg X")
+    if d > LINREG_MAX_D:
+        raise ValueError(f"linreg X has {d} feature columns: the walker's linreg "
+                         f"program takes at most {LINREG_MAX_D} (one a thread)")
     y = mom_in = None
     if "linreg.syrk_gemv" in inputs:
         Xs, y, mom_in = inputs["linreg.syrk_gemv"]
@@ -541,8 +745,7 @@ _ARGS = {"linreg": _linreg_args, "recommendation": _recommendation_args,
          "moe": _moe_args, "cc": _cc_args}
 
 
-def _walk_cuda(stages, operands, values, table, tile, table_key, dev_table,
-               stamp):
+def _walk_cuda(stages, operands, values, table, tile, stamp):
     """Launch the compiled walker program over one shard's table."""
     prog, body_map = cuda_program(stages)
     device = _walk_device(operands, values)
@@ -554,6 +757,9 @@ def _walk_cuda(stages, operands, values, table, tile, table_key, dev_table,
         if s.n_rows % tile:
             raise ValueError(f"stage {s.name!r}: n_rows={s.n_rows} is not a "
                              f"multiple of tile={tile}")
+        if folds(s) and s.device_body not in FOLD_BODIES:
+            raise ValueError(f"stage {s.name!r}: the device body {s.device_body!r} "
+                             "has no partial-and-fold form for a float sum")
     # members in ascending order, numbered densely for the kernel
     dense = {m: k for k, m in enumerate(sorted({s.member for s in stages}))}
     n_members = len(dense)
@@ -580,18 +786,17 @@ def _walk_cuda(stages, operands, values, table, tile, table_key, dev_table,
     ptr_arr = (ctypes.c_void_p * len(ptrs))(
         *[None if t is None else t.data_ptr() for t in ptrs])
     dim_arr = (ctypes.c_int * len(dims))(*dims)
-    tbl = dev_table if dev_table is not None else _device_table(table, table_key, device)
-    body_of_sid = torch.tensor(body_map, dtype=torch.int32).to(device)
-    member_of_sid = torch.tensor([dense[s.member] for s in stages],
-                                 dtype=torch.int32).to(device)
-    flags = torch.from_numpy(sync_flags(stages, table)).to(device)
+    entry = _device_table(table, device)
+    plan = _device_plan(entry, stages, body_map, [dense[s.member] for s in stages],
+                        table, device)
+    off_arr = (ctypes.c_int * len(plan.offs))(*plan.offs)
+    scratch = torch.empty(max(plan.scratch, 1), dtype=torch.float32, device=device)
     stamps = torch.zeros((n_slots, 4), dtype=torch.int32, device=device) if stamp else None
     barrier = torch.zeros(2, dtype=torch.int32, device=device)
-    DAG_WALK.launch(f"walk_{prog}", ptr(tbl), ctypes.c_int(n_slots),
-                    ptr(body_of_sid), ptr(member_of_sid),
-                    ctypes.c_int(len(stages)), ptr(flags), ptr(stamps),
-                    ptr(barrier), ctypes.c_int(tile), ctypes.c_int(n_members),
-                    ctypes.cast(ptr_arr, ctypes.c_void_p),
+    DAG_WALK.launch(f"walk_{prog}", ptr(entry.table), ctypes.c_int(n_slots), ptr(plan.ints),
+                    ctypes.cast(off_arr, ctypes.c_void_p), ctypes.c_int(plan.n_seg),
+                    ptr(scratch), ptr(stamps), ptr(barrier), ctypes.c_int(tile),
+                    ctypes.c_int(n_members), ctypes.cast(ptr_arr, ctypes.c_void_p),
                     ctypes.cast(dim_arr, ctypes.c_void_p), stream(device))
     if stamp:
         return outs, stamps.cpu().numpy()
@@ -604,8 +809,6 @@ def dag_walk(
     values: dict[str, torch.Tensor],
     table: np.ndarray,
     tile: int,
-    table_key: tuple | None = None,
-    _dev_table: torch.Tensor | None = None,
     stamp: bool = False,
 ):
     """Drain one shard's super-table in a single launch.
@@ -614,9 +817,8 @@ def dag_walk(
     build_dag_tables (stage ids index ``stages``, which must be in the
     same topological order). Returns {stage name: output tensor}; on a
     multi-shard table a shard only fills the tiles it owns (combine with
-    ``dag_walk_sharded``). ``table_key`` keeps the transferred table on the
-    device across launches; ``_dev_table`` is a table already copied by
-    ``dag_walk_sharded``'s prefetch.
+    ``dag_walk_sharded``). The table's device copy and fold plan stay
+    cached by content across launches (``device_table_cache_stats``).
 
     ``stamp=True`` adds an ``(n_slots, 4) int32`` numpy event buffer:
     slot ``i`` writes ``(stage_id, start, size, i)`` into row ``i``. The
@@ -630,8 +832,7 @@ def dag_walk(
         raise ValueError(f"dag_walk: unsupported device {device}")
     if len({s.name for s in stages}) != len(stages):
         raise ValueError("duplicate stage names")
-    return _walk_cuda(stages, operands, values, table, tile, table_key,
-                      _dev_table, stamp)
+    return _walk_cuda(stages, operands, values, table, tile, stamp)
 
 
 def dag_walk_stagewise(
@@ -674,7 +875,6 @@ def dag_walk_sharded(
     values: dict[str, torch.Tensor],
     tables: np.ndarray,
     tile: int,
-    table_key: tuple | None = None,
 ) -> dict[str, torch.Tensor]:
     """Walk every shard's super-table and combine the per-shard outputs.
 
@@ -687,8 +887,7 @@ def dag_walk_sharded(
 
     Shard ``s+1``'s table is copied (non-blocking, from pinned memory)
     before shard ``s`` is walked, so the next transfer rides behind the
-    current walk. With ``table_key`` every shard table stays on the device
-    across calls.
+    current walk; every shard table stays in the device-table cache.
     """
     tables = np.ascontiguousarray(np.asarray(tables, dtype=np.int32))
     n_shards = tables.shape[0]
@@ -700,16 +899,13 @@ def dag_walk_sharded(
                     f"{n_shards}-shard walk would add it once per shard")
     device = _walk_device(operands, values)
 
-    def put(s: int) -> torch.Tensor:
-        return _device_table(tables[s], None if table_key is None
-                             else (table_key, s), device)
-
-    nxt = put(0) if n_shards else None
+    if n_shards:
+        _device_table(tables[0], device)
     shard_outs = []
     for s in range(n_shards):
-        cur, nxt = nxt, (put(s + 1) if s + 1 < n_shards else None)
-        shard_outs.append(dag_walk(stages, operands, values, tables[s], tile,
-                                   _dev_table=cur))
+        if s + 1 < n_shards:
+            _device_table(tables[s + 1], device)
+        shard_outs.append(dag_walk(stages, operands, values, tables[s], tile))
     combined: dict[str, torch.Tensor] = {}
     for k, s in enumerate(stages):
         if s.combine == "sum":

@@ -119,7 +119,7 @@ def qkv_project(params: Params, x: torch.Tensor, n_heads: int, n_kv: int,
 
 
 # ---------------------------------------------------------------------------
-# core attention variants (q: (B,H,Sq,dh); k,v: (B,KV,Skv,dh))
+# core attention variants (q: (B,H,Sq,dh); k: (B,KV,Skv,dh); v: (B,KV,Skv,dv))
 # ---------------------------------------------------------------------------
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,7 @@ import torch
 
 from ..core.admission import BATCH_SEP, merge_dags
 from ..core.dag import DEP_ELEMENTWISE, DEP_FULL, PipelineDAG, Stage, StageDep
-from ..core.device_schedule import build_dag_tables_cached, dag_signature
+from ..core.device_schedule import build_dag_tables_cached
 from ..core.executor import SchedulerConfig
 from ..core.preempt import (PreemptiveRunner, migrate_to_device,
                             resume_on_host, run_device_prefix)
@@ -127,12 +127,9 @@ def run_device_dag(
     — or one launch per stage when ``stagewise=True``. Returns ``(values,
     tables)``: stage outputs as tensors (row space) and the
     DeviceDagTables (tile units) walked. Repeat jobs of one shape hit the
-    host lowering memo and the walker's device-resident table cache, both
-    keyed by the ``dag_signature``.
+    host lowering memo (keyed by the ``dag_signature``) and the walker's
+    device-resident table cache (keyed by the table's content).
     """
-    key = dag_signature(
-        lowering.dag, 1, stage_techniques, n_shards=n_shards,
-        n_workers=n_workers, chunk_costs=chunk_costs, seed=seed)
     ddt = build_dag_tables_cached(
         lowering.dag, 1, stage_techniques, n_shards=n_shards,
         n_workers=n_workers, chunk_costs=chunk_costs, seed=seed)
@@ -145,8 +142,7 @@ def run_device_dag(
                                  lowering.values, rows[0], lowering.tile)
     else:
         out = dag_walk_sharded(lowering.stages, lowering.operands,
-                               lowering.values, rows, lowering.tile,
-                               table_key=("devdag", lowering.tile, key))
+                               lowering.values, rows, lowering.tile)
     return out, ddt
 
 
@@ -548,14 +544,11 @@ def cc_iteration_device(G: torch.Tensor, c: torch.Tensor, n_shards: int = 1,
     """
     n = G.shape[0]
     dag, stages, operands = cc_iteration_lowering(n, tile_r, tile_c)
-    key = dag_signature(dag, tile_r, CC_TECHNIQUES, n_shards=n_shards,
-                        n_workers=4)
     ddt = build_dag_tables_cached(dag, tile_r, CC_TECHNIQUES, n_shards=n_shards,
                                   n_workers=4)
     c = c.to(device=G.device, dtype=torch.float32).contiguous()
     values = {"G": G, "c_col": c, "c_row": c}
-    return dag_walk_sharded(stages, operands, values, ddt.tables, tile_r,
-                            table_key=("cc_iteration", key))
+    return dag_walk_sharded(stages, operands, values, ddt.tables, tile_r)
 
 
 # ------------------------------------------------ mid-flight migration

@@ -127,3 +127,35 @@ def test_entry_points_default_to_cuda():
     for fn in (tapps.linear_regression_device, tapps.recommendation_device,
                tapps.linreg_device_lowering, tapps.recommendation_device_lowering):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_smoke_recommendation_tie_band_counts_near_ties_and_fails_a_wrong_sum():
+    """``chip_smoke.py``'s recommendation agreement on a small oracle. The
+    oracle's best is the numpy oracle's; the port's walk agrees; a pick
+    whose float64 score lies within the tie band of the best counts, one
+    twice the band below does not; and the scores on item norms that miss
+    one 64-row tile (the control) fail ``REC_AGREEMENT``."""
+    from test_torch_rwkv import chip_smoke
+
+    smoke = chip_smoke()
+    users, items = 8192, 256
+    oracle = smoke.RecOracle(users, items, "cpu")
+    assert np.array_equal(oracle.best.numpy(), tapps.recommendation_oracle(users, items))
+    assert oracle.agreement(oracle.best) == (1.0, 1.0)
+
+    low = tapps.recommendation_device_lowering(users, items, device="cpu")
+    walked, _ = tapps.run_device_dag(low)
+    assert oracle.agreement(walked["scores"])[0] >= smoke.REC_AGREEMENT
+
+    pick = oracle.best.clone()
+    near, far = torch.tensor([0]), torch.tensor([1])
+    for u, factor in ((near, 0.5), (far, 2.0)):
+        other = (oracle.best[u] + 1) % items
+        pick[u] = other
+        oracle.s[u, other] = oracle.s[u, oracle.best[u]] - factor * oracle.tie_band(u, other)
+    assert oracle.agreement(pick) == (1.0 - 1 / users, 1.0 - 2 / users)
+
+    oracle = smoke.RecOracle(users, items, "cpu")
+    control = smoke.dropped_tile_scores(low.values["R"], walked["item_norms"],
+                                        walked["user_bias"])
+    assert oracle.agreement(control)[0] < smoke.REC_AGREEMENT

@@ -309,3 +309,78 @@ def test_gqa_attention_decode_writes_the_cache_in_place():
         tatt.gqa_attention(p, x, cfg, positions=torch.tensor([3]),
                            cross_kv=(cache["k"], cache["v"]))
 
+
+
+# ---------------------------------------------------------------------------
+# (c) a value width of its own (MLA: q/k nope + rope wide, v v_head_dim)
+# ---------------------------------------------------------------------------
+
+# (dh, dv): DeepSeek-V2-Lite's reduced config (nope 16 + rope 8, v 16) and
+# its full widths (128 + 64, v 128), at short sequences
+MLA_WIDTHS = [(24, 16), (192, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh,dv", MLA_WIDTHS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunked_attention_with_a_value_width_of_its_own(dh, dv, causal, dtype):
+    """K4's plain version (through ``chunked_attention``) against the
+    reference's jnp ``chunked_attention`` at dv != dh: the Pallas K4 takes
+    dv = dh only, so the reference's scan is the oracle."""
+    rng = np.random.default_rng(12)
+    jq, tq = _pair(_normal(rng, 2, 4, 64, dh), dtype)
+    jk, tk = _pair(_normal(rng, 2, 2, 64, dh), dtype)
+    jv, tv = _pair(_normal(rng, 2, 2, 64, dv), dtype)
+    want = jatt.chunked_attention(jq, jk, jv, causal=causal, q_block=16, kv_block=32)
+    got = tatt.chunked_attention(tq, tk, tv, causal=causal, q_block=16, kv_block=32)
+    assert got.dtype == tq.dtype and tuple(got.shape) == (2, 4, 64, dv)
+    _assert_close(got, want, F32_TOL if dtype == "float32" else BF16_TOL)
+    plain = flash_attention_plain(tq, tk, tv, causal=causal, tile_k=32)
+    assert torch.equal(plain, got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh,dv", MLA_WIDTHS)
+def test_banded_attention_with_a_value_width_of_its_own(dh, dv, dtype):
+    rng = np.random.default_rng(13)
+    jq, tq = _pair(_normal(rng, 1, 4, 96, dh), dtype)
+    jk, tk = _pair(_normal(rng, 1, 4, 96, dh), dtype)
+    jv, tv = _pair(_normal(rng, 1, 4, 96, dv), dtype)
+    want = jatt.banded_attention(jq, jk, jv, q_block=32)
+    got = tatt.banded_attention(tq, tk, tv, q_block=32)
+    assert tuple(got.shape) == (1, 4, 96, dv)
+    _assert_close(got, want, F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.parametrize("dh,dv", MLA_WIDTHS)
+def test_flash_plain_value_width_against_float64(dh, dv):
+    """The plain version at dv != dh, GQA and more keys than queries,
+    against the masked softmax in float64."""
+    rng = np.random.default_rng(14)
+    q = torch.from_numpy(_normal(rng, 1, 4, 48, dh))
+    k = torch.from_numpy(_normal(rng, 1, 2, 80, dh))
+    v = torch.from_numpy(_normal(rng, 1, 2, 80, dv))
+    got = flash_attention_plain(q, k, v, causal=True, tile_k=32)
+    kx, vx = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), kx.double()) / math.sqrt(dh)
+    mask = torch.arange(48)[:, None] >= torch.arange(80)[None, :]
+    w = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    want = torch.einsum("bhqk,bhkd->bhqd", w, vx.double())
+    torch.testing.assert_close(got.double(), want, atol=2e-6, rtol=0)
+
+
+def test_value_width_no_longer_refused_but_bad_heads_are():
+    """dv != dh used to raise ``ValueError`` in K4's shape check; a KV head
+    count that does not divide H, and k and v of different lengths or
+    heads, still raise."""
+    q, k = torch.zeros(1, 4, 8, 24), torch.zeros(1, 2, 8, 24)
+    out = flash_attention(q, k, torch.zeros(1, 2, 8, 16))
+    assert tuple(out.shape) == (1, 4, 8, 16)
+    for impl in (tatt.chunked_attention, tatt.banded_attention):
+        assert tuple(impl(q, k, torch.zeros(1, 2, 8, 16)).shape) == (1, 4, 8, 16)
+    with pytest.raises(ValueError, match="KV must divide H"):
+        flash_attention(q, torch.zeros(1, 3, 8, 24), torch.zeros(1, 3, 8, 16))
+    with pytest.raises(ValueError, match="two equal"):
+        flash_attention(q, k, torch.zeros(1, 2, 6, 16))
+    with pytest.raises(ValueError, match="two equal"):
+        flash_attention(q, k, torch.zeros(1, 1, 8, 16))

@@ -372,20 +372,24 @@ def test_inner_steps_without_an_inner_loop_launch_nothing(cuda):
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
+# every (dh, dv) the kernel is built for (kernels/flash_attention.py:WIDTHS)
+FLASH_WIDTHS = [(16, 16), (64, 64), (112, 112), (128, 128), (192, 128)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", [16, 64, 112, 128])
+@pytest.mark.parametrize("dh,dv", FLASH_WIDTHS)
 @pytest.mark.parametrize("group", [1, 4, 7])
-def test_flash_attention_matches_plain(cuda, dtype, causal, dh, group):
+def test_flash_attention_matches_plain(cuda, dtype, causal, dh, dv, group):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
     gen = torch.Generator(device=cuda)
     gen.manual_seed(dh * 10 + group)
-    b, kv, s = 2, 2, 200  # 200 is no multiple of the 64-row tiles
+    b, kv, s = 2, 2, 200  # 200 is no multiple of the 64- or 128-row tiles
     q = torch.randn((b, kv * group, s, dh), generator=gen, device=cuda).to(dtype)
     k = torch.randn((b, kv, s, dh), generator=gen, device=cuda).to(dtype)
-    v = torch.randn((b, kv, s, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, kv, s, dv), generator=gen, device=cuda).to(dtype)
     before = _build.FLASH_ATTENTION.launches["flash_attention"]
     got = flash_attention(q, k, v, causal=causal, tile_k=64)
     torch.cuda.synchronize()
@@ -413,8 +417,137 @@ def test_flash_attention_strided_views_and_offset(cuda):
         torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
     with pytest.raises(ValueError, match="dh in"):
         flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match=r"\(dh, dv\) one of"):
+        flash_attention(q, k, v[..., :48])
     with pytest.raises(ValueError, match="one dtype"):
         flash_attention(q, k.bfloat16(), v)
+
+
+def test_flash_attention_bf16_runs_on_tensor_cores(cuda):
+    """The bf16 kernel's SASS issues Hopper warpgroup products (HGMMA); the
+    fp32 kernel's issues none (fp32 FMA, no TF32)."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    _build.FLASH_ATTENTION._load()
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    assert tool, "cuobjdump not found beside nvcc"
+    sass = subprocess.run([tool, "-sass", str(_build.FLASH_ATTENTION.library)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)
+    wgmma = [f for f in funcs if "flash_wgmma" in f.split("\n", 1)[0]]
+    fp32 = [f for f in funcs if "flash_fwd" in f.split("\n", 1)[0]]
+    assert len(wgmma) == 5 and len(fp32) == 5
+    assert all("HGMMA" in f for f in wgmma)
+    assert not any("HGMMA" in f or "HMMA" in f for f in fp32)
+
+
+def test_flash_attention_mla_widths_against_float64(cuda):
+    """(dh 192, dv 128), DeepSeek-V2-Lite's MLA widths, bf16 and causal,
+    against a float64 oracle within the smoke's per-entry limit:
+    2^-8 (|o| + sum w|v|) + 2^-16 sum w|v|."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    b, h, s = 1, 4, 384
+    q, k = (torch.randn((b, h, s, 192), generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    v = torch.randn((b, h, s, 128), generator=gen, device=cuda).bfloat16()
+    got = flash_attention(q, k, v, causal=True)
+    assert tuple(got.shape) == (b, h, s, 128)
+    sc = (q.double() @ k.double().transpose(-1, -2)) / math.sqrt(192)
+    mask = torch.arange(s, device=cuda)[:, None] >= torch.arange(s, device=cuda)[None, :]
+    w = torch.softmax(sc.masked_fill(~mask, -1e30), dim=-1)
+    o = w @ v.double()
+    wv = w @ v.double().abs()
+    lim = 2.0 ** -8 * (o.abs() + wv) + 2.0 ** -16 * wv
+    assert bool(((got.double() - o).abs() <= lim).all())
+
+
+def _linreg_and_rec(cuda, units):
+    return (tapps.linreg_device_lowering(64 * units, 9, device=cuda),
+            tapps.recommendation_device_lowering(64 * units, 64, device=cuda))
+
+
+@pytest.mark.parametrize("units", [1, 1100])
+def test_walker_groups_at_odd_slot_counts(cuda, units):
+    """A stage of one slot, and one of 1,100 slots (groups of 3: the last
+    holds 2), against the plain version; stagewise equals fused."""
+    for low in _linreg_and_rec(cuda, units):
+        rows = _rows(low, "GSS")[0]
+        plan = twalk.fold_plan(low.stages, rows)
+        assert set(plan.group_size.values()) == {1 if units == 1 else 3}
+        got = twalk.dag_walk(low.stages, low.operands, low.values, rows, low.tile)
+        want = twalk.dag_walk_plain(low.stages, low.operands, low.values, rows, low.tile)
+        for k in got:
+            if k == "scores":
+                assert torch.equal(got[k], tapps.scores_plain(
+                    low.values["R"], got["item_norms"], got["user_bias"]))
+            else:
+                _close_sum(got[k], want[k], k)
+        sw = twalk.dag_walk_stagewise(low.stages, low.operands, low.values, rows,
+                                      low.tile)
+        for k in got:
+            assert torch.equal(sw[k], got[k]), k
+
+
+@pytest.mark.parametrize("num_cols", [126, 201])
+def test_linreg_syrk_in_several_passes(cuda, num_cols):
+    """Past d = 124 the syrk body's 4 x 4 blocks take several passes over
+    a piece's tiles (d = 200: five); the walk still matches the plain one."""
+    low = tapps.linreg_device_lowering(64 * 40, num_cols, device=cuda)
+    rows = _rows(low, "GSS")[0]
+    got = twalk.dag_walk(low.stages, low.operands, low.values, rows, low.tile)
+    want = twalk.dag_walk_plain(low.stages, low.operands, low.values, rows, low.tile)
+    for k in got:
+        _close_sum(got[k], want[k], k)
+
+
+def test_linreg_wider_than_the_program_launches_nothing(cuda):
+    low = tapps.linreg_device_lowering(128, twalk.LINREG_MAX_D + 2, device=cuda)
+    before = _launches()
+    with pytest.raises(ValueError, match="at most 256"):
+        twalk.dag_walk(low.stages, low.operands, low.values, _rows(low, "GSS")[0],
+                       low.tile)
+    assert _launches() == before
+
+
+def test_batched_walk_with_a_group_across_a_barrier(cuda):
+    """Member 1's ``item_norms`` has 301 slots before member 0's ``scores``
+    barrier and 299 after it, so its group of ordinals 300-301 is folded in
+    two pieces (the second continues the first's stored partial). The
+    member stays bitwise equal to its lowering walked alone."""
+    lows = [tapps.recommendation_device_lowering(64 * 600, 64, seed=s, device=cuda)
+            for s in (1, 2)]
+    merged = tapps.merge_device_lowerings(lows)
+    sid = {s.name: k for k, s in enumerate(merged.stages)}
+
+    def slots(name, tiles):
+        return [(sid[name], 64 * t, 64) for t in tiles]
+
+    table = np.array(
+        slots("item_norms#0", range(600)) + slots("user_bias#0", range(600))
+        + slots("item_norms#1", range(301)) + slots("scores#0", range(600))
+        + slots("item_norms#1", range(301, 600)) + slots("user_bias#1", range(600))
+        + slots("scores#1", range(600)), dtype=np.int32)
+    plan = twalk.fold_plan(merged.stages, table)
+    assert plan.pieces[:, 4].sum() == 1  # one continued piece
+    got = twalk.dag_walk(merged.stages, merged.operands, merged.values, table, 64)
+    lone = lows[1]
+    lsid = {s.name: k for k, s in enumerate(lone.stages)}
+    single = np.array([(lsid[n], 64 * t, 64) for n in ("item_norms", "user_bias",
+                                                        "scores") for t in range(600)],
+                      dtype=np.int32)
+    alone = twalk.dag_walk(lone.stages, lone.operands, lone.values, single, 64)
+    for k in alone:
+        assert torch.equal(got[f"{k}#1"], alone[k]), k
+    want = twalk.dag_walk_plain(merged.stages, merged.operands, merged.values, table, 64)
+    for k in ("item_norms#0", "item_norms#1"):
+        _close_sum(got[k], want[k], k)
 
 
 def test_model_prefill_on_card_matches_cpu(cuda):

@@ -221,12 +221,16 @@ def test_device_table_cache():
     twalk.clear_device_table_cache()
     table = np.array([[0, 0, 4], [0, 4, 4]], dtype=np.int32)
     cpu = torch.device("cpu")
-    a = twalk._device_table(table, ("k",), cpu)
-    b = twalk._device_table(table, ("k",), cpu)
-    assert a is b and a.dtype == torch.int32
-    twalk._device_table(table + 1, ("k",), cpu)  # same key, new content
-    twalk._device_table(table, None, cpu)        # unkeyed: not cached
+    a = twalk._device_table(table, cpu)
+    b = twalk._device_table(table, cpu)
+    assert a is b and a.table.dtype == torch.int32
+    assert torch.equal(a.table, torch.from_numpy(table)) and a.plans == {}
+    twalk._device_table(table + 1, cpu)  # new content: its own entry
     assert twalk.device_table_cache_stats() == {"hits": 1, "misses": 2, "size": 2}
+    for k in range(twalk._DEVICE_TABLE_CACHE_SIZE):  # the oldest entries go first
+        twalk._device_table(table + 2 + k, cpu)
+    assert twalk.device_table_cache_stats()["size"] == twalk._DEVICE_TABLE_CACHE_SIZE
+    assert twalk._device_table(table, cpu) is not a
     twalk.clear_device_table_cache()
     assert twalk.device_table_cache_stats() == {"hits": 0, "misses": 0, "size": 0}
 
