@@ -89,8 +89,8 @@ CC_SCALE, CC_SMALL_N = 14, 4_096
 TILE = 64
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) flop/s,
-# bf16 dense tensor-core flop/s
-PEAK_BYTES, PEAK_FP32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+# bf16 and TF32 dense tensor-core flop/s
+PEAK_BYTES, PEAK_FP32, PEAK_BF16, PEAK_TF32 = 3.35e12, 67e12, 989e12, 495e12
 
 # A sum's kernel and plain versions add the same terms in a different order
 # (sequential FMA vs PyTorch's reduction), so they agree to float32 rounding,
@@ -132,7 +132,13 @@ MOE_ARCH, MOE_TOKENS, MOE_SKEW = "qwen2-moe-a2.7b", 4_096, 1.2
 # sum|terms| carried through silu(g) * u (|silu'| <= 1.1) and wo, plus
 # 4 eps of |silu(g) * u| for the gating's own roundings (exp, add, divide,
 # multiply). Against the float64 oracle the kernel takes the limit; against
-# the plain version both sides round, so twice it.
+# the plain version both sides round, so twice it. That limit carries the
+# first product's limit through wo as if every h entry erred with one sign,
+# which is sqrt(f) too wide for roundings of either sign: one TF32 product
+# (11-bit operands) stays inside it. So the slabs are also held to the
+# limit with that part added as roundings add, eps * sqrt(d) *
+# sqrt(B^2 @ wo^2) (`moe_limits`); a one-TF32-product control on the same
+# inputs must fail it, where the 3xTF32 kernel passes.
 SILU_SLOPE = 1.1
 BATCH = 8
 B_LIN_ROWS, B_REC_USERS = 131_072, 8_192
@@ -193,6 +199,7 @@ REDESIGNED = frozenset({
     "dag_walk[linreg]", "dag_walk[recommendation]", "dag_walk[linreg, batched x8]",
     "dag_walk[recommendation, batched x8]", "dag_walk[linreg, seeded]",
     "dag_walk[recommendation, seeded]", "flash_attention", "flash_attention[dh 112, Zamba2]",
+    "dag_walk[moe.experts]", "dag_walk[cc_iteration]",
 })
 MIGRATIONS = (
     ("linreg", "host_to_device", LIN_UNITS + 128),
@@ -387,10 +394,11 @@ def timed(fn, reps: int, warmup: int = 1) -> float:
 
 
 def walk_device_ms(fn, reps: int = 5):
-    """Device milliseconds of ``fn()``'s walker launches per call, by
-    ``torch.profiler``: the kernel's own time, without the host's enqueue,
-    which the CUDA-event ``ms`` also holds. "not measured" where the
-    profiler reports no walker row."""
+    """Device milliseconds of a walker launch of ``fn()`` (which launches
+    the walker once), by ``torch.profiler``: the kernel's own time, without
+    the host's enqueue, which the CUDA-event ``ms`` also holds; the mean
+    over the launches the profiler recorded, which can be fewer than
+    ``reps``. "not measured" where the profiler reports no walker row."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -405,7 +413,7 @@ def walk_device_ms(fn, reps: int = 5):
             if e.device_type == DeviceType.CUDA and "walk_kernel" in e.key]
     if not rows:
         return "not measured"
-    return sum(e.self_device_time_total for e in rows) / 1e3 / reps
+    return sum(e.self_device_time_total for e in rows) / 1e3 / sum(e.count for e in rows)
 
 
 def walk_stages(low, rows, values: dict) -> dict:
@@ -414,6 +422,35 @@ def walk_stages(low, rows, values: dict) -> dict:
     each stage."""
     return {st.name: walk_device_ms(solo_walk(low, rows, st.name, values)[0])
             for st in low.stages}
+
+
+def moe_limits(x, wi, wo) -> tuple:
+    """One MoE slab's float64 oracle and each entry's limits (see
+    SILU_SLOPE): ``(ref, lim, lim_rss)`` for ``x (C, d)``, ``wi (d, 2f)``
+    and ``wo (f, d)`` in float64."""
+    import torch.nn.functional as F
+
+    d, f = x.shape[1], wo.shape[0]
+    h, A = x @ wi, x.abs() @ wi.abs()
+    s, u = F.silu(h[:, :f]), h[:, f:]
+    a = s * u
+    B = SILU_SLOPE * u.abs() * A[:, :f] + s.abs() * A[:, f:]
+    own = (math.sqrt(f) + 4) * (a.abs() @ wo.abs())
+    return (a @ wo, EPS32 * (own + math.sqrt(d) * (B @ wo.abs())),
+            EPS32 * (own + math.sqrt(d) * ((B * B) @ (wo * wo)).sqrt()))
+
+
+def moe_one_tf32(x, wi, wo):
+    """One MoE slab with each product taken once in TF32 (operands rounded
+    to 11 bits, products and sums in fp32): the control that the limit
+    must catch."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ref import tf32_round
+
+    f = wo.shape[0]
+    h = tf32_round(x) @ tf32_round(wi)
+    return tf32_round(F.silu(h[:, :f]) * h[:, f:]) @ tf32_round(wo)
 
 
 def bound_ms(n_bytes: float, flops: float, peak: float = PEAK_FP32) -> tuple[float, str]:
@@ -437,6 +474,26 @@ def scan_bound(n_bytes: float, work, q_max: int) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_chunk=q, flops=flops, exps=exps, bytes=n_bytes)
+
+
+def walk_sass_has(program: str, word: str) -> bool:
+    """Whether the SASS of the walker kernel of ``program`` (csrc/dag_walk.cu's
+    walk_kernel<program>) holds ``word``, by ``cuobjdump -sass``."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    require(bool(tool), "cuobjdump not found beside nvcc")
+    sass = subprocess.run([tool, "-sass", str(_build.DAG_WALK.library)],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    funcs = [f for f in re.split(r"\n\s*Function : ", sass)
+             if "walk_kernel" in f.split("\n", 1)[0]
+             and f"{len(program)}{program}E" in f.split("\n", 1)[0]]
+    require(len(funcs) == 1, f"walk_kernel<{program}> not found in the SASS")
+    return word in funcs[0]
 
 
 def card_line() -> str:
@@ -492,22 +549,28 @@ def moe_phase(dev, walk_inputs) -> dict:
     got, want = walk(), plain()
     require(torch.equal(got, vals["experts"]), "moe walk differs from the main path's")
 
-    # float64 oracle and each entry's limit, one expert at a time
+    # float64 oracle and each entry's limits, one expert at a time; the
+    # control: each product taken once in TF32
     ref = torch.empty((E * C, d), dtype=torch.float64, device=dev)
-    lim = torch.empty_like(ref)
+    lim, lim_rss = torch.empty_like(ref), torch.empty_like(ref)
+    one_tf32 = torch.empty((E * C, d), dtype=torch.float32, device=dev)
     for g in range(E):
-        x64, wi64, wo64 = xdisp[g * C:(g + 1) * C].double(), wi[g].double(), wo[g].double()
-        h, A = x64 @ wi64, x64.abs() @ wi64.abs()
-        s, u = F.silu(h[:, :f]), h[:, f:]
-        a = s * u
-        B = SILU_SLOPE * u.abs() * A[:, :f] + s.abs() * A[:, f:]
-        ref[g * C:(g + 1) * C] = a @ wo64
-        lim[g * C:(g + 1) * C] = EPS32 * ((math.sqrt(f) + 4) * (a.abs() @ wo64.abs())
-                                          + math.sqrt(d) * (B @ wo64.abs()))
-        del x64, wi64, wo64, h, A, s, u, a, B
+        sl = slice(g * C, (g + 1) * C)
+        ref[sl], lim[sl], lim_rss[sl] = moe_limits(xdisp[sl].double(), wi[g].double(),
+                                                   wo[g].double())
+        one_tf32[sl] = moe_one_tf32(xdisp[sl], wi[g], wo[g])
     bad_o, err_o, share_o = beyond(got, ref, lim)
     require(bad_o == 0, f"moe walk vs float64: {bad_o} entries beyond the limit, "
                         f"max abs err {err_o:.3g}")
+    bad_r, _, share_r = beyond(got, ref, lim_rss)
+    require(bad_r == 0, f"moe walk vs float64: {bad_r} entries beyond the limit "
+                        "with the first product's part added as roundings add")
+    ctl_bad, _, ctl_share = beyond(one_tf32, ref, lim_rss)
+    require(ctl_bad > 0, "moe: one TF32 product a slab passed the limit the "
+                         "3xTF32 walk is held to")
+    ctl_share_wide = beyond(one_tf32, ref, lim)[2]
+    del one_tf32, lim_rss
+    require(walk_sass_has("Moe", "HGMMA"), "walk_moe issues no HGMMA (wgmma)")
     bad_p, err_p, share_p = beyond(got, want, 2 * lim)
     require(bad_p == 0, f"moe walk vs plain: {bad_p} entries beyond twice the limit, "
                         f"max abs err {err_p:.3g}")
@@ -533,9 +596,13 @@ def moe_phase(dev, walk_inputs) -> dict:
 
     kept = int(low.meta["expert_tokens"].sum())
     # what this run's data needs: the kept token rows through both products,
-    # every weight read once, every output row written once
-    moe_flops = 6 * kept * d * f + 4 * kept * f
+    # every weight read once, every output row written once. The products
+    # take the least of fp32 FMA and three TF32 products a multiply-add
+    # (3xTF32, the kernel's arithmetic); the gating runs on fp32 units.
+    mm_flops, gate_flops = 6 * kept * d * f, 4 * kept * f
     moe_bytes = 4 * (kept * d + E * d * 2 * f + E * f * d + E * C * d) + 12 * len(rows)
+    t_ops = min(mm_flops / PEAK_FP32, 3 * mm_flops / PEAK_TF32) + gate_flops / PEAK_FP32
+    t_bytes = moe_bytes / PEAK_BYTES
     full_flops = 6 * E * C * d * f
     ms = timed(walk, 5)
     emit("moe", arch=MOE_ARCH, tokens=MOE_TOKENS, skew=MOE_SKEW, experts=E, top_k=k,
@@ -544,19 +611,26 @@ def moe_phase(dev, walk_inputs) -> dict:
          device_lowering_seconds=t2 - t1, walk_and_combine_seconds=t3 - t2,
          tol="eps32 * ((sqrt(f) + 4) * |a| @ |wo| + sqrt(d) * B @ |wo|), "
              "B = 1.1 |u| (|x| @ |wi_g|) + |silu(g)| (|x| @ |wi_u|); x2 vs plain",
-         vs_float64=[err_o, share_o], vs_plain=[err_p, share_p],
-         combined_vs_plain=[err_y, share_y],
-         bound_ms_full_slabs=full_flops / PEAK_FP32 * 1e3)
+         tol_rss="eps32 * ((sqrt(f) + 4) * |a| @ |wo| + sqrt(d) * sqrt(B^2 @ wo^2))",
+         vs_float64=[err_o, share_o], vs_float64_rss_share=share_r,
+         vs_plain=[err_p, share_p], combined_vs_plain=[err_y, share_y],
+         one_tf32_control=dict(entries_beyond_rss_limit=ctl_bad,
+                               worst_share_of_rss_limit=ctl_share,
+                               worst_share_of_limit=ctl_share_wide),
+         walk_sass_has_hgmma=True,
+         bound_ms_full_slabs=3 * full_flops / PEAK_TF32 * 1e3)
     return dict(
         name="dag_walk[moe.experts]", route="cuda", source="src/repro_torch/csrc/dag_walk.cu",
         replaces="src/repro/kernels/dag_walk.py:218 (MoE program, "
                  "src/repro/vee/ml_apps.py:301)",
         launches=launches["walk_moe"], max_abs_err=err_p, max_abs_err_vs_float64=err_o,
-        ms=ms, plain_ms=timed(plain, 1, warmup=0), library_ms=timed(library, 5),
+        ms=ms, device_ms=walk_device_ms(walk), plain_ms=timed(plain, 1, warmup=0),
+        library_ms=timed(library, 5),
         library_call="torch.bmm(x, wi) -> silu(g) * u -> torch.bmm(., wo) on (E, C, .)",
         shapes=f"x ({E * C}, {d}), wi ({E}, {d}, {2 * f}), wo ({E}, {f}, {d}) f32, "
                f"{len(rows)} slots, tile {C}, {kept} kept rows",
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(moe_bytes, moe_flops))))
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def batched_phase(dev, walk_inputs) -> list[dict]:
@@ -716,7 +790,8 @@ def cc_iteration_phase(G, c, step) -> dict:
 
     from repro_torch.core.device_schedule import build_dag_tables_cached
     from repro_torch.kernels import _build
-    from repro_torch.kernels.dag_walk import dag_walk, dag_walk_plain
+    from repro_torch.kernels.dag_walk import (dag_walk, dag_walk_plain,
+                                              dag_walk_stagewise, fold_plan, sync_flags)
     from repro_torch.kernels.ref import cc_propagate_ref
     from repro_torch.vee import apps
 
@@ -750,10 +825,18 @@ def cc_iteration_phase(G, c, step) -> dict:
     got, ref = walk(), plain()
     for name in got:
         require(torch.equal(got[name], ref[name]), f"cc_iteration walk {name} != plain")
+    # stagewise: `changed` alone reads the labels of an earlier launch (its
+    # owner body); the same bits
+    sw = dag_walk_stagewise(stages, operands, values, table, 256)
+    for name in got:
+        require(torch.equal(sw[name], ref[name]), f"cc_iteration stagewise {name} != plain")
     slots = {s.name: int(((table[:, 0] == i) & (table[:, 2] > 0)).sum())
              for i, s in enumerate(stages)}
+    plan = fold_plan(stages, table)
     emit("cc_iteration", n=n, tiles=[256, 1024], inner_steps=stages[0].inner,
-         slots=slots, changed=flips, bitwise=True,
+         slots=slots, changed=flips, bitwise=True, stagewise_bitwise=True,
+         barriers=int(plan.flags.sum()), counted_slots=int(plan.counts.sum()),
+         barriers_without_count_fusion=int(sync_flags(stages, table).sum()),
          runs={str(k): v for k, v in runs.items()})
     cc_bytes = 4 * (n * n + 3 * n + 1) + 12 * len(table)
     return dict(
@@ -762,7 +845,7 @@ def cc_iteration_phase(G, c, step) -> dict:
         replaces="src/repro/kernels/dag_walk.py:218 (CC-iteration program, "
                  "tests/test_device_dag.py:193)",
         launches=runs[1]["launches"]["walk_cc"], max_abs_err=max_err(got["propagate"], want),
-        ms=timed(walk, 20), plain_ms=timed(plain, 3),
+        ms=timed(walk, 20), device_ms=walk_device_ms(walk), plain_ms=timed(plain, 3),
         library_ms=timed(lambda: torch.maximum((G * c).amax(1), c), 10),
         library_call="torch.maximum((G * c).amax(1), c) (propagate only)",
         shapes=f"G ({n}, {n}) f32, {len(table)} slots, tiles 256 x 1024",

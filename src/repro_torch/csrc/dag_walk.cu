@@ -19,9 +19,10 @@
 // edges alike (guarantee 1 of the Pallas walker). In each segment:
 //   * every CTA walks the segment's `concat` slots (and the int `sum` of
 //     the CC program) in table order. A `concat` stage's rows are written
-//     once each, one warp per row; the CC count has one owner, which adds
-//     each slot's flips in slot order. Producer outputs are read with
-//     L1-bypassing loads (__ldcg);
+//     once each, one warp per row; the CC count is taken with integer
+//     atomics. Producer outputs are read with L1-bypassing loads (__ldcg).
+//     The MoE program takes the segment's slots all at once instead (its
+//     note below);
 //   * a float `sum` stage runs in two phases. Phase 1, partials: its
 //     slots are cut into groups of g consecutive stage-local ordinals
 //     (ordinal k in group k / g), g set by the stage's slot count alone
@@ -81,29 +82,46 @@
 // no order, so nothing may carry between them. Here a slot's inner steps
 // run inside the slot: the warp that owns a row loops over the column
 // tiles in ascending order with 16-byte loads and keeps the running max
-// in a register, started from the row's own label. `changed` has one
-// owner (warp 0 of CTA 0), which counts a slot's flips and adds them in
-// slot order; the `rows` edge is covered by the barrier before the first
-// `changed` slot after `propagate` slots. Max and an int32 count are
-// exact, so the result is bitwise the plain walk's. Bound: bytes, G read
-// once (4 n^2: 1 GiB at n = 16,384, 0.32 ms at 3.35 TB/s), as K2.
+// in a register, started from the row's own label. `changed` reads
+// `propagate` by rows, which would need a grid barrier before each
+// `changed` slot (64 a launch at n = 16,384). Instead the plan
+// (kernels/dag_walk.py:count_fusion) marks each `propagate` slot whose
+// rows' `changed` slot lies later in the same table: the warp that writes
+// a row of it adds the row's flip to the count with an integer atomic,
+// and that `changed` slot does nothing, so the launch has no barrier at
+// all. A `changed` slot whose rows were written before the launch (a
+// stagewise walk, another shard) keeps its owner body (warp 0 of CTA 0,
+// one atomic a slot). Max and an int32 count are exact in any order, so
+// the result is bitwise the plain walk's. Bound: bytes, G read once
+// (4 n^2: 1 GiB at n = 16,384, 0.32 ms at 3.35 TB/s), as K2.
 //
 // The MoE program (repro/vee/ml_apps.py:moe_device_lowering): a slot is
 // expert g's fixed-capacity slab, C rows of the dispatch buffer, and the
-// body is out = (silu(x wi_g[:, :f]) * (x wi_g[:, f:])) wo_g in fp32. At
-// Qwen1.5-MoE-A2.7B's widths (E = 60, C = 342, d = 2048, f = 1408) that is
-// 6 E C d f = 3.55e11 flop against 2.4 GB of bytes: operations-bound
-// (5.3 ms at 67 TFLOP/s). The weights are indexed by slot (`tile` block
-// index), never repeated along the rows. One slab's gated h (C x f) is
-// 1.9 MB, far past shared memory, so the body runs in two phases over the
-// whole grid: phase 1 writes h into a scratch buffer, a grid barrier,
-// phase 2 computes out from it, and a second barrier before the next slot
-// reuses the scratch. Every CTA takes 64 x 64 output tiles by grid stride
-// (6 x 44 in phase 1, 6 x 32 in phase 2 at full width), so every CTA
-// works, where a CTA owning whole rows would keep 43 busy. Each output is
-// one thread's fmaf chain over k in ascending order: deterministic, no
-// atomics; silu uses IEEE expf and correctly rounded division. This is
-// the simple tiled fp32 kernel; wgmma and TMA are later work.
+// body is out = (silu(x wi_g[:, :f]) * (x wi_g[:, f:])) wo_g, accurate
+// to fp32. At Qwen1.5-MoE-A2.7B's widths (E = 60, C = 342, d = 2048,
+// f = 1408) that is 6 E C d f = 3.55e11 flop against 2.4 GB of bytes.
+// fp32 FMA alone would take 5.3 ms at 67 TFLOP/s, so the products run on
+// the tensor cores as 3xTF32: each fp32 operand is split into big =
+// tf32(a) and small = tf32(a - big), and small b_big + big b_small + big
+// b_big, three TF32 products, keep about 21 bits of each product (one TF32
+// product keeps 11); at 495 TFLOP/s that is 2.2 ms for the full slabs.
+// TF32 wgmma reads both operands K-major from shared memory (A may come
+// from registers instead), so the weights, N-major in memory, are
+// transposed on their way into the split tiles. The weights are indexed
+// by slot (`tile` block index), never repeated along the rows. A slab's
+// gated h (C x f) is 1.9 MB, far past shared memory, so the launch runs
+// in two phases over every slab of the segment: phase 0 writes every
+// slab's h into one scratch buffer (E C f floats, the wrapper's), one
+// grid barrier, phase 1 computes every slab's out from it. 128 x 128
+// output tiles (3 x 22 a slab in phase 0, 3 x 16 in phase 1) go to the
+// CTAs by grid stride, so no CTA idles for a phase; the three M tiles of
+// a weight tile run side by side and read it from device memory about
+// once (the weights, 2.07 GB, set the bytes). In a CTA, two producer
+// warps copy and split (`produce`) while two consumer warpgroups run the
+// products (`consume`), through a ring of stages paced by mbarriers.
+// Each output is a fixed function of the inputs, no atomics; silu uses
+// IEEE expf and correctly rounded division. One CTA an SM (192 KB of
+// shared memory, 384 threads).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -131,6 +149,7 @@ struct Walk {
   const int* fold_inst;               // instances folded at a segment start
   const int* fold_ptr;                // (n_seg + 2): the last is the launch end
   const int* inst;                    // (n_inst, 4): sid, n_groups, offset, entries
+  const int* counts;                  // (n_slots) 1: the slot counts its rows, or null
   int n_seg;
   float* scratch;                     // every instance's (n_groups, entries)
   int* stamps;                        // (n_slots, 4) or null
@@ -216,6 +235,9 @@ struct Linreg {
     float* syrk;           // (d+1, d+2) sum output, or null
     int n, d;
   };
+
+  static constexpr bool WHOLE_SEGMENT = false;
+  static constexpr int BLOCK = THREADS, MIN_BLOCKS = 2;
 
   // Shared memory of a piece: two raw tiles (tile x d, the rows are
   // contiguous in X) and their y, filled with cp.async one slot ahead; then
@@ -424,6 +446,9 @@ struct Recommendation {
     int n_users, n_items;
   };
 
+  static constexpr bool WHOLE_SEGMENT = false;
+  static constexpr int BLOCK = THREADS, MIN_BLOCKS = 2;
+
   // item_norms: entry c sums R[:, c]^2. Thread t owns columns t + k
   // THREADS (k < COLS) of each 2,048-column chunk; RB rows of loads go out
   // at once (COLS * RB in flight), the rows in ascending order.
@@ -532,59 +557,263 @@ struct Recommendation {
 };
 
 // ------------------------------------------------------------------- moe
-constexpr int BM = 64, BN = 64, BK = 16, AP = BM + 4;  // AP: padded A rows
+// Tensor-core pieces, as in csrc/flash_attention.cu: no-swizzle K-major
+// tiles in shared memory (16-byte chunk c of row r at byte (c ROWS + r) 16),
+// wgmma descriptors over them, and cp.async copies with zero fill.
+constexpr int MT = 128;             // rows of an output tile: two warpgroups of 64
+constexpr int NT = 128;             // columns of an output tile: one wgmma's n
+constexpr int KT = 32;              // k of one stage: 8 chunks of 4 floats
+constexpr int TF = MT * KT;         // floats of one operand tile (NT * KT too)
+constexpr int CONSUMERS = 256;      // two warpgroups: the products
+constexpr int PRODUCERS = 128;      // one warpgroup: the copies and the split of B
+constexpr int SLOTS = 4;            // ring stages: raw A, split B (big, small)
+constexpr int AHEAD = 2;            // stages of copies in flight ahead of the split
+// registers a thread holds: 168 at launch (65,536 over 384 threads), then
+// in the producer / consumer warpgroups 128 x 72 + 256 x 208 <= 65,536
+constexpr int LAUNCH_REGS = 168, PRODUCER_REGS = 72, CONSUMER_REGS = 208;
 
-// One BM x BN tile of A (M x K, row-major, lda) times B (K x ldb,
-// row-major), k in ascending order. Column c of the shared B tile is global
-// column colA + c (c < BN/2) or colB + c - BN/2; a column at or past its
-// half's limit, a row at or past M and a k at or past K load as zero.
-// Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty*4 + i and shared
-// columns {2tx, 2tx+1, BN/2+2tx, BN/2+2tx+1}: acc[i][0..3]. CG reads A
-// with L1-bypassing loads (A written earlier in this launch).
-template <bool CG>
-__device__ void tile_gemm(const float* A, size_t lda, int m0, int M, int K,
-                          const float* B, size_t ldb, int colA, int limA,
-                          int colB, int limB, float* smem, float acc[4][4]) {
-  float* As = smem;             // [BK][AP], the A tile transposed
-  float* Bs = smem + BK * AP;   // [BK][BN]
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+// 16 bytes global -> shared, asynchronously; !valid writes zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// mbarriers of the ring: `full` completes when the producers have split a
+// stage, `empty` when the consumers are done with it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// wgmma shared-memory descriptor of a no-swizzle tile: start address,
+// leading (K-direction) and stride (M/N-direction) byte offsets between
+// neighbouring 8 x 16-byte core matrices.
+__device__ __forceinline__ uint64_t make_desc(const float* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4)
+         | ((uint64_t)(lbo >> 4) & 0x3FFF) << 16
+         | ((uint64_t)(sbo >> 4) & 0x3FFF) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads across the async product
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 128, fp32) (+)= A B: A tf32 in registers (the m64k8 fragment:
+// a0 (row, k), a1 (row + 8, k), a2 (row, k + 4), a3 (row + 8, k + 4), row
+// 16 warp + lane / 4, k lane % 4), B tf32 in shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// x rounded to TF32 (10 stored mantissa bits), to nearest, ties to even;
+// the low 13 bits are zero, so the tensor cores read it exactly. One
+// instruction (sm_90), bitwise what the bit-pattern rounding
+// (u + 0xFFF + (u >> 13 & 1)) & ~0x1FFF gives (kernels/ref.py:tf32_round).
+__device__ __forceinline__ float tf32_rne(float x) {
+  uint32_t r;
+  asm("cvt.rn.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// 3xTF32: a = big + small with big = tf32(a), small = tf32(a - big) (the
+// subtraction is exact), so a b = big b_big + big b_small + small b_big up
+// to 2^-21 of |a b|; the small * small product (2^-22) is left out.
+__device__ __forceinline__ void split4(float4 v, float4& big, float4& small) {
+  big = make_float4(tf32_rne(v.x), tf32_rne(v.y), tf32_rne(v.z), tf32_rne(v.w));
+  small = make_float4(tf32_rne(__fsub_rn(v.x, big.x)), tf32_rne(__fsub_rn(v.y, big.y)),
+                      tf32_rne(__fsub_rn(v.z, big.z)), tf32_rne(__fsub_rn(v.w, big.w)));
+}
+
+// One MT x NT output tile of A (M x K, row-major, lda: K-major) times B
+// (K x ldb, row-major: N-major), in fp32 by 3xTF32 on wgmma. Column c of
+// B's tile is global column colA + c (c < NT/2) or colB + c - NT/2; a
+// column at or past its half's limit, a row at or past M and a k at or
+// past K load as zero (K, the limits and the columns are multiples of 4).
+struct Operands {
+  const float* A;
+  size_t lda;
+  int m0, M, K;
+  const float* B;
+  size_t ldb;
+  int colA, limA, colB, limB;
+};
+
+// Shared memory of the MoE program: SLOTS x (raw A: TF floats in the
+// K-major chunk layout | B big | B small: TF each, K-major; B small holds
+// the raw B tile, KT x NT row-major, until the split), then the ring's
+// mbarriers.
+__device__ __forceinline__ float* slot_a(float* smem, int s) { return smem + s * 3 * TF; }
+__device__ __forceinline__ float* slot_b(float* smem, int s) { return smem + s * 3 * TF + TF; }
+constexpr int MOE_FLOATS = SLOTS * 3 * TF;
+
+// The producers (warps 8 to 11) for one tile: per KT stage, copy raw A
+// and raw B into the stage's ring slot with cp.async, AHEAD stages ahead
+// (B where its small tile goes); split B into big and small tf32 tiles,
+// transposed to K-major on the way (wgmma's transpose bits are for 16-bit
+// types only: four strided scalar reads from the raw tile, one 16-byte
+// store each for big and small, small once every producer has read the
+// raw tile); then arrive on the slot's `full`. `it0` counts the CTA's
+// stages before this tile (the ring's phase).
+__device__ __forceinline__ void produce(const Operands& o, int it0, float* smem,
+                                        uint64_t* full, uint64_t* empty) {
+  const int p = threadIdx.x - CONSUMERS, nk = (o.K + KT - 1) / KT;
+  // A chunks (row p, chunk j); B chunks (k row p / 32 + 4j, columns 4 q ..
+  // of q's half)
+  const int q = p % (NT / 4);
+  const bool lo = q < NT / 8;
+  const int gc = lo ? o.colA + 4 * q : o.colB + 4 * (q - NT / 8);
+  const bool a_ok = o.m0 + p < o.M, b_ok = gc < (lo ? o.limA : o.limB);
+  const float* a_src = o.A + (size_t)(a_ok ? o.m0 + p : 0) * o.lda;
+  const float* b_src = o.B + (size_t)(p / 32) * o.ldb + (b_ok ? gc : 0);
+  auto load = [&](int k) {
+    const int it = it0 + k, s = it % SLOTS;
+    if (it >= SLOTS) mbar_wait(empty + s, (it / SLOTS - 1) & 1);  // the slot is free
+    float* ra = slot_a(smem, s);
+    float* rb = slot_b(smem, s) + TF;
+    const int k0 = k * KT;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();  // the previous step (or slot) is done with smem
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK, gr = m0 + r, gk = k0 + kk;
-      float v = 0.f;
-      if (gr < M && gk < K) {
-        const float* p = A + (size_t)gr * lda + gk;
-        v = CG ? __ldcg(p) : __ldg(p);
-      }
-      As[kk * AP + r] = v;
+    for (int j = 0; j < TF / 4 / PRODUCERS; ++j) {
+      const bool ok = a_ok && k0 + 4 * j < o.K;
+      cp_async16(ra + 4 * (j * MT + p), ok ? a_src + k0 + 4 * j : o.A, ok);
     }
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      const int kk = e / BN, c = e % BN, gk = k0 + kk;
-      const bool lo = c < BN / 2;
-      const int gc = lo ? colA + c : colB + c - BN / 2;
-      Bs[kk * BN + c] = gk < K && gc < (lo ? limA : limB)
-                            ? __ldg(B + (size_t)gk * ldb + gc) : 0.f;
+#pragma unroll
+    for (int j = 0; j < TF / 4 / PRODUCERS; ++j) {
+      const int kk = p / 32 + 4 * j;
+      const bool ok = b_ok && k0 + kk < o.K;
+      cp_async16(rb + kk * NT + 4 * q, ok ? b_src + (size_t)(k0 + 4 * j) * o.ldb : o.B, ok);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(As + kk * AP + ty * 4);
-      const float2 b0 = *reinterpret_cast<const float2*>(Bs + kk * BN + 2 * tx);
-      const float2 b1 =
-          *reinterpret_cast<const float2*>(Bs + kk * BN + BN / 2 + 2 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b0.x, b0.y, b1.x, b1.y};
+  for (int k = 0; k < AHEAD; ++k) {
+    if (k < nk) load(k);
+    else cp_async_commit();
+  }
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait<AHEAD - 1>();
+    // stage k has landed for every producer; all are done splitting k - 1
+    asm volatile("bar.sync 1, %0;\n" :: "n"(PRODUCERS) : "memory");
+    const int it = it0 + k, s = it % SLOTS;
+    float4* cv = reinterpret_cast<float4*>(slot_b(smem, s));
+    const float* rb = slot_b(smem, s) + TF;
+    float4 small[TF / 4 / PRODUCERS];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int j = 0; j < TF / 4 / PRODUCERS; ++j) {  // B^T chunk (p, j): k 4j .. 4j + 3 of column p
+      float4 big;
+      split4(make_float4(rb[(4 * j) * NT + p], rb[(4 * j + 1) * NT + p],
+                         rb[(4 * j + 2) * NT + p], rb[(4 * j + 3) * NT + p]), big, small[j]);
+      cv[j * NT + p] = big;
     }
+    // every producer has read the raw tile: small takes its place
+    asm volatile("bar.sync 1, %0;\n" :: "n"(PRODUCERS) : "memory");
+#pragma unroll
+    for (int j = 0; j < TF / 4 / PRODUCERS; ++j) cv[TF / 4 + j * NT + p] = small[j];
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for the tensor cores
+    mbar_arrive(full + s);
+    if (k + AHEAD < nk) load(k + AHEAD);
+    else cp_async_commit();
   }
 }
+
+// The consumers (two warpgroups) for one tile, into total[64], the
+// m64n128 accumulator fragment of warpgroup threadIdx.x / 128: per stage,
+// wait for the slot's `full`, read this thread's A fragments from the raw
+// A tile and split them in registers (A from registers, so A is never
+// stored split), issue the stage's 12 products (small ones first) into acc
+// from zero, and once they are done add acc into total in fp32 with round
+// to nearest and arrive on the slot's `empty`. The tensor cores truncate
+// as they accumulate, so no chain is let grow longer than one stage. Each
+// output is a fixed function of the inputs.
+__device__ __forceinline__ void consume(int K, int it0, float* smem, uint64_t* full,
+                                        uint64_t* empty, float (&total)[64]) {
+  const int tid = threadIdx.x, lane = tid % 32, nk = (K + KT - 1) / KT;
+  // the A fragment's first row and k in the chunk layout (row r, k at
+  // float (k / 4 * MT + r) 4 + k % 4)
+  const int a_off = (64 * (tid / 128) + 16 * (tid / 32 % 4) + lane / 4) * 4 + lane % 4;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) total[i] = acc[i] = 0.f;
+  for (int k = 0; k < nk; ++k) {
+    const int it = it0 + k, s = it % SLOTS;
+    mbar_wait(full + s, (it / SLOTS) & 1);
+    const float* ra = slot_a(smem, s);
+    uint32_t a_big[KT / 8][4], a_small[KT / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float v = ra[a_off + ((2 * kk + u / 2) * MT + 8 * (u % 2)) * 4];
+        const float big = tf32_rne(v);
+        a_big[kk][u] = __float_as_uint(big);
+        a_small[kk][u] = __float_as_uint(tf32_rne(__fsub_rn(v, big)));
+      }
+    // a step's k offset adds to the descriptor's address field (shared
+    // addresses fit its 14 bits)
+    const uint64_t bb = make_desc(slot_b(smem, s), NT * 16, 128), bs = bb + TF * 4 / 16;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk) {  // k 8kk .. 8kk + 7: chunks 2kk, 2kk + 1
+      const uint64_t off = kk * 2 * NT * 16 / 16;
+      wgmma_tf32_rs(acc, a_small[kk], bb + off, kk);
+      wgmma_tf32_rs(acc, a_big[kk], bs + off, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk)
+      wgmma_tf32_rs(acc, a_big[kk], bb + kk * 2 * NT * 16 / 16, 1);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) total[i] = __fadd_rn(total[i], acc[i]);
+    mbar_arrive(empty + s);
+  }
+}
+
+// v as lane 0 has it: the compiler then knows it is the same in the warp,
+// so loops and branches on it hold no divergent path, where ptxas would
+// serialize the wgmma products. The walker's plan values are the same in
+// every thread anyway.
+__device__ __forceinline__ int uniform(int v) { return __shfl_sync(0xffffffffu, v, 0); }
 
 struct Moe {
   struct Args {
@@ -592,64 +821,113 @@ struct Moe {
     const float* wi;   // (E, d, 2f)
     const float* wo;   // (E, f, d)
     float* out;        // (E*C, d) concat output
-    float* h;          // (C, f) scratch: one slab's gated activations
+    float* h;          // (E*C, f) scratch: every slab's gated activations
     int rows, d, f;    // rows = E*C
   };
+
+  static constexpr bool WHOLE_SEGMENT = true;
+  static constexpr int BLOCK = CONSUMERS + PRODUCERS, MIN_BLOCKS = 1;
 
   static __device__ __forceinline__ float silu_mul(float g, float u) {
     return __fmul_rn(__fdiv_rn(g, __fadd_rn(1.f, expf(-g))), u);
   }
 
-  // experts: out[slab] = (silu(x wi[:, :f]) * (x wi[:, f:])) wo. Every CTA
-  // reaches both barriers, tiles or not.
-  static __device__ void experts(const Args& a, const Walk& w, int row0,
-                                 float* smem) {
-    const int C = w.tile, d = a.d, f = a.f, g = row0 / C;
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-    const float* x = a.x + (size_t)row0 * d;
-    const float* wi = a.wi + (size_t)g * d * 2 * f;
-    const float* wo = a.wo + (size_t)g * f * d;
-    float* out = a.out + (size_t)row0 * d;
-    const int tm = (C + BM - 1) / BM;
-    float acc[4][4];
-    // phase 1: gated column tiles of BN/2: h and its u half side by side
-    const int tn1 = (f + BN / 2 - 1) / (BN / 2);
-    for (int t = blockIdx.x; t < tm * tn1; t += gridDim.x) {
-      const int m0 = (t % tm) * BM, n0 = (t / tm) * (BN / 2);
-      tile_gemm<false>(x, d, m0, C, d, wi, 2 * (size_t)f, n0, f, f + n0,
-                       2 * f, smem, acc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const int r = m0 + ty * 4 + i, j = n0 + 2 * tx + p;
-          if (r < C && j < f) a.h[(size_t)r * f + j] = silu_mul(acc[i][p], acc[i][2 + p]);
-        }
+  // Tile (m0, n) of a slab at rows row0 .. row0 + C. Phase 0: gated column
+  // tiles of h, its g and u halves side by side in B's tile (accumulator
+  // columns c and c + 64). Phase 1: out = h wo. The fragment of consumer
+  // t holds entry i at row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2) and
+  // column 8 (i / 4) + 2 (t % 4) + i % 2 of its warpgroup's 64 x 128.
+  static __device__ void tile(int phase, const Args& a, int d, int f, int row0, int C,
+                              int m0, int n, int it0, bool producer, float* smem,
+                              uint64_t* full, uint64_t* empty) {
+    const bool p0 = phase == 0;
+    const int g = row0 / C, n0 = p0 ? n * (NT / 2) : n * NT;
+    const Operands o{p0 ? a.x + (size_t)row0 * d : a.h + (size_t)row0 * f,
+                     p0 ? (size_t)d : (size_t)f, m0, C, p0 ? d : f,
+                     p0 ? a.wi + (size_t)g * d * 2 * f : a.wo + (size_t)g * f * d,
+                     p0 ? 2 * (size_t)f : (size_t)d, n0, p0 ? f : d,
+                     p0 ? f + n0 : n0 + NT / 2, p0 ? 2 * f : d};
+    if (producer) {
+      produce(o, it0, smem, full, empty);
+      return;
     }
-    grid_barrier(w.barrier);
-    // phase 2: out = h wo
-    const int tn2 = (d + BN - 1) / BN;
-    for (int t = blockIdx.x; t < tm * tn2; t += gridDim.x) {
-      const int m0 = (t % tm) * BM, n0 = (t / tm) * BN;
-      tile_gemm<true>(a.h, f, m0, C, f, wo, d, n0, d, n0 + BN / 2, d, smem,
-                      acc);
+    const int t = threadIdx.x % 128;
+    const int r_t = m0 + 64 * (threadIdx.x / 128) + 16 * (t / 32) + (t % 32) / 4;
+    float total[64];
+    consume(o.K, it0, smem, full, empty, total);
+    if (p0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 32; i += 2) {
+        const int r = r_t + 8 * ((i / 2) % 2), j = n0 + 8 * (i / 4) + 2 * (t % 4);
+        if (r < C && j < f)
+          *reinterpret_cast<float2*>(a.h + (size_t)(row0 + r) * f + j) =
+              make_float2(silu_mul(total[i], total[i + 32]),
+                          silu_mul(total[i + 1], total[i + 33]));
+      }
+    } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = m0 + ty * 4 + i;
-          const int c = n0 + (j < 2 ? 2 * tx + j : BN / 2 + 2 * tx + j - 2);
-          if (r < C && c < d) out[(size_t)r * d + c] = acc[i][j];
-        }
+      for (int i = 0; i < 64; i += 2) {
+        const int r = r_t + 8 * ((i / 2) % 2), c = n0 + 8 * (i / 4) + 2 * (t % 4);
+        if (r < C && c < d)
+          *reinterpret_cast<float2*>(a.out + (size_t)(row0 + r) * d + c) =
+              make_float2(total[i], total[i + 1]);
+      }
     }
-    grid_barrier(w.barrier);  // the next slot rewrites h
   }
 
-  static __device__ int n_rows(const Args& a) { return a.rows; }
-
-  static __device__ void run(int, const Args& a, const Walk& w, int row0, int,
-                             float* smem) {
-    experts(a, w, row0, smem);
+  // Every slab of the segment: phase 0 writes every slab's h, one grid
+  // barrier, phase 1 every slab's out. Tiles go to CTAs by grid stride
+  // over (slot, n, m), m fastest: the M tiles that read one weight tile
+  // run side by side, so it comes from device memory about once. In a CTA
+  // the producer warpgroup and the two consumer warpgroups walk the same
+  // tiles and meet only at the ring's mbarriers (and the grid barrier).
+  template <class B>
+  static __device__ void segment(const Walk& w, const B& b, int k0, int k1, float* smem) {
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + MOE_FLOATS);
+    uint64_t* empty = full + SLOTS;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < SLOTS; ++s) {
+        mbar_init(full + s, PRODUCERS);
+        mbar_init(empty + s, CONSUMERS);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    // the producers give up registers that the consumers' accumulators
+    // take (setmaxnreg is per warpgroup)
+    const bool producer = uniform(threadIdx.x / 32) >= CONSUMERS / 32;
+    if (producer)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS) : "memory");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS) : "memory");
+    const int grid = gridDim.x, C = w.tile, tm = (C + MT - 1) / MT;
+    k0 = uniform(k0);
+    k1 = uniform(k1);
+    int it = 0;  // the CTA's stages so far
+    for (int phase = 0; phase < 2; ++phase) {
+      if (phase == 1) grid_barrier(w.barrier);  // every slab's h is written
+      int base = 0;  // tiles of the earlier slots, modulo the grid
+      for (int k = k0; k < k1; ++k) {
+        const int i = uniform(__ldg(w.walk + k)), sid = uniform(__ldg(w.table + 3 * i));
+        if (uniform(__ldg(w.body_of_sid + sid)) < 0) continue;
+        const Args& a = b.m[uniform(__ldg(w.member_of_sid + sid))];
+        const int d = uniform(a.d), f = uniform(a.f);
+        const int tn = phase == 0 ? (f + NT / 2 - 1) / (NT / 2) : (d + NT - 1) / NT;
+        const int nk = ((phase == 0 ? d : f) + KT - 1) / KT;
+        const int row0 = uniform(slot_row0(w, i, a.rows));
+        for (int l = ((int)blockIdx.x - base + grid) % grid; l < tm * tn; l += grid) {
+          tile(phase, a, d, f, row0, C, (l % tm) * MT, l / tm, it, producer, smem, full,
+               empty);
+          it += nk;
+        }
+        base = (base + tm * tn) % grid;
+      }
+    }
+    if (producer)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(LAUNCH_REGS) : "memory");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(LAUNCH_REGS) : "memory");
+    __syncthreads();  // the ring is idle
   }
 
   // no float sum stage: nothing folds
@@ -664,7 +942,7 @@ struct Moe {
                 (float*)p[3], (float*)p[4], d[0], d[1], d[2]};
   }
   static size_t smem(const Args&, int) {
-    return sizeof(float) * (BK * AP + BK * BN);
+    return sizeof(float) * MOE_FLOATS + 2 * SLOTS * sizeof(uint64_t);
   }
 };
 
@@ -680,17 +958,24 @@ struct Cc {
     int n, tile_c;         // tile_c = n / inner: one inner step's columns
   };
 
+  static constexpr bool WHOLE_SEGMENT = false;
+  static constexpr int BLOCK = THREADS, MIN_BLOCKS = 2;
+
   // propagate: one warp per row; the row's inner steps (column tiles) run
   // in ascending order inside the slot, the running max in a register.
+  // With `count` (the plan's count_fusion), the warp also adds the row's
+  // flip to `changed`: the count of the slot's rows is taken where they
+  // are written, and their `changed` slot does nothing.
   static __device__ void propagate(const Args& a, int row0, int rows,
-                                   int slot) {
+                                   int slot, bool count) {
     const int n = a.n, lane = threadIdx.x & 31;
     const int n_gw = grid_threads() >> 5;
     const float4* c4 = reinterpret_cast<const float4*>(a.c_col);
     for (int r = first_row(slot, rows); r < rows; r += n_gw) {
       const int row = row0 + r;
       const float4* g4 = reinterpret_cast<const float4*>(a.G + (size_t)row * n);
-      float m = __ldg(a.c_row + row);  // inner step 0 seeds the running max
+      const float c0 = __ldg(a.c_row + row);
+      float m = c0;  // inner step 0 seeds the running max
       for (int j0 = 0; j0 < n; j0 += a.tile_c) {
         const int k_end = (j0 + a.tile_c) >> 2;
 #pragma unroll 4
@@ -705,12 +990,17 @@ struct Cc {
       }
       for (int off = 16; off > 0; off >>= 1)
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (lane == 0) a.propagate[row] = m;
+      if (lane == 0) {
+        a.propagate[row] = m;
+        if (count && m != c0) atomicAdd(a.changed, 1);
+      }
     }
   }
 
-  // changed: warp 0 of CTA 0 owns the count; it adds each slot's flips in
-  // slot order (propagate was written earlier in this launch: __ldcg).
+  // changed, for rows written before this launch or before a barrier of
+  // it (__ldcg): warp 0 of CTA 0 counts a slot's flips and adds them with
+  // an integer atomic, as the counting warps of propagate do; an int sum
+  // is exact in any order.
   static __device__ void changed(const Args& a, int row0, int rows) {
     if (global_thread() >= 32) return;
     const int lane = threadIdx.x;
@@ -719,14 +1009,15 @@ struct Cc {
       flips += __ldcg(a.prop_in + row0 + r) != __ldg(a.c_row + row0 + r);
     for (int off = 16; off > 0; off >>= 1)
       flips += __shfl_xor_sync(0xffffffffu, flips, off);
-    if (lane == 0) a.changed[0] += flips;
+    if (lane == 0 && flips) atomicAdd(a.changed, flips);
   }
 
   static __device__ int n_rows(const Args& a) { return a.n; }
 
   static __device__ void run(int body, const Args& a, const Walk& w, int row0,
                              int slot, float*) {
-    if (body == 0) propagate(a, row0, w.tile, slot);
+    if (body == 0)
+      propagate(a, row0, w.tile, slot, w.counts != nullptr && __ldg(w.counts + slot));
     else changed(a, row0, w.tile);
   }
 
@@ -777,9 +1068,9 @@ __device__ void fold(const Walk& w, const Members<P>& b, int j) {
 }
 
 template <class P>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(P::BLOCK, P::MIN_BLOCKS)
 walk_kernel(Walk w, Members<P> b) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   if (w.stamps != nullptr)
     for (int i = global_thread(); i < w.n_slots; i += grid_threads()) {
       int* st = w.stamps + 4 * i;
@@ -798,14 +1089,18 @@ walk_kernel(Walk w, Members<P> b) {
       }
     }
     if (s == w.n_seg) break;
-    const int k1 = __ldg(w.walk_ptr + s + 1);
-    for (int k = __ldg(w.walk_ptr + s); k < k1; ++k) {
-      const int i = __ldg(w.walk + k);
-      const int sid = __ldg(w.table + 3 * i);
-      const int body = __ldg(w.body_of_sid + sid);
-      if (body < 0) continue;
-      const typename P::Args& a = b.m[__ldg(w.member_of_sid + sid)];
-      P::run(body, a, w, slot_row0(w, i, P::n_rows(a)), i, smem);
+    const int k0 = __ldg(w.walk_ptr + s), k1 = __ldg(w.walk_ptr + s + 1);
+    if constexpr (P::WHOLE_SEGMENT) {
+      P::segment(w, b, k0, k1, smem);
+    } else {
+      for (int k = k0; k < k1; ++k) {
+        const int i = __ldg(w.walk + k);
+        const int sid = __ldg(w.table + 3 * i);
+        const int body = __ldg(w.body_of_sid + sid);
+        if (body < 0) continue;
+        const typename P::Args& a = b.m[__ldg(w.member_of_sid + sid)];
+        P::run(body, a, w, slot_row0(w, i, P::n_rows(a)), i, smem);
+      }
     }
     const int p1 = __ldg(w.piece_ptr + s + 1);
     for (int p = __ldg(w.piece_ptr + s) + blockIdx.x; p < p1; p += gridDim.x) {
@@ -834,7 +1129,7 @@ int launch(const Walk& w, const Members<P>& b, size_t smem, void* stream) {
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, P::BLOCK,
                                                       smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
@@ -842,7 +1137,7 @@ int launch(const Walk& w, const Members<P>& b, size_t smem, void* stream) {
   Members<P> bc = b;
   void* args[] = {&wc, &bc};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(per_sm * sms),
-                                    dim3(THREADS), args, smem,
+                                    dim3(P::BLOCK), args, smem,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -850,7 +1145,7 @@ int launch(const Walk& w, const Members<P>& b, size_t smem, void* stream) {
 
 // The host side of every entry point. `plan` is the wrapper's int32 array
 // on the device: body_of_sid, member_of_sid, then the fold plan's arrays,
-// at the 10 offsets in the host array `off`. `ptrs` holds P::NP pointers
+// at the 11 offsets in the host array `off` (the last -1: no counts). `ptrs` holds P::NP pointers
 // and `dims` P::ND sizes for each of the n_members members (host arrays);
 // the dynamic shared memory is the largest member's.
 template <class P>
@@ -863,6 +1158,7 @@ int walk(const int* table, int n_slots, const int* plan,
   const Walk w{table, n_slots, plan + off[0], plan + off[1],
                plan + off[2], plan + off[3], plan + off[4], plan + off[5],
                plan + off[6], plan + off[7], plan + off[8], plan + off[9],
+               off[10] < 0 ? nullptr : plan + off[10],
                n_seg, scratch, stamps, barrier, tile};
   Members<P> b{};
   size_t smem = 0;

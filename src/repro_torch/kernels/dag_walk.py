@@ -33,7 +33,9 @@ the partials fold in group order onto the buffer (zeros or the seed) at
 the first grid barrier before a slot that reads the stage, or at the
 launch end. ``fold_plan`` computes the groups, the pieces the CTAs take
 and the fold points from the table alone, so the result does not depend
-on the grid; the plain walker folds slot by slot.
+on the grid; the plain walker folds slot by slot. The CC program's int
+count of its producer's rows is taken where those rows are written
+(``count_fusion``), so a CC launch needs no grid barrier.
 
 A batched walk (``vee/apps.py:merge_device_lowerings``) holds up to
 ``MAX_MEMBERS`` members of one program; each stage's ``member`` picks the
@@ -61,7 +63,8 @@ from ._build import DAG_WALK, ptr, stream
 
 __all__ = ["WalkOperand", "WalkStage", "WalkCtx", "dag_walk", "dag_walk_plain",
            "dag_walk_stagewise", "dag_walk_sharded", "cuda_program",
-           "sync_flags", "fold_plan", "FoldPlan", "FOLD_GROUPS", "FOLD_BODIES",
+           "sync_flags", "count_fusion", "fold_plan", "FoldPlan", "FOLD_GROUPS",
+           "FOLD_BODIES", "COUNTED_READS",
            "device_table_cache_stats", "clear_device_table_cache",
            "MAX_MEMBERS", "INNER_BODIES"]
 
@@ -95,7 +98,7 @@ class _DeviceTable:
 @dataclass(frozen=True)
 class _DevicePlan:
     ints: torch.Tensor       # body_of_sid, member_of_sid, then FoldPlan.packed()
-    offs: tuple              # offsets of the 10 arrays in ``ints``
+    offs: tuple              # offsets of the 11 arrays in ``ints`` (-1: no counts)
     n_seg: int
     scratch: int             # floats of partials
 
@@ -152,9 +155,12 @@ def _device_plan(entry: _DeviceTable, stages: list, body_map: list, members: lis
     n = len(stages)
     ints = np.concatenate([np.asarray(body_map, dtype=np.int32),
                            np.asarray(members, dtype=np.int32), packed])
+    offs = [0, n, *[2 * n + o for o in offs]]
+    if not len(plan.counts):
+        offs[-1] = -1                               # the kernel gets a null pointer
     dp = entry.plans[sig] = _DevicePlan(
-        ints=_pinned_put(ints, device), offs=(0, n, *[2 * n + o for o in offs]),
-        n_seg=plan.n_seg, scratch=plan.scratch)
+        ints=_pinned_put(ints, device), offs=tuple(offs), n_seg=plan.n_seg,
+        scratch=plan.scratch)
     return dp
 
 
@@ -484,6 +490,47 @@ def sync_flags(stages: list[WalkStage], table: np.ndarray) -> np.ndarray:
     return flags
 
 
+#: (producer body, consumer body) of a ``rows`` edge whose consumer is an
+#: exact int count over the producer's rows: the CC program's flip count
+COUNTED_READS = frozenset({("cc.propagate", "cc.changed")})
+
+
+def count_fusion(stages: list[WalkStage],
+                 table: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per slot: where the CUDA walker counts a consumer in its producer's slot.
+
+    For a ``rows`` edge of ``COUNTED_READS``, a consumer slot whose rows a
+    producer slot earlier in the same table writes (same start and size)
+    does no work of its own: the warps that write those rows add their
+    flips to the count with integer atomics, exact in any order, so the
+    consumer needs no grid barrier. A consumer slot whose rows were
+    written in another launch (a stagewise walk, another shard) keeps its
+    owner body. Returns ``(counts, skips)``, uint8 per slot: 1 on each
+    producer slot that counts, and on each consumer slot it stands for.
+    Computed from the table alone.
+    """
+    n = len(table)
+    counts, skips = np.zeros(n, np.uint8), np.zeros(n, np.uint8)
+    names = [s.name for s in stages]
+    sid = table[:, 0]
+    real = (table[:, 2] > 0) & (sid >= 0) & (sid < len(stages))
+    for c, st in enumerate(stages):
+        for prod, kind in st.reads:
+            p = names.index(prod) if prod in names else -1
+            if kind != "rows" or p < 0 or \
+                    (stages[p].device_body, st.device_body) not in COUNTED_READS:
+                continue
+            written = {}                            # (start, size) -> producer slot
+            for i in np.flatnonzero(real & ((sid == p) | (sid == c))):
+                key = (int(table[i, 1]), int(table[i, 2]))
+                if sid[i] == p:
+                    written[key] = i
+                elif key in written:
+                    counts[written.pop(key)] = 1
+                    skips[i] = 1
+    return counts, skips
+
+
 #: a float ``sum`` stage's slots are cut into about this many groups
 FOLD_GROUPS = 512
 
@@ -514,6 +561,10 @@ class FoldPlan:
     slots (ordinal k goes to group k // group_size); the size depends
     only on the stage's slot count in the table. Nothing here depends on
     the grid that walks it.
+
+    ``count_fusion``'s consumer slots are planned as padding: they do no
+    work and need no barrier. ``counts`` marks the producer slots that
+    count for them (empty when the walk counts nothing that way).
     """
 
     flags: np.ndarray        # (n_slots,) uint8: a grid barrier before the slot
@@ -528,6 +579,7 @@ class FoldPlan:
     group_size: dict         # stage name -> slots a group
     groups: dict             # stage name -> group of each of its slots, in order
     fold_at: dict            # stage name -> slot its fold precedes (n_slots: end)
+    counts: np.ndarray       # (n_slots,) uint8: the slot also counts its rows, or (0,)
 
     @property
     def n_seg(self) -> int:
@@ -541,9 +593,10 @@ class FoldPlan:
     def packed(self) -> tuple[np.ndarray, list[int]]:
         """The int arrays the kernel reads, in one int32 array, and the
         offset of each (``walk``, ``walk_ptr``, ``pieces``, ``piece_ptr``,
-        ``piece_slots``, ``fold_inst``, ``fold_ptr``, ``inst``)."""
+        ``piece_slots``, ``fold_inst``, ``fold_ptr``, ``inst``, ``counts``)."""
         parts = [self.walk, self.walk_ptr, self.pieces.ravel(), self.piece_ptr,
-                 self.piece_slots, self.fold_inst, self.fold_ptr, self.inst.ravel()]
+                 self.piece_slots, self.fold_inst, self.fold_ptr, self.inst.ravel(),
+                 self.counts]
         offs = np.cumsum([0] + [len(p) for p in parts[:-1]]).tolist()
         return np.concatenate(parts).astype(np.int32), offs
 
@@ -558,6 +611,9 @@ def fold_plan(stages: list[WalkStage], table: np.ndarray,
     """
     table = _check_table(table)
     n = len(table)
+    counts, skips = count_fusion(stages, table)
+    if skips.any():                                 # counted slots: padding
+        table = np.where(skips[:, None] == 1, np.int32([-1, 0, 0]), table)
     flags = sync_flags(stages, table)
     sid = table[:, 0]
     real = (table[:, 2] > 0) & (sid >= 0) & (sid < len(stages))
@@ -628,7 +684,8 @@ def fold_plan(stages: list[WalkStage], table: np.ndarray,
         fold_ptr=np.searchsorted(f_seg, np.arange(n_seg + 2)).astype(np.int32),
         inst=np.array(inst, dtype=np.int32).reshape(-1, 4),
         group_size=group_size, groups=groups,
-        fold_at={names[k]: fold_at[names[k]] for k in fold_sids if names[k] in fold_at})
+        fold_at={names[k]: fold_at[names[k]] for k in fold_sids if names[k] in fold_at},
+        counts=counts if counts.any() else np.zeros(0, np.uint8))
 
 
 def _checked(t: torch.Tensor, shape: tuple, what: str, dtype=torch.float32) -> torch.Tensor:
@@ -694,7 +751,10 @@ def _recommendation_args(inputs: dict, outs: dict, tile: int,
 
 
 def _moe_args(inputs: dict, outs: dict, tile: int, inner: dict) -> tuple[list, list]:
-    """x, wi, wo, out, h scratch; E*C, d, f (C = tile, one slab a slot)."""
+    """x, wi, wo, out, h scratch; E*C, d, f (C = tile, one slab a slot).
+
+    ``h`` holds every slab's gated activations (E*C, f): the kernel writes
+    all of them, then computes every slab's output from them."""
     x, wi, wo = inputs["moe.experts"]
     e, d, f2 = wi.shape
     f = f2 // 2
@@ -702,7 +762,12 @@ def _moe_args(inputs: dict, outs: dict, tile: int, inner: dict) -> tuple[list, l
     _checked(wi, (e, d, 2 * f), "moe wi")
     _checked(wo, (e, f, d), "moe wo")
     out = _checked(outs["moe.experts"], (e * tile, d), "moe experts output")
-    h = torch.empty((tile, f), dtype=torch.float32, device=x.device)
+    if d % 4 or f % 4:
+        raise ValueError(f"moe: d_model={d} and d_ff_expert={f} must be multiples "
+                         "of 4 (the kernel copies 16-byte vectors)")
+    if any(t.data_ptr() % 16 for t in (x, wi, wo, out)):
+        raise ValueError("moe: xdisp, wi, wo and the output must be 16-byte aligned")
+    h = torch.empty((e * tile, f), dtype=torch.float32, device=x.device)
     return [x, wi, wo, out, h], [e * tile, d, f]
 
 

@@ -81,3 +81,14 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             + k_t[..., :, None] * v_t[..., None, :]
     y = torch.stack(ys, dim=2)
     return (y, state) if return_state else y
+
+
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """float32 ``a`` rounded to TF32 (10 stored mantissa bits), to nearest
+    with ties to even, on the bit pattern; the low 13 bits come out zero.
+    The walker's MoE program rounds its operands so (csrc/dag_walk.cu:
+    tf32_rne)."""
+    u = a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32).view(torch.float32)
+

@@ -157,3 +157,103 @@ def test_cc_iteration_on_cpu_launches_no_kernel():
     G = torch.from_numpy(_graphs(scale=8)[1].to_dense())
     tapps.cc_iteration_device(G, torch.arange(1, 257.0), tile_r=64, tile_c=128)
     assert dict(_build.DAG_WALK.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the CUDA walker's plan for the CC program: flips counted where rows are
+# written (kernels/dag_walk.py:count_fusion), no ordering barrier
+# ---------------------------------------------------------------------------
+
+CC_TABLE_TECHNIQUES = [tapps.CC_TECHNIQUES, {"propagate": "GSS", "changed": "STATIC"},
+                       {"propagate": "FAC2", "changed": "TSS"}, "SS"]
+
+
+def _cc_tables(n, tile_r, techniques, n_shards):
+    dag, stages, operands = tapps.cc_iteration_lowering(n, tile_r, n // 4)
+    tables = build_dag_tables(dag, tile_r, techniques, n_shards=n_shards,
+                              n_workers=4).tables
+    return stages, operands, tables
+
+
+def _fused_count(plan, stages, table, prop, c_row):
+    """The kernel's count on ``plan``: each counting ``propagate`` slot adds
+    its rows' flips, each walked ``changed`` slot (the owner body) its own."""
+    names = [s.name for s in stages]
+    total = 0
+    for i in plan.walk:
+        sid, start, size = table[i]
+        flips = int((prop[start:start + size] != c_row[start:start + size]).sum())
+        if names[sid] == "changed" or (len(plan.counts) and plan.counts[i]):
+            total += flips
+    return total
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+@pytest.mark.parametrize("techniques", CC_TABLE_TECHNIQUES, ids=str)
+def test_cc_plan_counts_where_rows_are_written(n_shards, techniques):
+    """One launch of a CC table has no grid barrier: every ``changed`` slot
+    is counted by the ``propagate`` slot of its rows, which comes earlier
+    in the same table; the generic rule alone would put a barrier before
+    each ``changed`` run. Emulating the kernel's count on the plan gives
+    the plain walk's ``changed`` on every shard."""
+    n, tile_r = 1024, 64
+    stages, operands, tables = _cc_tables(n, tile_r, techniques, n_shards)
+    rng = np.random.default_rng(3)
+    G = torch.from_numpy((rng.uniform(size=(n, n)) < 0.02).astype(np.float32))
+    c = torch.from_numpy(rng.integers(1, 500, n).astype(np.float32))
+    values = {"G": G, "c_col": c, "c_row": c}
+    for table in tables:
+        plan = twalk.fold_plan(stages, table)
+        real = table[:, 2] > 0
+        assert plan.n_seg == 1 and not plan.flags.any()
+        assert twalk.sync_flags(stages, table).sum() >= 1
+        counts, skips = twalk.count_fusion(stages, table)
+        assert np.array_equal(plan.counts, counts)
+        assert np.array_equal(np.flatnonzero(counts), np.flatnonzero(real & (table[:, 0] == 0)))
+        assert np.array_equal(np.flatnonzero(skips), np.flatnonzero(real & (table[:, 0] == 1)))
+        assert np.array_equal(plan.walk, np.flatnonzero(real & (table[:, 0] == 0)))
+        plain = twalk.dag_walk_plain(stages, operands, values, table, tile_r)
+        assert _fused_count(plan, stages, table, plain["propagate"], c) == \
+            int(plain["changed"][0])
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_cc_stagewise_changed_keeps_its_owner_body(n_shards):
+    """A stagewise walk runs ``changed`` alone, reading labels of an earlier
+    launch: nothing is counted elsewhere, every ``changed`` slot is walked,
+    and no barrier orders it; its count is the plain walk's."""
+    n, tile_r = 1024, 64
+    stages, operands, tables = _cc_tables(n, tile_r, tapps.CC_TECHNIQUES, n_shards)
+    rng = np.random.default_rng(4)
+    prop = torch.from_numpy(rng.integers(1, 500, n).astype(np.float32))
+    c = torch.where(torch.from_numpy(rng.uniform(size=n) < 0.3), prop + 1, prop)
+    solo = dataclasses.replace(stages[1], operands=("c_row", "propagate"), reads=())
+    ops = [operands[2], twalk.WalkOperand("propagate", (tile_r,), ("row",))]
+    for table in tables:
+        sub = table[(table[:, 0] == 1) & (table[:, 2] > 0)].copy()
+        sub[:, 0] = 0
+        plan = twalk.fold_plan([solo], sub)
+        assert len(plan.counts) == 0 and not plan.flags.any()
+        assert np.array_equal(plan.walk, np.arange(len(sub)))
+        values = {"c_row": c, "propagate": prop}
+        want = twalk.dag_walk_plain([solo], ops, values, sub, tile_r)["changed"]
+        assert _fused_count(plan, [solo], sub, prop, c) == int(want[0])
+
+
+def test_count_fusion_needs_the_producer_earlier_in_the_table():
+    """A ``changed`` slot whose ``propagate`` slot is missing from the table
+    (written in another launch) keeps its owner body and is ordered by a
+    barrier after the table's own ``propagate`` slots, as the generic rule
+    says; the plans of other programs count nothing."""
+    _, stages, _ = tapps.cc_iteration_lowering(256, 64, 64)
+    table = np.array([[0, 0, 64], [1, 0, 64], [0, 64, 64], [1, 128, 64],
+                      [1, 64, 64], [0, 192, 64], [1, 192, 64]], dtype=np.int32)
+    counts, skips = twalk.count_fusion(stages, table)
+    assert counts.tolist() == [1, 0, 1, 0, 0, 1, 0]
+    assert skips.tolist() == [0, 1, 0, 0, 1, 0, 1]
+    plan = twalk.fold_plan(stages, table)
+    assert plan.walk.tolist() == [0, 2, 3, 5]
+    assert plan.flags.tolist() == [0, 0, 0, 1, 0, 0, 0]
+    low = tapps.linreg_device_lowering(256, 5, device="cpu")
+    lin_table = np.array([[0, 0, 64]] * 4 + [[1, 0, 64]] * 4, dtype=np.int32)
+    assert len(twalk.fold_plan(low.stages, lin_table).counts) == 0

@@ -20,7 +20,12 @@ must be bitwise equal to its lowering walked alone.
 """
 
 import dataclasses
+import importlib.util
 import math
+import re
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -40,6 +45,7 @@ from repro_torch.vee import apps as tapps
 from repro_torch.vee import ml_apps as tml
 
 SUM_RTOL = 1e-4
+ROOT = Path(__file__).resolve().parents[1]
 
 pytestmark = pytest.mark.cuda
 
@@ -258,24 +264,102 @@ def test_moe_walk_matches_plain(cuda, shape, tech):
     _close_sum(y.cpu(), torch.from_numpy(low.run_direct()), "vs host pipeline")
 
 
+def _smoke():
+    """``chip_smoke.py`` as a module (it imports nothing but the standard
+    library at module level): its MoE limits."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _moe_within_limits(got, dlow):
+    """Every slab entry within both of the smoke's float64 limits
+    (``moe_limits``), one slab at a time."""
+    smoke = _smoke()
+    c, wi, wo = dlow.tile, dlow.values["wi"], dlow.values["wo"]
+    for g in range(wi.shape[0]):
+        sl = slice(g * c, (g + 1) * c)
+        ref, lim, lim_rss = smoke.moe_limits(dlow.values["xdisp"][sl].double(),
+                                             wi[g].double(), wo[g].double())
+        for limit in (lim, lim_rss):
+            assert smoke.beyond(got[sl], ref, limit)[0] == 0, g
+
+
 def test_moe_walk_against_float64(cuda):
     low = _moe_lowering(cuda, "ragged")
     dlow = tml.moe_device_lowering(low)
-    got = tapps.run_device_dag(dlow)[0]["experts"]
-    e, c, d = low.meta["n_experts"], dlow.tile, low.meta["d_model"]
-    f = dlow.values["wo"].shape[1]
-    x = dlow.values["xdisp"].view(e, c, d).double()
-    h = torch.bmm(x, dlow.values["wi"].double())
-    a = torch.nn.functional.silu(h[..., :f]) * h[..., f:]
-    ref = torch.bmm(a, dlow.values["wo"].double()).reshape(e * c, d)
-    # eps * sqrt(k) * sum|terms| of the second product, with the first
-    # product's own limit carried through it (|silu'| <= 1.1)
-    A = torch.bmm(x.abs(), dlow.values["wi"].double().abs())
-    B = 1.1 * h[..., f:].abs() * A[..., :f] + h[..., :f].abs() * A[..., f:]
-    wo = dlow.values["wo"].double().abs()
-    lim = 2.0 ** -23 * ((math.sqrt(f) + 4) * torch.bmm(a.abs(), wo)
-                        + math.sqrt(d) * torch.bmm(B, wo)).reshape(e * c, d)
-    assert bool(((got.double() - ref).abs() <= lim).all())
+    _moe_within_limits(tapps.run_device_dag(dlow)[0]["experts"], dlow)
+
+
+# widths past every tile edge of the kernel (128 x 128 output tiles, 32-wide
+# k stages, 64-column gated tiles): capacity, d and f are multiples of 4
+# and of nothing larger that the kernel tiles by
+MOE_OFF_TILE = {"d332_f172": dict(n_tokens=210, d_model=332, d_ff_expert=172, n_routed=7),
+                "d196_f300": dict(n_tokens=90, d_model=196, d_ff_expert=300, n_routed=3)}
+
+
+@pytest.mark.parametrize("shape", sorted(MOE_OFF_TILE))
+def test_moe_walk_at_widths_off_the_tile(cuda, shape):
+    kw = dict(MOE_OFF_TILE[shape])
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    moe = dataclasses.replace(cfg.moe, d_ff_expert=kw.pop("d_ff_expert"),
+                              n_routed=kw.pop("n_routed"))
+    cfg = dataclasses.replace(cfg, d_model=kw.pop("d_model"), moe=moe)
+    dlow = tml.moe_device_lowering(tml.moe_dispatch_lowering_for(cfg, seed=5, device=cuda,
+                                                                 **kw))
+    assert dlow.tile % 128 and cfg.d_model % 32 and cfg.moe.d_ff_expert % 64
+    rows = _rows(dlow, "GSS")[0]
+    before = _build.DAG_WALK.launches["walk_moe"]
+    got = twalk.dag_walk(dlow.stages, dlow.operands, dlow.values, rows, dlow.tile)["experts"]
+    assert _build.DAG_WALK.launches["walk_moe"] == before + 1
+    want = twalk.dag_walk_plain(dlow.stages, dlow.operands, dlow.values, rows,
+                                dlow.tile)["experts"]
+    _close_sum(got, want, "experts")
+    _moe_within_limits(got, dlow)
+
+
+def test_moe_batched_walk_bitwise_equal_to_single_walks(cuda):
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    lows = [tml.moe_device_lowering(tml.moe_dispatch_lowering_for(
+        cfg, n_tokens=96, seed=s, device=cuda)) for s in (1, 2, 3)]
+    singles = [tapps.run_device_dag(low, "GSS")[0] for low in lows]
+    merged = tapps.merge_device_lowerings(lows)
+    before = _build.DAG_WALK.launches["walk_moe"]
+    vals, _ = tapps.run_device_dag(merged, "GSS")
+    assert _build.DAG_WALK.launches["walk_moe"] == before + 1
+    for j, member in enumerate(tapps.split_device_values(vals, len(lows))):
+        assert torch.equal(member["experts"], singles[j]["experts"]), j
+
+
+def test_moe_widths_off_four_launch_nothing(cuda):
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    cfg = dataclasses.replace(cfg, d_model=66)
+    dlow = tml.moe_device_lowering(tml.moe_dispatch_lowering_for(cfg, n_tokens=32, seed=1,
+                                                                 device=cuda))
+    before = _launches()
+    with pytest.raises(ValueError, match="multiples of 4"):
+        twalk.dag_walk(dlow.stages, dlow.operands, dlow.values, _rows(dlow, "GSS")[0],
+                       dlow.tile)
+    assert _launches() == before
+
+
+def test_moe_walk_runs_on_tensor_cores(cuda):
+    """The MoE program's SASS issues Hopper warpgroup products (HGMMA); the
+    other programs' issue none."""
+    _build.DAG_WALK._load()
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    assert tool, "cuobjdump not found beside nvcc"
+    sass = subprocess.run([tool, "-sass", str(_build.DAG_WALK.library)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = {f.split("\n", 1)[0]: f for f in re.split(r"\n\s*Function : ", sass)
+             if "walk_kernel" in f.split("\n", 1)[0]}
+    moe = [f for name, f in funcs.items() if "3MoeE" in name]
+    others = [f for name, f in funcs.items() if "3MoeE" not in name]
+    assert len(moe) == 1 and len(others) == 3
+    assert "HGMMA" in moe[0]
+    assert not any("HGMMA" in f for f in others)
 
 
 @pytest.mark.parametrize("name", sorted(LOWERINGS))
@@ -354,6 +438,33 @@ def test_cc_iteration_walk_bitwise(cuda, n_shards):
         plain = twalk.dag_walk_plain(stages, operands, values, tables[s], 256)
         for k in walked:
             assert torch.equal(walked[k], plain[k]), k
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_cc_iteration_fused_and_stagewise_bitwise(cuda, n_shards):
+    """Each shard's table in one launch (its flips counted where its rows
+    are written, no barrier) and stagewise (``changed`` alone, its owner
+    body): both bitwise the plain walk."""
+    n = 4096
+    rng = np.random.default_rng(11)
+    G = torch.from_numpy((rng.uniform(size=(n, n)) < 0.01).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.integers(1, 2000, n).astype(np.float32)).to(cuda)
+    dag, stages, operands = tapps.cc_iteration_lowering(n, 256, 1024)
+    tables = build_dag_tables(dag, 256, tapps.CC_TECHNIQUES, n_shards=n_shards,
+                              n_workers=4).tables
+    values = {"G": G, "c_col": c, "c_row": c}
+    for table in tables:
+        plan = twalk.fold_plan(stages, table)
+        assert not plan.flags.any() and plan.counts.any()
+        plain = twalk.dag_walk_plain(stages, operands, values, table, 256)
+        before = _build.DAG_WALK.launches["walk_cc"]
+        fused = twalk.dag_walk(stages, operands, values, table, 256)
+        assert _build.DAG_WALK.launches["walk_cc"] == before + 1
+        staged = twalk.dag_walk_stagewise(stages, operands, values, table, 256)
+        assert _build.DAG_WALK.launches["walk_cc"] == before + 3
+        for k in plain:
+            assert torch.equal(fused[k], plain[k]), k
+            assert torch.equal(staged[k], plain[k]), k
 
 
 def test_inner_steps_without_an_inner_loop_launch_nothing(cuda):

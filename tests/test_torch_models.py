@@ -255,9 +255,10 @@ def test_flash_attention_source_calls_no_library():
         assert word not in src.lower(), word
 
 
-@pytest.mark.parametrize("source", ["ssm_scan.cu", "rwkv6_scan.cu"])
+@pytest.mark.parametrize("source", ["ssm_scan.cu", "rwkv6_scan.cu", "dag_walk.cu"])
 def test_scan_sources_call_no_library(source):
-    """K5 and K6 are written by hand: their sources name no library."""
+    """K5, K6 and the walker (K1, K3) are written by hand: their sources
+    name no library."""
     src = (ROOT / "src" / "repro_torch" / "csrc" / source).read_text()
     for word in ("cudnn", "cublas", "cutlass", "torch", "triton"):
         assert word not in src.lower(), word
