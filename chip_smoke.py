@@ -332,6 +332,31 @@ def dropped_tile_scores(R, norms, bias):
     return apps.scores_plain(R, norms - (R[:TILE] * R[:TILE]).sum(0), bias)
 
 
+def rec_chain(R, norms=None):
+    """The recommendation's whole function as three PyTorch calls over R
+    (users, items), or a stack of them: item norms, user biases, the top
+    item (``norms`` given: a seeded walk's). A yardstick only."""
+    import torch
+
+    if norms is None:
+        norms = R.square().sum(-2, keepdim=True)
+    bias = R.mean(-1, keepdim=True)
+    return torch.argmax(R / (norms.sqrt() + 1e-9) - bias, -1)
+
+
+#: the three calls ``rec_chain`` makes, as the kernels line names them
+REC_CHAIN_CALL = ("R.square().sum(0) -> R.mean(1) -> "
+                  "torch.argmax(R / (norms.sqrt() + 1e-9) - bias[:, None], 1)")
+
+
+def rec_bytes(users: int, items: int) -> int:
+    """Least bytes of the recommendation's function: the `full` edge from
+    item_norms to scores needs every norm before any score, and R (537 MB
+    at 65,536 x 2,048) is far past the 50 MB L2, so R is read twice; the
+    norms, biases and scores once each."""
+    return 4 * (2 * users * items + items + 2 * users)
+
+
 def solo_walk(low, rows, name: str, values: dict, plain: bool = False):
     """Stage ``name`` of ``low`` walked alone over its own slots of
     ``rows``, reading its producers from ``values``: the stage on the same
@@ -695,6 +720,7 @@ def batched_phase(dev, walk_inputs) -> list[dict]:
                 dag_walk(low.stages, low.operands, low.values, r, TILE)
 
         checks, errs, shares = {}, [], []
+        chain = {}
         if pipe == "linreg":
             n, d = B_LIN_ROWS, LINREG_COLS - 1
             X1ys = []
@@ -754,7 +780,10 @@ def batched_phase(dev, walk_inputs) -> list[dict]:
             del Rs
             library = lambda: Rb.square().sum(1)  # noqa: E731
             library_call = "R.square().sum(1) over the 8 members' stacked R (item_norms only)"
-            b_bytes = BATCH * 4 * (U * I + I + 2 * U) + 12 * len(rows)
+            chain = dict(library_chain_ms=timed(lambda: rec_chain(Rb), 10),
+                         library_chain_call=REC_CHAIN_CALL + ", over the 8 members' "
+                                                             "stacked R")
+            b_bytes = BATCH * rec_bytes(U, I) + 12 * len(rows)
             b_flops = BATCH * (6 * U * I + 2 * I)
             shapes = f"{BATCH} x R ({U}, {I}) f32, {len(rows)} slots, tile {TILE}"
         for name in got:
@@ -778,7 +807,7 @@ def batched_phase(dev, walk_inputs) -> list[dict]:
             device_ms=walk_device_ms(walk),
             singles_ms=singles_ms, plain_ms=timed(plain, 1, warmup=0),
             library_ms=timed(library, 10), library_call=library_call, shapes=shapes,
-            **dict(zip(("bound_ms", "bound_by"), bound_ms(b_bytes, b_flops)))))
+            **chain, **dict(zip(("bound_ms", "bound_by"), bound_ms(b_bytes, b_flops)))))
     return rows_out
 
 
@@ -1607,6 +1636,8 @@ def main() -> None:
              s_: dict(beyond=b_, max_abs_err=e_, worst_share=r_)
              for s_, (b_, e_, r_) in lin_plain_vs_float64.items()},
          rec_worst_share_of_limit=max(r for _, r in rec_checks),
+         rec_shares_of_limit={"item_norms_vs_plain": rec_checks[0][1],
+                              "user_bias_vs_plain": rec_checks[1][1]},
          cc_techniques=len(PARTITIONERS),
          lowering_seconds=lowering_s, seconds=time.perf_counter() - t)
 
@@ -1687,7 +1718,6 @@ def main() -> None:
         **dict(zip(("bound_ms", "bound_by"), bound_ms(lin_bytes, lin_flops)))))
     del X1y
 
-    rec_bytes = 4 * (U * I + I + 2 * U) + 12 * len(rec_rows)
     # item_norms 2UI, user_bias UI, scores: sqrt + add per item, then a
     # divide, subtract and compare per entry
     rec_flops = 2 * U * I + U * I + 2 * I + 3 * U * I
@@ -1703,8 +1733,10 @@ def main() -> None:
                                               rec_rows, TILE), 3),
         library_ms=timed(lambda: R.square().sum(0), 10),
         library_call="R.square().sum(0) (item_norms only)",
+        library_chain_ms=timed(lambda: rec_chain(R), 10), library_chain_call=REC_CHAIN_CALL,
         shapes=f"R ({U}, {I}) f32, {len(rec_rows)} slots, tile {TILE}",
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(rec_bytes, rec_flops)))))
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(rec_bytes(U, I) + 12 * len(rec_rows), rec_flops)))))
 
     cc_bytes = 4 * (n_cc * n_cc + 2 * n_cc) + 4 * (n_cc // 256)
     cc_flops = 2 * n_cc * n_cc
@@ -1856,7 +1888,9 @@ def main() -> None:
                                                            got_r["user_bias"])),
             "seeded recommendation walk: scores differ from the plain body")
     m1 = (REC_UNITS - ck.stages["item_norms"].acc_next) * TILE  # item_norms rows walked
-    k3r_bytes = 4 * (U * I + 2 * I + 2 * U) + 4 * U + 12 * len(plan.table)
+    seed_r = next(plan.values[s.seed] for s in plan.stages if s.name == "item_norms")
+    # the seed read once more, the replayed user_bias rows written again
+    k3r_bytes = rec_bytes(U, I) + 4 * I + 4 * U + 12 * len(plan.table)
     k3r_flops = 2 * m1 * I + U * I + 2 * I + 3 * U * I
     kernels.append(dict(
         name="dag_walk[recommendation, seeded]", route="cuda",
@@ -1868,6 +1902,9 @@ def main() -> None:
         device_ms=walk_device_ms(walk_k3r), plain_ms=timed(plain_k3r, 3),
         library_ms=None,
         library_call="none: no one PyTorch call computes norms, bias and scores",
+        library_chain_ms=timed(lambda: rec_chain(
+            R, seed_r + R[U - m1:].square().sum(0, keepdim=True)), 10),
+        library_chain_call=REC_CHAIN_CALL + ", norms from the seed and the walked rows",
         shapes=f"R ({U}, {I}) f32, item_norms rows {U - m1}..{U} walked, "
                f"{len(plan.table)} slots, tile {TILE}",
         **dict(zip(("bound_ms", "bound_by"), bound_ms(k3r_bytes, k3r_flops)))))

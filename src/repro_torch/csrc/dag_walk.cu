@@ -21,8 +21,8 @@
 //     the CC program) in table order. A `concat` stage's rows are written
 //     once each, one warp per row; the CC count is taken with integer
 //     atomics. Producer outputs are read with L1-bypassing loads (__ldcg).
-//     The MoE program takes the segment's slots all at once instead (its
-//     note below);
+//     The recommendation and MoE programs take the segment's slots all at
+//     once instead (their notes below);
 //   * a float `sum` stage runs in two phases. Phase 1, partials: its
 //     slots are cut into groups of g consecutive stage-local ordinals
 //     (ordinal k in group k / g), g set by the stage's slot count alone
@@ -70,9 +70,15 @@
 // (d+1) x (d+2) output (two blocks a thread at d = 100), reads each row of
 // the standardized tile as float4s from shared memory and mirrors the lower
 // triangle when it stores a partial: fmaf(a, b, s) = fmaf(b, a, s), so the
-// mirror is the value the entry's own chain would give. Recommendation
-// reads R (65,536 x 2,048 float32) three times: bytes-bound. `item_norms`
-// gives each thread 8 columns 256 apart and 8 rows of loads in flight.
+// mirror is the value the entry's own chain would give.
+//
+// Recommendation is bytes-bound. Its `full` edge from item_norms to scores
+// makes two passes over R the least (R, 65,536 x 2,048 float32, is 537 MB
+// against a 50 MB L2): 0.32 ms at 3.35 TB/s. The launch reads R three
+// times: item_norms' pieces (each thread 8 columns 256 apart, 8 rows of
+// loads in flight) and user_bias's rows in the first segment, scores'
+// rows in the second, each row by one warp with 16-byte loads (the note
+// at Recommendation).
 //
 // The CC-iteration program (tests/test_device_dag.py's super-table, the
 // body of repro/kernels/cc_propagate.py:propagate_body): `propagate` is a
@@ -199,6 +205,15 @@ __device__ __forceinline__ int slot_row0(const Walk& w, int slot, int n_rows) {
 }
 
 
+// The hooks of a program without derived reads (see Recommendation): no
+// pass at the launch start, nothing written beside a folded entry.
+struct NoDerived {
+  template <class B>
+  static __device__ void prologue(const Walk&, const B&) {}
+  template <class A>
+  static __device__ void folded(int, const A&, int, float) {}
+};
+
 // ---------------------------------------------------------------- linreg
 constexpr int NB = 2;  // syrk 4 x 4 blocks a thread holds in a pass
 
@@ -226,7 +241,22 @@ __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-struct Linreg {
+// 16 bytes global -> shared, asynchronously; !valid writes zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+struct Linreg : NoDerived {
   struct Args {
     const float* X;        // (n, d)
     const float* y;        // (n,)
@@ -435,6 +465,44 @@ struct Linreg {
 };
 
 // -------------------------------------------------------- recommendation
+// The two concat bodies run one warp a row, over every row of the segment
+// at once (`segment`): the segment's walk slots hold (k1 - k0) tile rows
+// in all, numbered j = (k - k0) tile + r for row r of walk slot k, and
+// global warp gw takes rows gw, gw + n_gw, ... Each row is written once,
+// by lane 0 of its warp; which warp that is depends on the grid, its value
+// does not: it is a fixed function of the row's inputs.
+//
+// Loads: a row of R is read as 16-byte vectors when it is 16-byte aligned
+// (R aligned and n_items % 4 == 0), else as scalars. user_bias: a lane
+// loads 16 vectors into registers before it adds any (8 KB of R a warp in
+// flight). scores: each IEEE division may call its slow path, and values
+// held in registers across such a call spill, so R's vectors go through a
+// ring of two batches in shared memory with cp.async: the next batch of 8
+// vectors a lane (4 KB a warp) is in flight while the warp computes this
+// one, across its rows; a lane reads back only its own copies, so no
+// barrier paces the ring. R's loads bypass L1 (__ldcg, cp.async.cg: a
+// pass reads a row once), which keeps L1 for the denominators.
+//
+// user_bias: lane l adds its vectors' entries in ascending column order
+// into one accumulator, s_l = (((0 + R[c]) + R[c+1]) + R[c+2]) + R[c+3]
+// over c = 4 (l + 32 k), k ascending (scalar rows: c = l + 32 k); then an
+// xor tree over offsets 16, 8, 4, 2, 1 (s_l + s_{l^o}, the same bits in
+// both lanes); then an IEEE divide by n_items. The order is fixed by the
+// row and n_items alone (kernels/ref.py:user_bias_ref emulates it).
+//
+// scores: den[c] = sqrt(item_norms[c]) + 1e-9 (IEEE-rounded, as the plain
+// body's float32 square root and add) is computed once an item in a
+// launch, into the wrapper's buffer `den` (`den_of`): by the fold that
+// publishes item_norms (`folded`; the fold's second barrier publishes den
+// with it), or, when item_norms was folded before this launch (a stagewise
+// walk, a remainder whose item_norms the host finished), by a pass at the
+// launch start behind one grid barrier (`prologue`, den_pre set by the
+// wrapper from FoldPlan.prepass). A row reads den with L1-cached loads
+// (8 KB at 2,048 items) and computes (R[r, c] / den[c]) - bias[r] with
+// IEEE division and subtraction, a lane's candidates in ascending column
+// order (strict >, so the first of equal values stays), then an xor tree
+// that takes (ob > best) || (ob == best && oa < arg): the lowest index
+// among equal maxima, whatever the lanes' column layout.
 struct Recommendation {
   struct Args {
     const float* R;          // (n_users, n_items)
@@ -443,10 +511,12 @@ struct Recommendation {
     int* scores;             // (n_users,) concat output, or null
     const float* norms_in;   // item_norms that scores reads
     const float* bias_in;    // user_bias that scores reads
+    float* den;              // (n_items,) scores' denominators, or null
     int n_users, n_items;
+    int den_pre;             // 1: the launch start computes den from norms_in
   };
 
-  static constexpr bool WHOLE_SEGMENT = false;
+  static constexpr bool WHOLE_SEGMENT = true;
   static constexpr int BLOCK = THREADS, MIN_BLOCKS = 2;
 
   // item_norms: entry c sums R[:, c]^2. Thread t owns columns t + k
@@ -490,52 +560,198 @@ struct Recommendation {
     }
   }
 
-  // user_bias: row mean, one warp per row (fixed lane order + xor tree).
-  static __device__ void user_bias(const Args& a, int row0, int rows,
-                                   int slot) {
+  // user_bias: 16-byte vectors of R a lane loads before it adds any
+  static constexpr int UB = 16;
+  // scores: a warp's pipeline of R's 16-byte vectors through its own
+  // shared memory, STAGES batches of US vectors a lane
+  static constexpr int US = 8, STAGES = 2;
+  static constexpr int WARP_VECS = STAGES * US * 32;
+
+  static __device__ __forceinline__ bool vectors(const Args& a) {
+    return (a.n_items & 3) == 0 && (reinterpret_cast<uintptr_t>(a.R) & 15) == 0;
+  }
+
+  // user_bias of one row (the order is in the note above). Vectors past
+  // the row load as zeros: s + 0 is s (s is never -0), so the sum is the
+  // one over the row's own entries.
+  static __device__ void user_bias(const Args& a, int row) {
     const int m = a.n_items, lane = threadIdx.x & 31;
-    const int n_gw = grid_threads() >> 5;
-    for (int r = first_row(slot, rows); r < rows; r += n_gw) {
-      const float* row = a.R + (size_t)(row0 + r) * m;
-      float s = 0.f;
+    float s = 0.f;
+    if (vectors(a)) {
+      const float4* r4 = reinterpret_cast<const float4*>(a.R + (size_t)row * m);
+      const int n4 = m >> 2;
+      for (int k0 = 0; k0 < n4; k0 += 32 * UB) {
+        float4 v[UB];
+#pragma unroll
+        for (int u = 0; u < UB; ++u) {
+          const int k = k0 + 32 * u + lane;
+          v[u] = k < n4 ? __ldcg(r4 + k) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < UB; ++u) {
+          s += v[u].x;
+          s += v[u].y;
+          s += v[u].z;
+          s += v[u].w;
+        }
+      }
+    } else {
+      const float* r1 = a.R + (size_t)row * m;
 #pragma unroll 8
-      for (int c = lane; c < m; c += 32) s += row[c];
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) a.user_bias[row0 + r] = __fdiv_rn(s, (float)m);
+      for (int c = lane; c < m; c += 32) s += __ldcg(r1 + c);
+    }
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) a.user_bias[row] = __fdiv_rn(s, (float)m);
+  }
+
+  // One candidate of a lane: its columns come in ascending order. The
+  // quotient is __fdiv_rn(x, d); for x == 0 (most of R) and d finite and
+  // nonzero that is the signed zero x d, taken as such: __fdiv_rn's range
+  // check would send a zero to its slow path, and a branch on x would split
+  // the warp. The division then runs on 1 in x's place, so every lane
+  // takes the same path.
+  static __device__ __forceinline__ void take(float x, float d, float bias, int c,
+                                              int m, float& best, int& arg) {
+    const bool zero = x == 0.f && d != 0.f && fabsf(d) != INFINITY;
+    const float q = __fdiv_rn(zero ? 1.f : x, d);
+    const float v = __fsub_rn(zero ? __fmul_rn(x, d) : q, bias);
+    if (v > best || arg == m) {
+      best = v;
+      arg = c;
     }
   }
 
-  // scores: argmax_c R[r, c] / (sqrt(norms[c]) + 1e-9) - bias[r], first
-  // index on ties, each operation IEEE-rounded as in the plain version.
-  static __device__ void scores(const Args& a, int row0, int rows, int slot) {
+  // the lanes' (best, arg) to lane 0's: the lowest index among equal maxima
+  static __device__ __forceinline__ void scores_store(const Args& a, int row, float best,
+                                                      int arg) {
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+      const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
+      if (ob > best || (ob == best && oa < arg)) {
+        best = ob;
+        arg = oa;
+      }
+    }
+    if ((threadIdx.x & 31) == 0) a.scores[row] = arg;
+  }
+
+  // scores of a row that is not 16-byte aligned: scalar loads
+  static __device__ void scores_scalar(const Args& a, int row) {
     const int m = a.n_items, lane = threadIdx.x & 31;
-    const int n_gw = grid_threads() >> 5;
-    for (int r = first_row(slot, rows); r < rows; r += n_gw) {
-      const float* row = a.R + (size_t)(row0 + r) * m;
-      const float bias = __ldcg(a.bias_in + row0 + r);
-      float best = -INFINITY;
-      int arg = m;
-      for (int c = lane; c < m; c += 32) {
-        const float den = __fadd_rn(__fsqrt_rn(__ldcg(a.norms_in + c)), 1e-9f);
-        const float v = __fsub_rn(__fdiv_rn(row[c], den), bias);
-        if (v > best || arg == m) { best = v; arg = c; }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
-        if (ob > best || (ob == best && oa < arg)) { best = ob; arg = oa; }
-      }
-      if (lane == 0) a.scores[row0 + r] = arg;
-    }
+    const float* r1 = a.R + (size_t)row * m;
+    const float bias = __ldcg(a.bias_in + row);
+    float best = -INFINITY;
+    int arg = m;
+    for (int c = lane; c < m; c += 32) take(__ldcg(r1 + c), __ldca(a.den + c), bias, c, m, best, arg);
+    scores_store(a, row, best, arg);
   }
 
-  static __device__ int n_rows(const Args& a) { return a.n_users; }
+  static __device__ __forceinline__ float den_of(float norm) {
+    return __fadd_rn(__fsqrt_rn(norm), 1e-9f);
+  }
 
-  static __device__ void run(int body, const Args& a, const Walk& w, int row0,
-                             int slot, float*) {
-    if (body == 1) user_bias(a, row0, w.tile, slot);
-    else if (body == 2) scores(a, row0, w.tile, slot);
+  // Row j of the segment: its member, its row of R, its body (0: none
+  // here; item_norms folds as pieces).
+  struct RowOf {
+    int member, row, body;
+  };
+  template <class B>
+  static __device__ __forceinline__ RowOf row_of(const Walk& w, const B& b, int k0, int j) {
+    const int i = __ldg(w.walk + k0 + j / w.tile), sid = __ldg(w.table + 3 * i);
+    const int body = max(__ldg(w.body_of_sid + sid), 0);
+    const int member = __ldg(w.member_of_sid + sid);
+    return RowOf{member, slot_row0(w, i, b.m[member].n_users) + j % w.tile, body};
+  }
+
+  // Every row of the segment's walk slots, over every warp of the grid: the
+  // warp's rows j = gw + q n_gw, each cut into nb batches of 32 US vectors
+  // (nb from the widest member), make its work items t = q nb + batch. A
+  // scores row's batch is copied into the warp's ring (`buf`, lane-major:
+  // a lane reads back only its own copies) STAGES - 1 items ahead of the
+  // item it computes; a user_bias row runs at its first item, from
+  // registers.
+  template <class B>
+  static __device__ void segment(const Walk& w, const B& b, int k0, int k1, float* smem) {
+    const int lane = threadIdx.x & 31, gw = global_thread() >> 5;
+    const int n_gw = grid_threads() >> 5, total = (k1 - k0) * w.tile;
+    int n4_max = 0;
+    for (int m = 0; m < MAX_MEMBERS; ++m) n4_max = max(n4_max, b.m[m].n_items >> 2);
+    const int nb = max(1, (n4_max + 32 * US - 1) / (32 * US));
+    const int n_work = gw < total ? ((total - 1 - gw) / n_gw + 1) * nb : 0;
+    float4* buf = reinterpret_cast<float4*>(smem) + (threadIdx.x >> 5) * WARP_VECS;
+    auto copy_item = [&](int t) {
+      if (t < n_work) {
+        const RowOf r = row_of(w, b, k0, gw + t / nb * n_gw);
+        const Args& a = b.m[r.member];
+        if (r.body == 2 && vectors(a)) {
+          const int n4 = a.n_items >> 2;
+          const float* row = a.R + (size_t)r.row * a.n_items;
+#pragma unroll
+          for (int u = 0; u < US; ++u) {
+            const int k = t % nb * 32 * US + 32 * u + lane;
+            if (k < n4)
+              cp_async16(reinterpret_cast<float*>(buf + (t % STAGES * US + u) * 32 + lane),
+                         row + 4 * k, true);
+          }
+        }
+      }
+      cp_async_commit();  // one group an item, empty or not
+    };
+    for (int t = 0; t < STAGES - 1; ++t) copy_item(t);
+    float best = -INFINITY, bias = 0.f;
+    int arg = 0;
+    for (int t = 0; t < n_work; ++t) {
+      copy_item(t + STAGES - 1);
+      cp_async_wait<STAGES - 1>();  // item t's copies have landed
+      const RowOf r = row_of(w, b, k0, gw + t / nb * n_gw);
+      const Args& a = b.m[r.member];
+      const int batch = t % nb;
+      if (r.body == 1) {
+        if (batch == 0) user_bias(a, r.row);
+        continue;
+      }
+      if (r.body != 2) continue;
+      if (!vectors(a)) {
+        if (batch == 0) scores_scalar(a, r.row);
+        continue;
+      }
+      const int m = a.n_items, n4 = m >> 2;
+      if (batch == 0) {
+        best = -INFINITY;
+        arg = m;
+        bias = __ldcg(a.bias_in + r.row);
+      }
+      const float4* d4 = reinterpret_cast<const float4*>(a.den);
+#pragma unroll
+      for (int u = 0; u < US; ++u) {
+        const int k = batch * 32 * US + 32 * u + lane;
+        if (k < n4) {
+          const float4 x = buf[(t % STAGES * US + u) * 32 + lane];
+          const float4 d = __ldca(d4 + k);
+          take(x.x, d.x, bias, 4 * k, m, best, arg);
+          take(x.y, d.y, bias, 4 * k + 1, m, best, arg);
+          take(x.z, d.z, bias, 4 * k + 2, m, best, arg);
+          take(x.w, d.w, bias, 4 * k + 3, m, best, arg);
+        }
+      }
+      if (batch == nb - 1) scores_store(a, r.row, best, arg);
+    }
+    cp_async_wait<0>();
+  }
+
+  // den of every member whose item_norms this launch does not fold, once
+  // an item, then one grid barrier (only when some member needs it)
+  template <class B>
+  static __device__ void prologue(const Walk& w, const B& b) {
+    bool any = false;
+    for (int m = 0; m < MAX_MEMBERS; ++m) {
+      const Args& a = b.m[m];
+      if (a.den == nullptr || !a.den_pre) continue;
+      any = true;
+      for (int e = global_thread(); e < a.n_items; e += grid_threads())
+        a.den[e] = den_of(__ldcg(a.norms_in + e));
+    }
+    if (any) grid_barrier(w.barrier);
   }
 
   static __device__ void piece(int, const Args& a, const Walk& w,
@@ -546,20 +762,29 @@ struct Recommendation {
 
   static __device__ float* sum_out(int, const Args& a) { return a.item_norms; }
 
-  // host side: R, item_norms, user_bias, scores, norms_in, bias_in;
-  // n_users, n_items
-  static constexpr int NP = 6, ND = 2;
+  // the fold of item_norms entry e (= v) also writes its denominator
+  static __device__ void folded(int, const Args& a, int e, float v) {
+    if (a.den != nullptr) a.den[e] = den_of(v);
+  }
+
+  // host side: R, item_norms, user_bias, scores, norms_in, bias_in, den;
+  // n_users, n_items, den_pre
+  static constexpr int NP = 7, ND = 3;
   static Args unpack(void* const* p, const int* d) {
     return Args{(const float*)p[0], (float*)p[1], (float*)p[2], (int*)p[3],
-                (const float*)p[4], (const float*)p[5], d[0], d[1]};
+                (const float*)p[4], (const float*)p[5], (float*)p[6], d[0], d[1], d[2]};
   }
-  static size_t smem(const Args&, int) { return 0; }
+  // the scores pipeline's rings: one a warp
+  static size_t smem(const Args& a, int) {
+    return a.scores == nullptr ? 0 : sizeof(float4) * WARP_VECS * (THREADS / 32);
+  }
 };
 
 // ------------------------------------------------------------------- moe
 // Tensor-core pieces, as in csrc/flash_attention.cu: no-swizzle K-major
-// tiles in shared memory (16-byte chunk c of row r at byte (c ROWS + r) 16),
-// wgmma descriptors over them, and cp.async copies with zero fill.
+// tiles in shared memory (16-byte chunk c of row r at byte (c ROWS + r) 16)
+// filled by cp.async with zero fill (cp_async16, above), and wgmma
+// descriptors over them.
 constexpr int MT = 128;             // rows of an output tile: two warpgroups of 64
 constexpr int NT = 128;             // columns of an output tile: one wgmma's n
 constexpr int KT = 32;              // k of one stage: 8 chunks of 4 floats
@@ -571,21 +796,6 @@ constexpr int AHEAD = 2;            // stages of copies in flight ahead of the s
 // registers a thread holds: 168 at launch (65,536 over 384 threads), then
 // in the producer / consumer warpgroups 128 x 72 + 256 x 208 <= 65,536
 constexpr int LAUNCH_REGS = 168, PRODUCER_REGS = 72, CONSUMER_REGS = 208;
-
-// 16 bytes global -> shared, asynchronously; !valid writes zeros.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // mbarriers of the ring: `full` completes when the producers have split a
 // stage, `empty` when the consumers are done with it.
@@ -815,7 +1025,7 @@ __device__ __forceinline__ void consume(int K, int it0, float* smem, uint64_t* f
 // every thread anyway.
 __device__ __forceinline__ int uniform(int v) { return __shfl_sync(0xffffffffu, v, 0); }
 
-struct Moe {
+struct Moe : NoDerived {
   struct Args {
     const float* x;    // (E*C, d) dispatch buffer, expert g's slab at rows g*C
     const float* wi;   // (E, d, 2f)
@@ -947,7 +1157,7 @@ struct Moe {
 };
 
 // -------------------------------------------------------------------- cc
-struct Cc {
+struct Cc : NoDerived {
   struct Args {
     const float* G;        // (n, n) {0, 1} adjacency, or null
     const float* c_col;    // (n,) labels read along a row, or null
@@ -1050,8 +1260,9 @@ __device__ void fold(const Walk& w, const Members<P>& b, int j) {
   const int* in = w.inst + 4 * j;
   const int sid = __ldg(in), n_groups = __ldg(in + 1), entries = __ldg(in + 3);
   const float* part = w.scratch + __ldg(in + 2);
-  float* out = P::sum_out(__ldg(w.body_of_sid + sid),
-                          b.m[__ldg(w.member_of_sid + sid)]);
+  const int body = __ldg(w.body_of_sid + sid);
+  const typename P::Args& a = b.m[__ldg(w.member_of_sid + sid)];
+  float* out = P::sum_out(body, a);
   for (int e = global_thread(); e < entries; e += grid_threads()) {
     float v = out[e];
     for (int g0 = 0; g0 < n_groups; g0 += FOLD) {
@@ -1064,6 +1275,7 @@ __device__ void fold(const Walk& w, const Members<P>& b, int j) {
         if (g0 + u < n_groups) v += t[u];
     }
     out[e] = v;
+    P::folded(body, a, e, v);
   }
 }
 
@@ -1079,6 +1291,7 @@ walk_kernel(Walk w, Members<P> b) {
       st[2] = __ldg(w.table + 3 * i + 2);
       st[3] = i;
     }
+  P::prologue(w, b);
   for (int s = 0;; ++s) {
     if (s > 0) {  // segment s starts with a barrier; folds due here follow it
       const int f0 = __ldg(w.fold_ptr + s), f1 = __ldg(w.fold_ptr + s + 1);

@@ -35,7 +35,11 @@ launch end. ``fold_plan`` computes the groups, the pieces the CTAs take
 and the fold points from the table alone, so the result does not depend
 on the grid; the plain walker folds slot by slot. The CC program's int
 count of its producer's rows is taken where those rows are written
-(``count_fusion``), so a CC launch needs no grid barrier.
+(``count_fusion``), so a CC launch needs no grid barrier. The
+recommendation program's ``scores`` reads ``item_norms`` through one
+denominator an item (``DERIVED_READS``), computed once a launch: by the
+fold that publishes ``item_norms``, or, when the launch does not fold it,
+by a pass at the launch start behind one barrier (``FoldPlan.prepass``).
 
 A batched walk (``vee/apps.py:merge_device_lowerings``) holds up to
 ``MAX_MEMBERS`` members of one program; each stage's ``member`` picks the
@@ -64,7 +68,7 @@ from ._build import DAG_WALK, ptr, stream
 __all__ = ["WalkOperand", "WalkStage", "WalkCtx", "dag_walk", "dag_walk_plain",
            "dag_walk_stagewise", "dag_walk_sharded", "cuda_program",
            "sync_flags", "count_fusion", "fold_plan", "FoldPlan", "FOLD_GROUPS",
-           "FOLD_BODIES", "COUNTED_READS",
+           "FOLD_BODIES", "COUNTED_READS", "DERIVED_READS",
            "device_table_cache_stats", "clear_device_table_cache",
            "MAX_MEMBERS", "INNER_BODIES"]
 
@@ -101,6 +105,7 @@ class _DevicePlan:
     offs: tuple              # offsets of the 11 arrays in ``ints`` (-1: no counts)
     n_seg: int
     scratch: int             # floats of partials
+    prepass: frozenset       # FoldPlan.prepass
 
 
 def device_table_cache_stats() -> dict:
@@ -160,7 +165,7 @@ def _device_plan(entry: _DeviceTable, stages: list, body_map: list, members: lis
         offs[-1] = -1                               # the kernel gets a null pointer
     dp = entry.plans[sig] = _DevicePlan(
         ints=_pinned_put(ints, device), offs=tuple(offs), n_seg=plan.n_seg,
-        scratch=plan.scratch)
+        scratch=plan.scratch, prepass=frozenset(plan.prepass))
     return dp
 
 
@@ -531,6 +536,12 @@ def count_fusion(stages: list[WalkStage],
     return counts, skips
 
 
+#: consumer body -> the producer body it reads through a value derived
+#: from each of the producer's entries: the recommendation ``scores``
+#: body's denominator sqrt(item_norms[c]) + 1e-9, computed once an item a
+#: launch (csrc/dag_walk.cu: Recommendation)
+DERIVED_READS = {"recommendation.scores": "recommendation.item_norms"}
+
 #: a float ``sum`` stage's slots are cut into about this many groups
 FOLD_GROUPS = 512
 
@@ -565,6 +576,14 @@ class FoldPlan:
     ``count_fusion``'s consumer slots are planned as padding: they do no
     work and need no barrier. ``counts`` marks the producer slots that
     count for them (empty when the walk counts nothing that way).
+
+    ``prepass`` names the stages of ``DERIVED_READS`` bodies with slots in
+    the table whose member's producer stage the launch does not fold (it
+    is absent, has no slots here, or is walked alone in a stagewise
+    launch): their derived values are computed by a pass at the launch
+    start, behind one grid barrier. Where the producer folds in the
+    launch, its fold writes them, before the consumer's first slot, at no
+    barrier of its own.
     """
 
     flags: np.ndarray        # (n_slots,) uint8: a grid barrier before the slot
@@ -580,6 +599,7 @@ class FoldPlan:
     groups: dict             # stage name -> group of each of its slots, in order
     fold_at: dict            # stage name -> slot its fold precedes (n_slots: end)
     counts: np.ndarray       # (n_slots,) uint8: the slot also counts its rows, or (0,)
+    prepass: tuple = ()      # stages whose derived reads a launch-start pass computes
 
     @property
     def n_seg(self) -> int:
@@ -668,6 +688,11 @@ def fold_plan(stages: list[WalkStage], table: np.ndarray,
         else:
             fold_seg.append((n_seg, j))
             fold_at[st.name] = n
+    member_body = {(s.member, s.device_body): s.name for s in stages}
+    prepass = tuple(
+        st.name for k, st in enumerate(stages)
+        if st.device_body in DERIVED_READS and (real & (sid == k)).any()
+        and member_body.get((st.member, DERIVED_READS[st.device_body])) not in fold_at)
     pieces = np.concatenate(pieces) if pieces else np.zeros((0, 6), np.int64)
     pieces = pieces[np.argsort(pieces[:, 0], kind="stable")]  # by segment
     fold_seg.sort(key=lambda f: f[0])
@@ -685,7 +710,7 @@ def fold_plan(stages: list[WalkStage], table: np.ndarray,
         inst=np.array(inst, dtype=np.int32).reshape(-1, 4),
         group_size=group_size, groups=groups,
         fold_at={names[k]: fold_at[names[k]] for k in fold_sids if names[k] in fold_at},
-        counts=counts if counts.any() else np.zeros(0, np.uint8))
+        counts=counts if counts.any() else np.zeros(0, np.uint8), prepass=prepass)
 
 
 def _checked(t: torch.Tensor, shape: tuple, what: str, dtype=torch.float32) -> torch.Tensor:
@@ -696,11 +721,13 @@ def _checked(t: torch.Tensor, shape: tuple, what: str, dtype=torch.float32) -> t
 
 
 # Each program's argument builder turns one member's inputs ({body: [input
-# tensors]}), outputs ({body: output}) and inner step counts ({body:
-# inner}) into the pointers (tensors, or None for a null pointer) and int
-# sizes that csrc/dag_walk.cu's P::unpack reads, in its order.
+# tensors]}), outputs ({body: output}), inner step counts ({body: inner})
+# and whether the launch start computes its derived reads (``prepass``)
+# into the pointers (tensors, or None for a null pointer) and int sizes
+# that csrc/dag_walk.cu's P::unpack reads, in its order.
 
-def _linreg_args(inputs: dict, outs: dict, tile: int, inner: dict) -> tuple[list, list]:
+def _linreg_args(inputs: dict, outs: dict, tile: int, inner: dict,
+                 prepass: bool) -> tuple[list, list]:
     """X, y, moments, mom_in, syrk; n, d."""
     X = next(ins[0] for ins in inputs.values())
     n, d = X.shape
@@ -724,20 +751,26 @@ def _linreg_args(inputs: dict, outs: dict, tile: int, inner: dict) -> tuple[list
     return [X, y, mom, mom_in, syrk], [n, d]
 
 
-def _recommendation_args(inputs: dict, outs: dict, tile: int,
-                         inner: dict) -> tuple[list, list]:
-    """R, item_norms, user_bias, scores, norms_in, bias_in; n_users, n_items."""
+def _recommendation_args(inputs: dict, outs: dict, tile: int, inner: dict,
+                         prepass: bool) -> tuple[list, list]:
+    """R, item_norms, user_bias, scores, norms_in, bias_in, den; n_users,
+    n_items, den_pre.
+
+    ``den`` holds the scores body's denominator of each item, written
+    once a launch: by the fold of ``item_norms``, or (``den_pre``) by the
+    launch start from ``norms_in``."""
     R = next(ins[0] for ins in inputs.values())
     n_users, n_items = R.shape
     _checked(R, (n_users, n_items), "recommendation R")
     for body, ins in inputs.items():
         if ins[0].data_ptr() != R.data_ptr():
             raise ValueError(f"{body} must read the same R as the other bodies")
-    norms_in = bias_in = None
+    norms_in = bias_in = den = None
     if "recommendation.scores" in inputs:
         _, norms_in, bias_in = inputs["recommendation.scores"]
         _checked(norms_in, (n_items,), "item_norms read by scores")
         _checked(bias_in, (n_users,), "user_bias read by scores")
+        den = torch.empty(n_items, dtype=torch.float32, device=R.device)
     norms = outs.get("recommendation.item_norms")
     bias = outs.get("recommendation.user_bias")
     scores = outs.get("recommendation.scores")
@@ -747,10 +780,12 @@ def _recommendation_args(inputs: dict, outs: dict, tile: int,
         _checked(bias, (n_users,), "user_bias output")
     if scores is not None:
         _checked(scores, (n_users,), "scores output", torch.int32)
-    return [R, norms, bias, scores, norms_in, bias_in], [n_users, n_items]
+    return [R, norms, bias, scores, norms_in, bias_in, den], [n_users, n_items,
+                                                               int(prepass)]
 
 
-def _moe_args(inputs: dict, outs: dict, tile: int, inner: dict) -> tuple[list, list]:
+def _moe_args(inputs: dict, outs: dict, tile: int, inner: dict,
+              prepass: bool) -> tuple[list, list]:
     """x, wi, wo, out, h scratch; E*C, d, f (C = tile, one slab a slot).
 
     ``h`` holds every slab's gated activations (E*C, f): the kernel writes
@@ -771,7 +806,8 @@ def _moe_args(inputs: dict, outs: dict, tile: int, inner: dict) -> tuple[list, l
     return [x, wi, wo, out, h], [e * tile, d, f]
 
 
-def _cc_args(inputs: dict, outs: dict, tile: int, inner: dict) -> tuple[list, list]:
+def _cc_args(inputs: dict, outs: dict, tile: int, inner: dict,
+             prepass: bool) -> tuple[list, list]:
     """G, c_col, c_row, propagate, changed, prop_in; n, tile_c."""
     G = c_col = prop_in = None
     tile_c = 0
@@ -841,19 +877,21 @@ def _walk_cuda(stages, operands, values, table, tile, stamp):
         inputs[dense[s.member]][s.device_body] = ins
         by_body[dense[s.member]][s.device_body] = outs[s.name]
         inner[dense[s.member]][s.device_body] = s.inner
-    ptrs, dims = [], []
-    for m in range(n_members):
-        p, d = _ARGS[prog](inputs[m], by_body[m], tile, inner[m])
-        ptrs += p
-        dims += d
-    # host arrays of the members' pointers and sizes; `ptrs` keeps every
-    # tensor (the MoE scratch among them) alive through the launch
-    ptr_arr = (ctypes.c_void_p * len(ptrs))(
-        *[None if t is None else t.data_ptr() for t in ptrs])
-    dim_arr = (ctypes.c_int * len(dims))(*dims)
     entry = _device_table(table, device)
     plan = _device_plan(entry, stages, body_map, [dense[s.member] for s in stages],
                         table, device)
+    pre = {dense[s.member] for s in stages if s.name in plan.prepass}
+    ptrs, dims = [], []
+    for m in range(n_members):
+        p, d = _ARGS[prog](inputs[m], by_body[m], tile, inner[m], m in pre)
+        ptrs += p
+        dims += d
+    # host arrays of the members' pointers and sizes; `ptrs` keeps every
+    # tensor (the MoE and recommendation scratch among them) alive through
+    # the launch
+    ptr_arr = (ctypes.c_void_p * len(ptrs))(
+        *[None if t is None else t.data_ptr() for t in ptrs])
+    dim_arr = (ctypes.c_int * len(dims))(*dims)
     off_arr = (ctypes.c_int * len(plan.offs))(*plan.offs)
     scratch = torch.empty(max(plan.scratch, 1), dtype=torch.float32, device=device)
     stamps = torch.zeros((n_slots, 4), dtype=torch.int32, device=device) if stamp else None

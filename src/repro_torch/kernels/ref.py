@@ -92,3 +92,27 @@ def tf32_round(a: torch.Tensor) -> torch.Tensor:
     u = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
     return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32).view(torch.float32)
 
+
+def user_bias_ref(R: torch.Tensor, vectors: bool | None = None) -> torch.Tensor:
+    """The walker's ``user_bias`` row means in its own order of additions,
+    in float32 (csrc/dag_walk.cu: Recommendation): lane l of a warp adds
+    its columns c = 4 (l + 32 k) + e (16-byte vectors; ``vectors``, the
+    default when n_items % 4 == 0) or c = l + 32 k (scalars), k and e
+    ascending, into one accumulator; an xor tree over lane offsets 16, 8,
+    4, 2, 1 adds the lanes; the sum is divided by n_items. Columns past
+    the row add zeros, which leave a sum unchanged."""
+    n, m = R.shape
+    if vectors is None:
+        vectors = m % 4 == 0
+    width = 128 if vectors else 32
+    Rp = torch.zeros((n, -(-m // width) * width), dtype=torch.float32)
+    Rp[:, :m] = R.float().cpu()
+    Rp = Rp.view(n, -1, 32, 4) if vectors else Rp.view(n, -1, 32, 1)
+    s = torch.zeros((n, 32), dtype=torch.float32)
+    for k in range(Rp.shape[1]):
+        for e in range(Rp.shape[3]):
+            s = s + Rp[:, k, :, e]
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[:, lanes ^ off]
+    return (s[:, 0] / m).to(R.device)

@@ -661,6 +661,142 @@ def test_batched_walk_with_a_group_across_a_barrier(cuda):
         _close_sum(got[k], want[k], k)
 
 
+# ---------------------------------------------------------------------------
+# the recommendation program's rows: every warp of the grid, den once an item
+# ---------------------------------------------------------------------------
+
+# users: 37 tiles, a count no grid's warps divide; items: 16-byte vectors
+# with a partial batch (260, 1028), scalars (130, 258, 2050), and R at an
+# offset of one float ("misaligned": scalar loads at 260 items)
+REC_SHAPES = [(37 * 64, 130), (37 * 64, 258), (37 * 64, 260), (37 * 64, 1028),
+              (37 * 64, 2050), (37 * 64, 260, "misaligned")]
+EPS32 = 2.0 ** -23
+
+
+def _rec_lowering(cuda, users, items, seed=0, misaligned=False):
+    low = tapps.recommendation_device_lowering(users, items, seed=seed, device=cuda)
+    if misaligned:
+        R = low.values["R"]
+        buf = torch.empty(R.numel() + 1, dtype=R.dtype, device=cuda)
+        low.values["R"] = buf[1:].view(R.shape)
+        low.values["R"].copy_(R)
+        assert low.values["R"].data_ptr() % 16
+    return low
+
+
+def _user_bias_checks(got, R, vectors):
+    """The smoke's user_bias limit, eps32 sqrt(I) sum|R[r]| / I against the
+    plain body, and the emulated order of additions, bitwise."""
+    items = R.shape[1]
+    lim = EPS32 * math.sqrt(items) * R.abs().sum(1).double() / items
+    assert ((got.double() - R.mean(1).double()).abs() <= lim).all()
+    assert torch.equal(got.cpu(), tref.user_bias_ref(R, vectors=vectors).cpu())
+
+
+@pytest.mark.parametrize("shape", REC_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_recommendation_rows_at_odd_shapes(cuda, shape):
+    """scores bitwise the plain body; user_bias in its emulated order and
+    within the smoke's limit; the stagewise walk (den from a launch-start
+    pass) bitwise the fused walk (den from item_norms' fold)."""
+    users, items = shape[:2]
+    low = _rec_lowering(cuda, users, items, misaligned=len(shape) > 2)
+    rows = _rows(low, "GSS")[0]
+    before = _build.DAG_WALK.launches["walk_recommendation"]
+    got, stamps = twalk.dag_walk(low.stages, low.operands, low.values, rows,
+                                 low.tile, stamp=True)
+    assert _build.DAG_WALK.launches["walk_recommendation"] == before + 1
+    assert np.array_equal(stamps, np.c_[rows, np.arange(len(rows))])
+    R = low.values["R"]
+    assert torch.equal(got["scores"], tapps.scores_plain(R, got["item_norms"],
+                                                         got["user_bias"]))
+    _user_bias_checks(got["user_bias"], R, items % 4 == 0 and len(shape) == 2)
+    sw = twalk.dag_walk_stagewise(low.stages, low.operands, low.values, rows, low.tile)
+    for k in got:
+        assert torch.equal(sw[k], got[k]), k
+
+
+def _plant_ties(R, rng, n_rows):
+    """Rows 0 .. n_rows - 1 each get 2 or 3 columns of their own, 1.0 in
+    that row and 0 elsewhere: the columns' norms are 1, so their scores tie
+    at the row's maximum. Returns each planted row's first such column."""
+    cols = rng.permutation(R.shape[1])[:3 * n_rows].reshape(n_rows, 3)
+    R[:, cols.ravel()] = 0.0
+    first = []
+    for r, c in enumerate(cols):
+        c = c[:2 + r % 2]
+        R[r, c] = 1.0
+        first.append(int(c.min()))
+    return np.array(first)
+
+
+@pytest.mark.parametrize("items", [260, 2048])
+def test_scores_take_the_first_index_on_planted_ties(cuda, items):
+    """Rows whose maximum two or three columns share (in one 16-byte
+    vector, one lane's later vectors, other lanes): the lowest index wins,
+    fused and stagewise."""
+    low = _rec_lowering(cuda, 37 * 64, items)
+    R = low.values["R"].cpu().numpy()
+    n = min(200, items // 3)
+    first = _plant_ties(R, np.random.default_rng(items), n)
+    low.values["R"] = torch.from_numpy(R).to(cuda)
+    rows = _rows(low, "GSS")[0]
+    got = twalk.dag_walk(low.stages, low.operands, low.values, rows, low.tile)
+    assert np.array_equal(got["scores"][:n].cpu().numpy(), first)
+    assert torch.equal(got["scores"], tapps.scores_plain(
+        low.values["R"], got["item_norms"], got["user_bias"]))
+    sw = twalk.dag_walk_stagewise(low.stages, low.operands, low.values, rows, low.tile)
+    assert torch.equal(sw["scores"], got["scores"])
+
+
+def test_user_bias_within_the_smokes_limit(cuda):
+    """A batched member's size, 8,192 x 2,048: every row within the
+    smoke's limit and in the emulated order."""
+    low = _rec_lowering(cuda, 8192, 2048, seed=3)
+    got, _ = tapps.run_device_dag(low)
+    _user_bias_checks(got["user_bias"], low.values["R"], True)
+
+
+def test_recommendation_batch_of_eight_bitwise_its_singles(cuda):
+    """Eight members (odd widths: 37 tiles, 260 items) in one launch: each
+    member's rows land on other warps than in its single walk, and every
+    output stays bitwise."""
+    lows = [_rec_lowering(cuda, 37 * 64, 260, seed=s) for s in range(1, 9)]
+    singles = [tapps.run_device_dag(low, "GSS")[0] for low in lows]
+    merged = tapps.merge_device_lowerings(lows)
+    before = _build.DAG_WALK.launches["walk_recommendation"]
+    vals, _ = tapps.run_device_dag(merged, "GSS")
+    assert _build.DAG_WALK.launches["walk_recommendation"] == before + 1
+    for j, member in enumerate(tapps.split_device_values(vals, len(lows))):
+        for k in singles[j]:
+            assert torch.equal(member[k], singles[j][k]), (j, k)
+
+
+@pytest.mark.parametrize("cut", [10, 2 * 37 + 5])
+def test_seeded_remainder_bitwise_the_migrated_entry_point(cuda, cut):
+    """K3: the remainder walk of a host checkpoint repeats the migrated
+    entry point's bits on every row it walks, with item_norms seeded (cut
+    10: den from its fold) or finished on the host (cut 79: den from the
+    launch-start pass); its scores are the plain body's on those rows."""
+    users, items = 37 * 64, 260
+    low = _rec_lowering(cuda, users, items)
+    plan = _seeded_remainder(low, cut)
+    assert ("item_norms" in [s.name for s in plan.stages]) == (cut == 10)
+    got = plan.walk()
+    top, vals, _ = tapps.recommendation_migrated(users, items, cut,
+                                                 direction="host_to_device", device=cuda)
+    for s in plan.stages:
+        if s.combine == "sum":
+            assert torch.equal(got[s.name], vals[s.name]), s.name
+            continue
+        rows = torch.from_numpy(np.concatenate(
+            [np.arange(t * 64, (t + 1) * 64) for t in sorted(plan.need[s.name])])).to(cuda)
+        assert torch.equal(got[s.name][rows], vals[s.name][rows]), s.name
+    rows = torch.from_numpy(np.concatenate(
+        [np.arange(t * 64, (t + 1) * 64) for t in sorted(plan.need["scores"])])).to(cuda)
+    want = tapps.scores_plain(low.values["R"], vals["item_norms"], vals["user_bias"])
+    assert torch.equal(top[rows], want[rows])
+
+
 def test_model_prefill_on_card_matches_cpu(cuda):
     """A reduced Granite prefill of 1,088 tokens (the chunked impl: K4 on
     the card, its plain version on the CPU). bf16 activations round at

@@ -272,6 +272,100 @@ def test_fold_points_on_a_dag_with_a_sum_read_mid_table():
 
 
 # ---------------------------------------------------------------------------
+# scores' denominators: written by item_norms' fold, or by a launch-start
+# pass behind one barrier (FoldPlan.prepass)
+# ---------------------------------------------------------------------------
+
+def _emulated_barriers(plan):
+    """The grid barriers csrc/dag_walk.cu's walk_kernel runs on ``plan``:
+    the prepass's, then per segment start s > 0 one barrier, and a second
+    after the folds due there; at the launch end one before the folds."""
+    n = int(bool(plan.prepass))
+    for s in range(1, plan.n_seg + 1):
+        due = plan.fold_ptr[s + 1] > plan.fold_ptr[s]
+        if s < plan.n_seg or due:
+            n += 1
+        if due and s < plan.n_seg:
+            n += 1
+    return n
+
+
+@pytest.mark.parametrize("technique", TECHNIQUES)
+def test_fused_recommendation_writes_den_in_the_fold(technique):
+    """A fused walk folds item_norms at the barrier before the first scores
+    slot: that fold writes den, so no prepass and no barrier of its own
+    (one barrier before scores, one after the fold)."""
+    low = _lowering("recommendation")
+    rows = _rows(low, technique)[0]
+    plan = twalk.fold_plan(low.stages, rows)
+    assert plan.prepass == ()
+    assert _emulated_barriers(plan) == 2
+
+
+def test_stagewise_scores_computes_den_at_the_launch_start():
+    """dag_walk_stagewise's scores launch reads item_norms from an earlier
+    launch: den is a prepass, one barrier; the item_norms and user_bias
+    launches have none."""
+    low = _lowering("recommendation")
+    rows = _rows(low, "GSS")[0]
+    want = {"item_norms": ((), 1), "user_bias": ((), 0), "scores": (("scores",), 1)}
+    for k, st in enumerate(low.stages):
+        sub = rows[(rows[:, 0] == k) & (rows[:, 2] > 0)].copy()
+        sub[:, 0] = 0
+        solo = dataclasses.replace(st, operands=st.operands + tuple(p for p, _ in st.reads),
+                                   reads=())
+        plan = twalk.fold_plan([solo], sub)
+        assert (plan.prepass, _emulated_barriers(plan)) == want[st.name]
+
+
+@pytest.mark.parametrize("cut,prepass", [(200, ()), (2 * 300 + 20, ("scores",))])
+def test_remainder_walks_plan_den_where_item_norms_is(cut, prepass):
+    """A K3 remainder that still walks item_norms (seeded) folds den with
+    it; one whose item_norms the host finished reads it as an operand, so
+    den is a prepass. Both have the barrier before scores (it reads the
+    replayed user_bias rows) and one more: the fold's, or the prepass's."""
+    low = _lowering("recommendation")
+    cfg = SchedulerConfig(technique="SS", queue_layout="CENTRALIZED", n_workers=1)
+    _, ck = PreemptiveRunner(low.dag, cfg, preempt_after=cut).run()
+    rem = device_remainder(ck, low)
+    assert ("item_norms" in [s.name for s in rem.stages]) == (not prepass)
+    plan = twalk.fold_plan(rem.stages, rem.table)
+    assert plan.prepass == prepass
+    assert _emulated_barriers(plan) == 2
+
+
+def test_batched_recommendation_plans_den_per_member():
+    """Members fused in one table fold their own den; the stagewise walk of
+    the batch's scores stages (all members in one launch) is one prepass."""
+    merged = tapps.merge_device_lowerings([_lowering("recommendation", seed=s)
+                                           for s in (1, 2, 3)])
+    rows = _rows(merged, "TSS")[0]
+    plan = twalk.fold_plan(merged.stages, rows)
+    assert plan.prepass == ()
+    ks = [k for k, st in enumerate(merged.stages) if st.name.startswith("scores")]
+    sub = rows[np.isin(rows[:, 0], ks) & (rows[:, 2] > 0)].copy()
+    sub[:, 0] = np.searchsorted(ks, sub[:, 0])
+    solo = [dataclasses.replace(merged.stages[k], reads=(),
+                                operands=merged.stages[k].operands
+                                + tuple(p for p, _ in merged.stages[k].reads))
+            for k in ks]
+    plan = twalk.fold_plan(solo, sub)
+    assert sorted(plan.prepass) == [f"scores#{j}" for j in range(3)]
+    assert _emulated_barriers(plan) == 1
+
+
+def test_no_prepass_without_scores_slots():
+    """A table without scores slots (a device prefix that stops before
+    them) computes no den."""
+    low = _lowering("recommendation")
+    table, _ = _ss_table(low.dag)
+    live = table[table[:, 2] > 0]
+    prefix = live[:len(live) // 2].copy()
+    prefix[:, 1:] *= low.tile
+    assert twalk.fold_plan(low.stages, prefix).prepass == ()
+
+
+# ---------------------------------------------------------------------------
 # nothing depends on the grid
 # ---------------------------------------------------------------------------
 
