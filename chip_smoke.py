@@ -60,8 +60,13 @@ launches and no other; ``--arch zamba2-7b``: exactly 81 x 6 = 486 K5 and
 13 x 6 = 78 K4 launches at dh 112), each scan held to its float64 oracle
 and its plain version, output and final state, on the served call's own
 inputs and on randn (fast decay for K6), and K4 at dh 112 to its float64
-oracle. The rows of the kernels redesigned since their first port carry
-``redesigned: true`` (``REDESIGNED``). Each phase
+oracle. K5 runs split TF32 on the tensor cores in two launches a call
+(counted once): its row gives the device ms of both by ``torch.profiler``
+and requires the profiler to record the two launches a call,
+requires a tensor-core instruction (HMMA) in the SASS of each of its
+kernels, and takes the least bound over chunk lengths and over two routes,
+fp32 FMA and split TF32. The rows of the kernels redesigned since their
+first port carry ``redesigned: true`` (``REDESIGNED``). Each phase
 frees its weights before the next draws its own. TF32
 is off for every check and time (``allow_tf32 = False``), so library
 calls run in full fp32. Any failed
@@ -189,6 +194,9 @@ RWKV_LAYERS, ZAMBA_MAMBA_LAYERS, ZAMBA_SUPER_BLOCKS = 32, 81, 13
 # rounded to bfloat16, held to the oracle of the unrounded inputs, must
 # pass the limit somewhere.
 SCAN_ROUNDINGS = 3
+# Launches of a small kernel that open each profiler session of
+# `kernel_device_ms`, in the places whose records the profiler drops
+PROFILE_FILLER = 1000
 # H100 SXM special-function units: 16 results (expf's ex2) a clock per SM,
 # 132 SMs at 1.98 GHz (the clock that gives PEAK_FP32)
 PEAK_SFU = 132 * 16 * 1.98e9
@@ -199,7 +207,7 @@ REDESIGNED = frozenset({
     "dag_walk[linreg]", "dag_walk[recommendation]", "dag_walk[linreg, batched x8]",
     "dag_walk[recommendation, batched x8]", "dag_walk[linreg, seeded]",
     "dag_walk[recommendation, seeded]", "flash_attention", "flash_attention[dh 112, Zamba2]",
-    "dag_walk[moe.experts]", "dag_walk[cc_iteration]",
+    "dag_walk[moe.experts]", "dag_walk[cc_iteration]", "ssm_scan",
 })
 MIGRATIONS = (
     ("linreg", "host_to_device", LIN_UNITS + 128),
@@ -418,34 +426,47 @@ def timed(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def walk_device_ms(fn, reps: int = 5):
-    """Device milliseconds of a walker launch of ``fn()`` (which launches
-    the walker once), by ``torch.profiler``: the kernel's own time, without
-    the host's enqueue, which the CUDA-event ``ms`` also holds; the mean
-    over the launches the profiler recorded, which can be fewer than
-    ``reps``. "not measured" where the profiler reports no walker row."""
+def kernel_device_ms(fn, names: tuple = ("walk_kernel",), reps: int = 5) -> dict:
+    """Device milliseconds of one call of ``fn()`` by ``torch.profiler``:
+    the kernels' own time, without the host's enqueue, which the CUDA-event
+    ``ms`` also holds: the device time of the kernels named in ``names``
+    (the walker's by default) over ``reps`` calls, divided by ``reps``.
+    ``fn`` launches each of them at least once a call; where the session
+    recorded fewer than ``reps`` launches of a name, ``device_ms`` is "not
+    measured". ``device_launches_per_call``: the launches of ``names`` the
+    session recorded, over ``reps``. After sessions of thousands of
+    launches (the decode steps'), the profiler drops the first records of
+    each later session as outside its window (Kineto's "Out-of-range"),
+    a few more after each such session; so the session opens with
+    ``PROFILE_FILLER`` launches of a small kernel that take those places."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    filler = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_FILLER):
+            filler.add_(1)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "walk_kernel" in e.key]
-    if not rows:
-        return "not measured"
-    return sum(e.self_device_time_total for e in rows) / 1e3 / sum(e.count for e in rows)
+    device_rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    counts = [sum(e.count for e in device_rows if name in e.key) for name in names]
+    ms = sum(e.self_device_time_total for e in device_rows
+             if any(name in e.key for name in names)) / 1e3 / reps
+    return dict(device_ms=ms if min(counts) >= reps else
+                f"not measured ({len(device_rows)} device rows, launches of {list(names)}: "
+                f"{counts} in {reps} calls)",
+                device_launches_per_call=sum(counts) / reps)
 
 
 def walk_stages(low, rows, values: dict) -> dict:
     """Each stage of ``low`` walked alone on the card (``solo_walk``),
     reading the fused walk's ``values``: the walker kernel's device ms of
-    each stage."""
-    return {st.name: walk_device_ms(solo_walk(low, rows, st.name, values)[0])
+    each stage and the launches it recorded."""
+    return {st.name: kernel_device_ms(solo_walk(low, rows, st.name, values)[0])
             for st in low.stages}
 
 
@@ -485,25 +506,36 @@ def bound_ms(n_bytes: float, flops: float, peak: float = PEAK_FP32) -> tuple[flo
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def scan_bound(n_bytes: float, work, q_max: int) -> dict:
+def scan_bound(n_bytes: float, work, q_max: int, tf32_work=None) -> dict:
     """Least time for a chunked scan's function on the card: its bytes at
     the memory rate, or the least over chunk lengths q dividing ``q_max``
-    (q = 1 is the step-by-step recurrence) of its fp32 operations and its
-    ``expf``, each at its peak rate. ``work(q)`` gives ``(flops, exps)``
-    for the whole input at chunk q: chunk boundaries choose how the sums
-    are grouped, not what the function is."""
-    t_ops, q, flops, exps = min(
-        (max(f / PEAK_FP32, e / PEAK_SFU) * 1e3, q, f, e)
-        for q in range(1, q_max + 1) if q_max % q == 0 for f, e in [work(q)])
+    (q = 1 is the step-by-step recurrence) and over routes of its
+    operations, each kind at its peak rate, the slowest kind setting the
+    time. Routes: fp32 FMA, ``work(q)`` giving ``(flops, exps)`` for the
+    whole input at chunk q; and, where ``tf32_work`` is given, split TF32
+    on the tensor cores, ``tf32_work(q)`` giving ``(tf32 flops of the
+    products, counted once a TF32 product, fp32 flops of the rest, exps)``.
+    Chunk boundaries choose how the sums are grouped, not what the
+    function is."""
+    routes = [(max(f / PEAK_FP32, e / PEAK_SFU) * 1e3, q, "fp32", f, e)
+              for q in range(1, q_max + 1) if q_max % q == 0 for f, e in [work(q)]]
+    if tf32_work is not None:
+        routes += [(max(t / PEAK_TF32, f / PEAK_FP32, e / PEAK_SFU) * 1e3, q, "split TF32",
+                    t + f, e)
+                   for q in range(1, q_max + 1) if q_max % q == 0
+                   for t, f, e in [tf32_work(q)]]
+    t_ops, q, route, flops, exps = min(routes)
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_chunk=q, flops=flops, exps=exps, bytes=n_bytes)
+                bound_by="bytes" if t_bytes >= t_ops else f"operations, {route}",
+                bound_chunk=q, bound_route=route, ops_bound_ms=t_ops, flops=flops, exps=exps,
+                bytes=n_bytes)
 
 
-def walk_sass_has(program: str, word: str) -> bool:
-    """Whether the SASS of the walker kernel of ``program`` (csrc/dag_walk.cu's
-    walk_kernel<program>) holds ``word``, by ``cuobjdump -sass``."""
+def sass_functions(kernel) -> list[str]:
+    """The SASS of each function in ``kernel``'s built library (a
+    ``_build.Kernel``), by ``cuobjdump -sass``: one string a function, its
+    mangled name on the first line."""
     import re
     import shutil
 
@@ -512,13 +544,33 @@ def walk_sass_has(program: str, word: str) -> bool:
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
     require(bool(tool), "cuobjdump not found beside nvcc")
-    sass = subprocess.run([tool, "-sass", str(_build.DAG_WALK.library)],
+    sass = subprocess.run([tool, "-sass", str(kernel.library)],
                           capture_output=True, text=True, check=True, timeout=120).stdout
-    funcs = [f for f in re.split(r"\n\s*Function : ", sass)
+    return re.split(r"\n\s*Function : ", sass)[1:]
+
+
+def walk_sass_has(program: str, word: str) -> bool:
+    """Whether the SASS of the walker kernel of ``program`` (csrc/dag_walk.cu's
+    walk_kernel<program>) holds ``word``."""
+    from repro_torch.kernels import _build
+
+    funcs = [f for f in sass_functions(_build.DAG_WALK)
              if "walk_kernel" in f.split("\n", 1)[0]
              and f"{len(program)}{program}E" in f.split("\n", 1)[0]]
     require(len(funcs) == 1, f"walk_kernel<{program}> not found in the SASS")
     return word in funcs[0]
+
+
+def ssm_sass_has(words: tuple) -> dict:
+    """For each of K5's kernels (csrc/ssm_scan.cu's ssm_states and
+    ssm_outputs, both input types), whether its SASS holds any of
+    ``words``."""
+    from repro_torch.kernels import _build
+
+    funcs = {f.split("\n", 1)[0].strip(): f for f in sass_functions(_build.SSM_SCAN)
+             if "ssm_states" in f.split("\n", 1)[0] or "ssm_outputs" in f.split("\n", 1)[0]}
+    require(len(funcs) == 4, f"K5's four kernels not found in the SASS: {sorted(funcs)}")
+    return {name: any(w in f for w in words) for name, f in funcs.items()}
 
 
 def card_line() -> str:
@@ -649,7 +701,7 @@ def moe_phase(dev, walk_inputs) -> dict:
         replaces="src/repro/kernels/dag_walk.py:218 (MoE program, "
                  "src/repro/vee/ml_apps.py:301)",
         launches=launches["walk_moe"], max_abs_err=err_p, max_abs_err_vs_float64=err_o,
-        ms=ms, device_ms=walk_device_ms(walk), plain_ms=timed(plain, 1, warmup=0),
+        ms=ms, **kernel_device_ms(walk), plain_ms=timed(plain, 1, warmup=0),
         library_ms=timed(library, 5),
         library_call="torch.bmm(x, wi) -> silu(g) * u -> torch.bmm(., wo) on (E, C, .)",
         shapes=f"x ({E * C}, {d}), wi ({E}, {d}, {2 * f}), wo ({E}, {f}, {d}) f32, "
@@ -804,7 +856,7 @@ def batched_phase(dev, walk_inputs) -> list[dict]:
             replaces="src/repro/kernels/dag_walk.py:218 (batched, "
                      "src/repro/vee/apps.py:485)",
             launches=batch_launches[f"walk_{pipe}"], max_abs_err=max(errs), ms=ms,
-            device_ms=walk_device_ms(walk),
+            **kernel_device_ms(walk),
             singles_ms=singles_ms, plain_ms=timed(plain, 1, warmup=0),
             library_ms=timed(library, 10), library_call=library_call, shapes=shapes,
             **chain, **dict(zip(("bound_ms", "bound_by"), bound_ms(b_bytes, b_flops)))))
@@ -874,7 +926,7 @@ def cc_iteration_phase(G, c, step) -> dict:
         replaces="src/repro/kernels/dag_walk.py:218 (CC-iteration program, "
                  "tests/test_device_dag.py:193)",
         launches=runs[1]["launches"]["walk_cc"], max_abs_err=max_err(got["propagate"], want),
-        ms=timed(walk, 20), device_ms=walk_device_ms(walk), plain_ms=timed(plain, 3),
+        ms=timed(walk, 20), **kernel_device_ms(walk), plain_ms=timed(plain, 3),
         library_ms=timed(lambda: torch.maximum((G * c).amax(1), c), 10),
         library_call="torch.maximum((G * c).amax(1), c) (propagate only)",
         shapes=f"G ({n}, {n}) f32, {len(table)} slots, tiles 256 x 1024",
@@ -1179,31 +1231,40 @@ def rwkv6_checks(inputs: dict, chunk: int) -> tuple[dict, float]:
     return checks, err
 
 
-def ssm_checks(inputs: dict, chunk: int) -> tuple[dict, float]:
-    """K5 on ``inputs`` (x, dt, A, B, C) against the float64 oracle and
-    the plain version (both without D * x, which lies outside the scan).
-    Returns the checks and the largest abs error."""
+def ssm_limits(x, dt, A, B, C, q: int) -> tuple:
+    """K5's float64 oracle of (y, state) at chunk ``q`` (without D * x),
+    each entry's limit against it (``scan_limits``) and the largest
+    |chunk cumsum| of dt A, for every check of K5, the smoke's and the
+    tests'."""
     import torch
 
     from repro_torch.kernels.ref import ssm_scan_ref
-    from repro_torch.kernels.ssm_scan import ssm_scan_plain, ssm_scan_state
 
-    x, dt, A, B, C = (inputs[n] for n in ("x", "dt", "A", "B", "C"))
-    bt, s, h, dh = x.shape
-    q = min(chunk, s)
-    got = ssm_scan_state(x, dt, A, B, C, chunk)
-    plain = ssm_scan_plain(x, dt, A, B, C, chunk)
-    control = ssm_scan_state(x, dt.bfloat16().float(), A, B, C, chunk)
+    bt, s, h, _ = x.shape
     zero = torch.zeros_like(A)
     oracle = ssm_scan_ref(x, dt, A, B, C, zero, dtype=torch.float64, return_state=True)
     abs_oracle = ssm_scan_ref(x.abs(), dt, A, B.abs(), C.abs(), zero,
                               dtype=torch.float64, return_state=True)
     cmax = (dt.double() * A.double()).reshape(bt, s // q, q, h).sum(2).abs().amax(1)
-    cmaxes = (cmax[:, None, :, None], cmax[:, :, None, None])
-    checks = scan_check("K5", got, plain, oracle, scan_limits(abs_oracle, cmaxes, q),
-                        control)
+    limits = scan_limits(abs_oracle, (cmax[:, None, :, None], cmax[:, :, None, None]), q)
+    return oracle, limits, float(cmax.max())
+
+
+def ssm_checks(inputs: dict, chunk: int) -> tuple[dict, float]:
+    """K5 on ``inputs`` (x, dt, A, B, C) against the float64 oracle and
+    the plain version (both without D * x, which lies outside the scan).
+    Returns the checks and the largest abs error."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain, ssm_scan_state
+
+    x, dt, A, B, C = (inputs[n] for n in ("x", "dt", "A", "B", "C"))
+    q = min(chunk, x.shape[1])
+    got = ssm_scan_state(x, dt, A, B, C, chunk)
+    plain = ssm_scan_plain(x, dt, A, B, C, chunk)
+    control = ssm_scan_state(x, dt.bfloat16().float(), A, B, C, chunk)
+    oracle, limits, cmax = ssm_limits(x, dt, A, B, C, q)
+    checks = scan_check("K5", got, plain, oracle, limits, control)
     err = max(max_err(g, p) for g, p in zip(got, plain))
-    checks["largest_chunk_cumsum"] = float(cmax.max())
+    checks["largest_chunk_cumsum"] = cmax
     return checks, err
 
 
@@ -1421,19 +1482,39 @@ def zamba2_phase(dev) -> list[dict]:
     kernel = lambda: ssm_scan_state(x, dt, A, B, C, chunk)  # noqa: E731
     plain = lambda: ssm_scan_plain(x, dt, A, B, C, chunk)  # noqa: E731
     k5_ms, plain_ms = timed(kernel, 10), timed(plain, 3)
+    k5_device = kernel_device_ms(kernel, ("ssm_states", "ssm_outputs"))
+    require(k5_device["device_launches_per_call"] == 2,
+            f"K5 under the profiler: {k5_device}; want 2 launches a call, ssm_states "
+            "and ssm_outputs")
+    k5_sass = ssm_sass_has(("HMMA", "HGMMA"))
+    require(all(k5_sass.values()), f"K5 issues no tensor-core instruction: {k5_sass}")
     # per token and head at chunk q: the carry-in C S^T and the update
     # (dt x w)^T B (2 dh N each), the state's decay once a chunk, (q + 1) / 2
     # steps of the chunk each (gate and dt: 2; scores x: 2 dh; C B^T: 2 N,
     # once for all h heads), the carry-in's scaling and dt x (2 dh), the
     # cumsum and w dt (2); expf: the gate's (q - 1) / 2, exp(cum_t) and
-    # exp(cum_q - cum_s) for all but one step, exp(cum_q) once a chunk
+    # exp(cum_q - cum_s) for all but one step, exp(cum_q) once a chunk. On
+    # split TF32 (bf16 x, B, C: exact in TF32) C B^T takes one TF32 product
+    # and the other three, each with one fp32 operand, two.
+    exps = lambda q: bt * s * h * ((q - 1) / 2 + 2 * (q - 1) / q + 1 / q)  # noqa: E731
+    rest = lambda q: bt * s * h * (dh * n / q + (q + 1) + 2 * dh + 2)  # noqa: E731
     bound = scan_bound(
         x.numel() * 2 + dt.numel() * 4 + A.numel() * 4 + 2 * B.numel() * 2
         + 4 * (bt * s * h * dh + bt * h * dh * n),
-        lambda q: (bt * s * h * (4 * dh * n + dh * n / q
-                                 + (q + 1) / 2 * (2 + 2 * dh + 2 * n / h) + 2 * dh + 2),
-                   bt * s * h * ((q - 1) / 2 + 2 * (q - 1) / q + 1 / q)),
-        chunk)
+        lambda q: (bt * s * h * (4 * dh * n + (q + 1) / 2 * (2 * dh + 2 * n / h)) + rest(q),
+                   exps(q)),
+        chunk,
+        tf32_work=lambda q: (bt * s * h * (2 * 4 * dh * n + (q + 1) / 2
+                                           * (2 * 2 * dh + 2 * n / h)), rest(q), exps(q)))
+    # the two launches' own bytes, reckoned from the shapes (the serve line's
+    # k5_design_bytes, not a measurement): ssm_states reads x, B, dt, writes cum
+    # and reads it back, writes the entering states (chunks 1 ..) and the
+    # final state; ssm_outputs reads x, B, C, dt, cum and the entering
+    # states and writes y
+    states_bytes = 4 * bt * h * (s // chunk - 1) * dh * n
+    design_bytes = (2 * x.numel() * 2 + 3 * B.numel() * 2 + 2 * dt.numel() * 4
+                    + 3 * 4 * bt * h * s + 2 * states_bytes
+                    + 4 * (bt * s * h * dh + bt * h * dh * n))
 
     # K4 at dh 112: the last shared-attention call of the first prefill
     (q, k, v), kw4 = kept["flash_attention"]
@@ -1458,7 +1539,8 @@ def zamba2_phase(dev) -> list[dict]:
                               f"batch's prefill, x strides {list(x.stride())}, B strides "
                               f"{list(B.stride())}", "randn": "bf16 randn x, B, C; "
                               "dt = softplus(randn), A = -exp(randn / 2)"},
-         k5_checks=checks,
+         k5_checks=checks, k5_design_bytes=design_bytes,
+         k5_design_bytes_ms=design_bytes / PEAK_BYTES * 1e3,
          k4_dh112_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in k4.items()},
          k4_dh112_vs_plain={w_: [c["err_p"], c["share_p"]] for w_, c in k4.items()})
     return [dict(
@@ -1467,8 +1549,9 @@ def zamba2_phase(dev) -> list[dict]:
         launches=k5_launches, max_abs_err=max(errs),
         max_abs_err_vs_float64=max(c[p]["vs_float64"][0] for c in checks.values()
                                    for p in ("y", "state")),
-        ms=k5_ms, plain_ms=plain_ms, library_ms=None,
+        ms=k5_ms, **k5_device, plain_ms=plain_ms, library_ms=None,
         library_call="none: no one PyTorch call computes the Mamba2 SSD scan",
+        sass_has_tensor_core_op=k5_sass,
         shapes=f"x ({bt}, {s}, {h}, {dh}) bf16 (a strided view of the conv output), "
                f"B, C ({bt}, {s}, {n}) bf16 views, dt f32, chunk {chunk}; y and final "
                "state f32",
@@ -1709,7 +1792,7 @@ def main() -> None:
         name="dag_walk[linreg]", route="cuda", source="src/repro_torch/csrc/dag_walk.cu",
         replaces="src/repro/kernels/dag_walk.py:218",
         launches=launches.get("walk_linreg", 0), max_abs_err=results["linreg"]["max_abs_err"],
-        ms=timed(walk_lin, 5), device_ms=walk_device_ms(walk_lin),
+        ms=timed(walk_lin, 5), **kernel_device_ms(walk_lin),
         plain_ms=timed(lambda: dag_walk_plain(lin.stages, lin.operands, lin.values,
                                               lin_rows, TILE), 2, warmup=0),
         library_ms=timed(lambda: X1y.T @ X1y, 10),
@@ -1728,7 +1811,7 @@ def main() -> None:
         replaces="src/repro/kernels/dag_walk.py:218",
         launches=launches.get("walk_recommendation", 0),
         max_abs_err=results["recommendation"]["max_abs_err"],
-        ms=timed(walk_rec, 10), device_ms=walk_device_ms(walk_rec),
+        ms=timed(walk_rec, 10), **kernel_device_ms(walk_rec),
         plain_ms=timed(lambda: dag_walk_plain(rec.stages, rec.operands, rec.values,
                                               rec_rows, TILE), 3),
         library_ms=timed(lambda: R.square().sum(0), 10),
@@ -1862,7 +1945,7 @@ def main() -> None:
         source="src/repro_torch/csrc/dag_walk.cu",
         replaces="src/repro/core/preempt.py:583",
         launches=migrated[("linreg", "host_to_device")]["launches"]["walk_linreg"],
-        max_abs_err=err_k3, ms=timed(walk_k3, 5), device_ms=walk_device_ms(walk_k3),
+        max_abs_err=err_k3, ms=timed(walk_k3, 5), **kernel_device_ms(walk_k3),
         plain_ms=timed(plain_k3, 1, warmup=0),
         library_ms=timed(lambda: torch.addmm(seed_syrk, X1yr[:, :d + 1].T, X1yr), 10),
         library_call="torch.addmm(seed, X1r.T, [X1r | yr]) over the walked rows, "
@@ -1899,7 +1982,7 @@ def main() -> None:
         launches=migrated[("recommendation", "host_to_device")]["launches"][
             "walk_recommendation"],
         max_abs_err=err_k3r, ms=timed(walk_k3r, 10),
-        device_ms=walk_device_ms(walk_k3r), plain_ms=timed(plain_k3r, 3),
+        **kernel_device_ms(walk_k3r), plain_ms=timed(plain_k3r, 3),
         library_ms=None,
         library_call="none: no one PyTorch call computes norms, bias and scores",
         library_chain_ms=timed(lambda: rec_chain(

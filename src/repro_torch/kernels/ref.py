@@ -93,6 +93,131 @@ def tf32_round(a: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32).view(torch.float32)
 
 
+def _split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``a = big + small`` to about 21 bits: ``big = tf32(a)``, ``small =
+    tf32(a - big)`` (the subtraction is exact)."""
+    big = tf32_round(a)
+    return big, tf32_round(a - big)
+
+
+def _tf32_terms(a: torch.Tensor, b: torch.Tensor, a_exact: bool, b_exact: bool,
+                one: bool) -> list:
+    """The TF32 products that stand for the fp32 product ``a @ b``, in the
+    order csrc/ssm_scan.cu issues them: an operand exact in TF32 (bfloat16
+    data) is not split; one split operand takes ``small b + big b``; two
+    take ``a_small b_big + a_big b_small + a_big b_big``. ``one`` keeps
+    only the big halves (one TF32 product: the control)."""
+    if one:
+        return [(a if a_exact else tf32_round(a), b if b_exact else tf32_round(b))]
+    if a_exact and b_exact:
+        return [(a, b)]
+    if a_exact:
+        bb, bs = _split(b)
+        return [(a, bs), (a, bb)]
+    ab, as_ = _split(a)
+    if b_exact:
+        return [(as_, b), (ab, b)]
+    bb, bs = _split(b)
+    return [(as_, bb), (ab, bs), (ab, bb)]
+
+
+def _mma_sum(terms: list) -> torch.Tensor:
+    """fp32 sum of the products in ``terms`` over k-steps of 8, as the
+    tensor cores' m16n8k8 steps add them: each step adds every term's
+    eight products into the one accumulator, the terms in their order.
+    Products of TF32 values are exact in fp32."""
+    k = terms[0][0].shape[-1]
+    acc = None
+    for k0 in range(0, k, 8):
+        for a, b in terms:
+            p = a[..., k0:k0 + 8] @ b[..., k0:k0 + 8, :]
+            acc = p if acc is None else acc + p
+    return acc
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fmaf(a, b, c)`` on float32 tensors: the product is exact in
+    float64, the sum rounds once there and again to float32, which is the
+    single rounding of fmaf but where the float64 sum falls on a float32
+    tie (a 2^-29 chance a value)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def ssm_chunk_cumsum(dt: torch.Tensor, A: torch.Tensor, q: int) -> torch.Tensor:
+    """The inclusive cumsum of ``dt * A`` over each chunk of ``q`` steps, in
+    time order, in float32 with the product rounded before the add (the
+    kernel's ``__fadd_rn(acc, __fmul_rn(dt, a))``): ``(Bt, H, nc, q)`` for
+    dt ``(Bt, S, H)``."""
+    bt, s, h = dt.shape
+    da = (dt.float() * A.float()[None, None, :]).permute(0, 2, 1).reshape(bt, h, s // q, q)
+    cum = torch.empty_like(da)
+    acc = torch.zeros_like(da[..., 0])
+    for t in range(q):
+        acc = acc + da[..., t]
+        cum[..., t] = acc
+    return cum
+
+
+def ssm_state_pass(U: torch.Tensor, decay: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunk-state pass, chunks in order: ``state_c = fmaf(state_{c-1},
+    decay_c, U_c)`` from a zero state. ``U`` ``(Bt, H, nc, dh, N)``, decay
+    ``(Bt, H, nc)``. Returns the states entering each chunk ``(Bt, H, nc,
+    dh, N)`` (chunk 0's zero) and the final state."""
+    state = torch.zeros_like(U[:, :, 0])
+    entering = []
+    for c in range(U.shape[2]):
+        entering.append(state)
+        state = fma32(state, decay[:, :, c, None, None].expand_as(state), U[:, :, c])
+    return torch.stack(entering, dim=2), state
+
+
+def ssm_scan_split_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, q: int, one_tf32: bool = False,
+                       parts: bool = False):
+    """K5's arithmetic on the CPU (csrc/ssm_scan.cu): the chunk-parallel
+    SSD order with every matrix product on split TF32, in float32.
+
+    Per chunk of ``q`` steps, with ``cum`` from ``ssm_chunk_cumsum``:
+    the update ``U = (x w)^T B`` (``w_s = exp(cum_Q - cum_s) dt_s``) and the
+    decay ``exp(cum_Q)``; the state pass (``ssm_state_pass``); then the
+    output ``y = fmaf(exp(cum_t), C state^T, G x)`` with the gated scores
+    ``G[t, s] = (C B^T)[t, s] exp(cum_t - cum_s) dt_s`` for s <= t. Each
+    product's TF32 terms and their order are ``_tf32_terms``' (x, B and C
+    exact when bfloat16); ``one_tf32`` keeps only the big halves. Returns
+    ``(y, state)`` as ``ssm_scan_state`` does, and with ``parts`` also the
+    dict of ``cum``, ``U``, ``decay`` and the entering states."""
+    bt, s, h, dh = x.shape
+    n = B.shape[-1]
+    nc = s // q
+    exact = x.dtype == torch.bfloat16
+    xc = x.float().reshape(bt, nc, q, h, dh).permute(0, 3, 1, 2, 4)   # (Bt, H, nc, q, dh)
+    Bc = B.float().reshape(bt, 1, nc, q, n)
+    Cc = C.float().reshape(bt, 1, nc, q, n)
+    dtc = dt.float().permute(0, 2, 1).reshape(bt, h, nc, q)
+    cum = ssm_chunk_cumsum(dt, A, q)
+    # the state launch: each chunk's update and decay
+    w = torch.exp(cum[..., -1:] - cum) * dtc
+    xw = xc * w[..., None]
+    U = _mma_sum(_tf32_terms(xw.transpose(-1, -2), Bc.expand(bt, h, nc, q, n),
+                             False, exact, one_tf32))
+    decay = torch.exp(cum[..., -1])
+    entering, state = ssm_state_pass(U, decay)
+    # the output launch: each chunk's intra-chunk part and carry-in
+    cb = _mma_sum(_tf32_terms(Cc, Bc.transpose(-1, -2), exact, exact, one_tf32))
+    tri = torch.arange(q)[:, None] >= torch.arange(q)[None, :]
+    diff = cum[..., :, None] - cum[..., None, :]
+    G = torch.where(tri, cb * torch.exp(torch.where(tri, diff, 0.0)) * dtc[..., None, :],
+                    torch.zeros(()))
+    intra = _mma_sum(_tf32_terms(G, xc, False, exact, one_tf32))
+    carry = _mma_sum(_tf32_terms(Cc.expand(bt, h, nc, q, n), entering.transpose(-1, -2),
+                                 exact, False, one_tf32))
+    y = fma32(torch.exp(cum)[..., None].expand_as(carry), carry, intra)
+    y = y.permute(0, 2, 3, 1, 4).reshape(bt, s, h, dh)
+    if parts:
+        return y, state, dict(cum=cum, U=U, decay=decay, entering=entering)
+    return y, state
+
+
 def user_bias_ref(R: torch.Tensor, vectors: bool | None = None) -> torch.Tensor:
     """The walker's ``user_bias`` row means in its own order of additions,
     in float32 (csrc/dag_walk.cu: Recommendation): lane l of a warp adds

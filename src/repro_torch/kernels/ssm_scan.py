@@ -14,12 +14,17 @@ wrapper does; ``ssm_scan_state`` returns the scan without it and the final
 state, for the model, which adds ``D * x`` itself after the scan
 (``models/ssm.py:mamba2_block``) and stores the state in its decode cache.
 
-CUDA kernel: ``csrc/ssm_scan.cu`` (its note gives the design and the
-bound). On a CPU tensor the wrappers run ``ssm_scan_plain``, the same
+CUDA kernel: ``csrc/ssm_scan.cu`` (its note gives the design, the order
+of its split-TF32 products and the bound): the chunk-parallel SSD form in
+two launches, the chunks' updates and the state pass, then every chunk's
+output; ``kernels/ref.py:ssm_scan_split_ref`` emulates its arithmetic on
+the CPU. On a CPU tensor the wrappers run ``ssm_scan_plain``, the same
 chunk recurrence in PyTorch (the model's ``chunk_step``); on a CUDA
 tensor they launch the kernel or raise. The kernel reads x, B and C in
 place by their strides: the Pallas wrapper's broadcast of B and C over
-the heads and its transpose of x are not copied.
+the heads and its transpose of x are not copied. The wrapper allocates
+the kernel's scratch: each chunk's cumsum and the state entering each
+chunk (``S / Q`` states of ``dh * N`` floats a (batch, head)).
 """
 
 from __future__ import annotations
@@ -82,7 +87,8 @@ def ssm_scan_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x, B and C have a contiguous last axis (other strides are free).
     Anything else raises. A chunk above ``MAX_CHUNK`` (the default 128,
     the Pallas wrapper's) runs as sub-chunks of its largest divisor up to
-    ``MAX_CHUNK`` (``_build.kernel_chunk``).
+    ``MAX_CHUNK`` (``_build.kernel_chunk``). The kernel's two launches
+    count as one in ``SSM_SCAN.launches["ssm_scan"]``.
     """
     if x.device.type == "cpu":
         return ssm_scan_plain(x, dt, A, B, C, chunk)
@@ -115,9 +121,12 @@ def ssm_scan_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     A = A.contiguous()
     y = torch.empty((bt, s, h, dh), dtype=torch.float32, device=x.device)
     state = torch.empty((bt, h, dh, n), dtype=torch.float32, device=x.device)
+    cum = torch.empty((bt, h, s), dtype=torch.float32, device=x.device)
+    chunk_state = torch.empty((bt, h, s // q, dh, n), dtype=torch.float32, device=x.device)
     ll = ctypes.c_longlong
     SSM_SCAN.launch(
         "ssm_scan", ptr(x), ptr(dt), ptr(A), ptr(B), ptr(C), ptr(y), ptr(state),
+        ptr(cum), ptr(chunk_state),
         ctypes.c_int(int(x.dtype == torch.bfloat16)), ctypes.c_int(bt), ctypes.c_int(h),
         ctypes.c_int(s), ctypes.c_int(dh), ctypes.c_int(n), ctypes.c_int(q),
         *(ll(st) for st in (x.stride(0), x.stride(1), x.stride(2))),

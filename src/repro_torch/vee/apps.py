@@ -46,8 +46,9 @@ __all__ = [
     "linear_regression_oracle", "recommendation_oracle", "DeviceLowering",
     "run_device_dag", "linreg_device_lowering", "linear_regression_device",
     "recommendation_device_lowering", "recommendation_device",
-    "scores_plain", "values_from_reference", "linear_regression_migrated",
-    "recommendation_migrated", "merge_device_lowerings", "split_device_values",
+    "scores_plain", "scores_den", "sqrt_rn", "values_from_reference",
+    "linear_regression_migrated", "recommendation_migrated", "merge_device_lowerings",
+    "split_device_values",
     "CC_TECHNIQUES", "cc_iteration_dag", "cc_iteration_lowering",
     "cc_iteration_device",
 ]
@@ -220,6 +221,19 @@ def _rows(a: np.ndarray, t: int, tile: int) -> torch.Tensor:
     return torch.from_numpy(a[t * tile:(t + 1) * tile])
 
 
+def sqrt_rn(t: torch.Tensor) -> torch.Tensor:
+    """The float32 square root, correctly rounded on every entry, as
+    ``jnp.sqrt`` and the kernel's ``__fsqrt_rn`` give it. PyTorch's CPU
+    float32 ``sqrt`` can sit one unit in the last place off, so on the CPU
+    the root is taken in float64 and rounded once to float32 (a double
+    root rounds to the correct float root: sqrt never lies that close to a
+    float32 rounding boundary). On the card ``torch.sqrt`` rounds
+    correctly, and is taken as it is."""
+    if t.device.type == "cpu" and t.dtype == torch.float32:
+        return torch.sqrt(t.double()).float()
+    return torch.sqrt(t)
+
+
 # ---------------------------------------------------------------- linreg
 
 def _moments_tile(Xb: torch.Tensor) -> torch.Tensor:
@@ -229,7 +243,7 @@ def _moments_tile(Xb: torch.Tensor) -> torch.Tensor:
 def _syrk_tile(Xb: torch.Tensor, yb: torch.Tensor, M: torch.Tensor,
                n: int) -> torch.Tensor:
     mean = M[0] / n
-    std = torch.sqrt(torch.clamp(M[1] / n - mean * mean, min=0.0))
+    std = sqrt_rn(torch.clamp(M[1] / n - mean * mean, min=0.0))
     std = torch.where(std == 0, torch.ones_like(std), std)
     X1 = torch.cat([(Xb - mean) / std,
                     torch.ones((Xb.shape[0], 1), dtype=Xb.dtype,
@@ -347,9 +361,16 @@ def _bias_tile(Rb: torch.Tensor) -> torch.Tensor:
     return Rb.mean(dim=1)
 
 
+def scores_den(norms: torch.Tensor) -> torch.Tensor:
+    """``sqrt(norms) + 1e-9`` in float32, the root correctly rounded: the
+    reference's ``jnp.sqrt(norms) + 1e-9`` and the kernel's ``den``,
+    bitwise."""
+    return sqrt_rn(norms) + 1e-9
+
+
 def _scores_tile(Rb: torch.Tensor, norms: torch.Tensor,
                  bias: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(Rb / (torch.sqrt(norms) + 1e-9) - bias[:, None],
+    return torch.argmax(Rb / scores_den(norms) - bias[:, None],
                         dim=1).to(torch.int32)
 
 

@@ -266,7 +266,7 @@ def test_moe_walk_matches_plain(cuda, shape, tech):
 
 def _smoke():
     """``chip_smoke.py`` as a module (it imports nothing but the standard
-    library at module level): its MoE limits."""
+    library at module level): its MoE and K5 limits."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -921,6 +921,96 @@ def test_ssm_scan_matches_plain_and_float64(cuda, dtype, chunk):
     D = torch.rand((3,), device=cuda) + 0.5
     torch.testing.assert_close(ssm_scan(x, dt, A, B, C, D, chunk),
                                y + D[None, None, :, None] * x.float(), rtol=0, atol=0)
+
+
+def _ssm_mamba2_inputs(cuda, b, s, h, dtype, seed, pad=0):
+    """x, B, C as strided views of one conv output (B, S, H*64 + 128 +
+    ``pad``): with an odd ``pad`` in bfloat16 their rows do not start on 16
+    bytes. dt and A drawn as Mamba2 initialises them (dt = softplus around
+    a bias with softplus(bias) log-uniform in [1e-3, 0.1], A in [-16, -1]),
+    whose small chunk cumsums keep the smoke's limit tight."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    conv = torch.randn((b, s, h * 64 + 128 + pad), generator=gen, device=cuda).to(dtype)
+    x = conv[..., :h * 64].reshape(b, s, h, 64)
+    B, C = conv[..., h * 64:h * 64 + 64], conv[..., h * 64 + 64:h * 64 + 128]
+    dt0 = torch.exp(torch.empty(h, device=cuda).uniform_(math.log(1e-3), math.log(0.1),
+                                                         generator=gen))
+    bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=cuda) * 0.5 + bias)
+    A = -torch.empty(h, device=cuda).uniform_(1.0, 16.0, generator=gen)
+    return x, dt, A, B, C
+
+
+def _ssm_within_the_smokes_limit(x, dt, A, B, C, chunk):
+    """K5 on the card against the float64 oracle within the smoke's limit
+    (eps32 sqrt(3 Q) (1 + c) sum|terms|) and against the plain version
+    within twice it, for y and the final state; one launch counted."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain, ssm_scan_state
+
+    smoke = _smoke()
+    before = _build.SSM_SCAN.launches["ssm_scan"]
+    got = ssm_scan_state(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert _build.SSM_SCAN.launches["ssm_scan"] == before + 1
+    plain = ssm_scan_plain(x, dt, A, B, C, chunk)
+    oracle, limits, _ = smoke.ssm_limits(x, dt, A, B, C, chunk)
+    for g, p, o, lim, what in zip(got, plain, oracle, limits, ("y", "state")):
+        assert g.dtype == torch.float32 and g.shape == o.shape and bool(torch.isfinite(g).all())
+        bad, err, share = smoke.beyond(g, o, lim)
+        assert bad == 0, (what, "vs float64", bad, err, share)
+        bad, err, share = smoke.beyond(g, p, 2 * lim)
+        assert bad == 0, (what, "vs plain", bad, err, share)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [8, 16, 32, 64])
+def test_ssm_scan_split_tf32_within_the_smokes_limit(cuda, dtype, chunk):
+    """Split TF32 on the tensor cores at each chunk the kernel takes, y and
+    the final state, in bfloat16 (x, B, C exact in TF32) and float32 (every
+    operand split)."""
+    _ssm_within_the_smokes_limit(*_ssm_mamba2_inputs(cuda, 2, 256, 3, dtype, chunk), chunk)
+
+
+@pytest.mark.parametrize("bt,h", [(1, 3), (3, 113), (2, 8)])
+def test_ssm_scan_grids_that_do_not_fill_evenly(cuda, bt, h):
+    """(batch, head) counts off the kernels' grids: one head group short
+    of 8 heads (113 = 14 x 8 + 1, and 3), a single batch, and chunk 48
+    (rows past 48 of the 64-row tiles, and a partial 8-step tile)."""
+    for chunk in (64, 48):
+        _ssm_within_the_smokes_limit(*_ssm_mamba2_inputs(cuda, bt, 192, h, torch.bfloat16, h),
+                                     chunk)
+
+
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_reads_strided_views(cuda, pad, dtype):
+    """x, B and C read in place as views of one conv output (rows 16-byte
+    aligned, and, with ``pad`` 1 in bfloat16, not); x also as a head-major
+    tensor transposed into (Bt, S, H, dh); the outputs bitwise one another
+    where only the layout differs."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_state
+
+    x, dt, A, B, C = _ssm_mamba2_inputs(cuda, 2, 256, 5, dtype, 11, pad=pad)
+    assert not x.is_contiguous() and not B.is_contiguous()
+    _ssm_within_the_smokes_limit(x, dt, A, B, C, 64)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    dtt = dt.transpose(1, 2).contiguous().transpose(1, 2)
+    for got, want in zip(ssm_scan_state(xt, dtt, A, B.contiguous(), C.contiguous(), 64),
+                         ssm_scan_state(x, dt, A, B, C, 64)):
+        assert torch.equal(got, want)
+
+
+def test_ssm_scan_runs_on_tensor_cores(cuda):
+    """Both of K5's kernels, in both input types, issue tensor-core
+    products (HMMA: mma.sync) by ``cuobjdump -sass``."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_state
+
+    ssm_scan_state(*_ssm_mamba2_inputs(cuda, 1, 64, 2, torch.bfloat16, 0), 64)
+    torch.cuda.synchronize()
+    sass = _smoke().ssm_sass_has(("HMMA",))
+    assert len(sass) == 4 and all(sass.values()), sass
 
 
 def test_scans_at_the_serving_shapes(cuda):

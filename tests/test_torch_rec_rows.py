@@ -82,24 +82,78 @@ def test_user_bias_scalar_order_when_asked():
 
 
 def test_scores_denominator_is_the_references():
-    """The kernel's den, an IEEE square root and add in float32 (numpy's
-    float32 sqrt rounds correctly, as __fsqrt_rn does), is bitwise the
-    reference's jnp.sqrt(norms) + 1e-9, zeros and tiny norms too. PyTorch's
-    CPU sqrt is not correctly rounded on every entry: the plain body on the
-    CPU can sit one unit in the last place off. On the card torch.sqrt
-    rounds correctly, and the smoke holds scores bitwise to the plain body
-    there."""
+    """The port's CPU denominator (``scores_den``, which ``scores_plain``
+    divides by) is bitwise the reference's jnp.sqrt(norms) + 1e-9 and the
+    kernel's den (an IEEE square root and add in float32; numpy's float32
+    sqrt rounds correctly, as __fsqrt_rn does), planted zeros and tiny
+    norms too. PyTorch's CPU float32 sqrt is not correctly rounded on
+    every entry, so ``sqrt_rn`` takes the root in float64 and rounds it
+    once; on the card torch.sqrt rounds correctly, and the smoke holds
+    scores bitwise to the plain body there."""
     R = _rows(1024, 2048, seed=7)
     norms = (R * R).sum(0)
-    norms[:4] = [0.0, 1e-30, 1e-18, 3.0]
+    norms[:6] = [0.0, 1e-30, 1e-18, 3.0, 0.0, 2.0 ** -140]
     den = np.sqrt(norms) + np.float32(1e-9)
     den_j = np.asarray(jnp.sqrt(jnp.asarray(norms)) + 1e-9)
     assert den.dtype == np.float32 and den_j.dtype == np.float32
     assert np.array_equal(den.view(np.int32), den_j.view(np.int32))
     rounded = np.sqrt(norms.astype(np.float64)).astype(np.float32)
     assert np.array_equal(np.sqrt(norms).view(np.int32), rounded.view(np.int32))
-    den_t = (torch.sqrt(torch.from_numpy(norms)) + 1e-9).numpy()
-    assert np.abs(den_t.view(np.int32) - den.view(np.int32)).max() <= 1
+    den_t = tapps.scores_den(torch.from_numpy(norms))
+    assert den_t.dtype == torch.float32
+    assert np.array_equal(den_t.numpy().view(np.int32), den_j.view(np.int32))
+
+
+def test_sqrt_rn_is_the_correctly_rounded_root():
+    """``sqrt_rn`` (the scores denominator's root and linreg's std) is
+    bitwise jnp.sqrt on float32 values over the whole normal exponent
+    range and zeros, and numpy's IEEE root on subnormals too (XLA on the
+    CPU flushes a subnormal to zero; a denominator never sees the
+    difference, since such a root lies below half an ulp of 1e-9)."""
+    rng = np.random.default_rng(21)
+    a = rng.uniform(1.0, 2.0, 100_000) * 2.0 ** rng.integers(-126, 128, 100_000)
+    a = np.concatenate([a.astype(np.float32), np.float32([0.0, 1.0, 4.0])])
+    got = tapps.sqrt_rn(torch.from_numpy(a)).numpy()
+    assert np.array_equal(got.view(np.int32), np.asarray(jnp.sqrt(jnp.asarray(a))).view(np.int32))
+    assert np.array_equal(got.view(np.int32), np.sqrt(a).view(np.int32))
+    sub = np.float32([2.0 ** -149, 3 * 2.0 ** -140, 2.0 ** -127])
+    assert np.array_equal(tapps.sqrt_rn(torch.from_numpy(sub)).numpy(), np.sqrt(sub))
+
+
+def test_scores_plain_is_the_references_body_on_near_ties():
+    """A draw where a one-ulp denominator moves the top item: rows whose two
+    largest quotients tie exactly when the root is correctly rounded (R =
+    2 den on both items), on items whose norms PyTorch's CPU float32 sqrt
+    rounds the wrong way where it does so. The port's ``scores_plain`` on
+    the CPU is bitwise the reference lowering's own ``scores`` body; with
+    ``torch.sqrt`` for the root it is not, wherever that root is off."""
+    rng = np.random.default_rng(5)
+    n_users, n_items = 128, 260
+    R = rng.uniform(0.0, 1.0, (n_users, n_items)).astype(np.float32)
+    cand = (rng.uniform(1.0, 64.0, 200_000)).astype(np.float32)
+    right = np.sqrt(cand)
+    off = torch.sqrt(torch.from_numpy(cand)).numpy() != right
+    norms = rng.uniform(1.0, 64.0, n_items).astype(np.float32)
+    planted = cand[off][:n_items // 2]
+    norms[1::2][:planted.size] = planted
+    norms[0::2][:planted.size] = cand[~off][:planted.size]
+    den = np.sqrt(norms) + np.float32(1e-9)
+    for r in range(n_users):      # items 2k and 2k + 1 tie at 2 on row r
+        k = r % (n_items // 2)
+        R[r, [2 * k, 2 * k + 1]] = 2 * den[[2 * k, 2 * k + 1]]
+    bias = R.mean(1)
+    jlow = japps.recommendation_device_lowering(n_users, n_items, tile=64, seed=0)
+    body = next(st.body for st in jlow.stages if st.name == "scores")
+    want = np.zeros(n_users, np.int32)
+    body(None, {"R": R, "item_norms": norms, "user_bias": bias}, want)
+    got = tapps.scores_plain(*(torch.from_numpy(a) for a in (R, norms, bias)))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(want, 2 * (np.arange(n_users) % (n_items // 2)))
+    den_torch = (torch.sqrt(torch.from_numpy(norms)) + 1e-9).numpy()
+    old = torch.argmax(torch.from_numpy(R / den_torch - bias[:, None]), dim=1).numpy()
+    flips = den_torch[want + 1] < den[want + 1]     # the second quotient above 2
+    assert np.array_equal(old, np.where(flips, want + 1, want))
+    assert flips.any() == bool((den_torch[1::2][:planted.size] < den[1::2][:planted.size]).any())
 
 
 def _plant_ties(R, rng, n_rows):
