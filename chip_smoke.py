@@ -60,12 +60,14 @@ launches and no other; ``--arch zamba2-7b``: exactly 81 x 6 = 486 K5 and
 13 x 6 = 78 K4 launches at dh 112), each scan held to its float64 oracle
 and its plain version, output and final state, on the served call's own
 inputs and on randn (fast decay for K6), and K4 at dh 112 to its float64
-oracle. K5 runs split TF32 on the tensor cores in two launches a call
-(counted once): its row gives the device ms of both by ``torch.profiler``
-and requires the profiler to record the two launches a call,
-requires a tensor-core instruction (HMMA) in the SASS of each of its
+oracle. K5 and K6 run split TF32 on the tensor cores in two launches a
+call (counted once): each one's row gives the device ms of both by
+``torch.profiler`` and requires the profiler to record the two launches a
+call, requires a tensor-core instruction (HMMA) in the SASS of each of its
 kernels, and takes the least bound over chunk lengths and over two routes,
-fp32 FMA and split TF32. The rows of the kernels redesigned since their
+fp32 FMA and split TF32; the serving line gives the design's own bytes,
+reckoned from the shapes. K2's row gives its device ms too. The rows of
+the kernels redesigned since their
 first port carry ``redesigned: true`` (``REDESIGNED``). Each phase
 frees its weights before the next draws its own. TF32
 is off for every check and time (``allow_tf32 = False``), so library
@@ -207,7 +209,8 @@ REDESIGNED = frozenset({
     "dag_walk[linreg]", "dag_walk[recommendation]", "dag_walk[linreg, batched x8]",
     "dag_walk[recommendation, batched x8]", "dag_walk[linreg, seeded]",
     "dag_walk[recommendation, seeded]", "flash_attention", "flash_attention[dh 112, Zamba2]",
-    "dag_walk[moe.experts]", "dag_walk[cc_iteration]", "ssm_scan",
+    "dag_walk[moe.experts]", "dag_walk[cc_iteration]", "ssm_scan", "rwkv6_scan",
+    "cc_propagate",
 })
 MIGRATIONS = (
     ("linreg", "host_to_device", LIN_UNITS + 128),
@@ -561,15 +564,20 @@ def walk_sass_has(program: str, word: str) -> bool:
     return word in funcs[0]
 
 
-def ssm_sass_has(words: tuple) -> dict:
-    """For each of K5's kernels (csrc/ssm_scan.cu's ssm_states and
-    ssm_outputs, both input types), whether its SASS holds any of
-    ``words``."""
+SCAN_KERNELS = {"ssm_scan": ("ssm_states", "ssm_outputs"),
+                "rwkv6_scan": ("rwkv6_states", "rwkv6_outputs")}
+
+
+def scan_sass_has(scan: str, words: tuple) -> dict:
+    """For each kernel of the scan ``scan`` (``SCAN_KERNELS``: K5's
+    csrc/ssm_scan.cu, K6's csrc/rwkv6_scan.cu; two launches, each built for
+    both input types), whether its SASS holds any of ``words``."""
     from repro_torch.kernels import _build
 
-    funcs = {f.split("\n", 1)[0].strip(): f for f in sass_functions(_build.SSM_SCAN)
-             if "ssm_states" in f.split("\n", 1)[0] or "ssm_outputs" in f.split("\n", 1)[0]}
-    require(len(funcs) == 4, f"K5's four kernels not found in the SASS: {sorted(funcs)}")
+    library = {"ssm_scan": _build.SSM_SCAN, "rwkv6_scan": _build.RWKV6_SCAN}[scan]
+    funcs = {f.split("\n", 1)[0].strip(): f for f in sass_functions(library)
+             if any(k in f.split("\n", 1)[0] for k in SCAN_KERNELS[scan])}
+    require(len(funcs) == 4, f"{scan}'s four kernels not found in the SASS: {sorted(funcs)}")
     return {name: any(w in f for w in words) for name, f in funcs.items()}
 
 
@@ -1205,29 +1213,36 @@ def scan_check(name: str, got, plain, oracle, limits, control) -> dict:
     return out
 
 
-def rwkv6_checks(inputs: dict, chunk: int) -> tuple[dict, float]:
-    """K6 on ``inputs`` (r, k, v, logw, u) against the float64 oracle and
-    the plain version. Returns the checks and the largest abs error."""
+def rwkv6_limits(r, k, v, logw, u, q: int) -> tuple:
+    """K6's float64 oracle of (y, state) at chunk ``q``, each entry's limit
+    against it (``scan_limits``) and the largest |chunk cumsum| of logw,
+    for every check of K6, the smoke's and the tests'."""
     import torch
 
     from repro_torch.kernels.ref import rwkv6_scan_ref
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain, rwkv6_scan_state
 
-    r, k, v, logw, u = (inputs[n] for n in ("r", "k", "v", "logw", "u"))
     b, h, s, dh = r.shape
-    q = min(chunk, s)
-    got = rwkv6_scan_state(r, k, v, logw, u, chunk)
-    plain = rwkv6_scan_plain(r, k, v, logw, u, chunk)
-    control = rwkv6_scan_state(r, k, v, logw.bfloat16().float(), u, chunk)
     oracle = rwkv6_scan_ref(r, k, v, logw, u, dtype=torch.float64, return_state=True)
     abs_oracle = rwkv6_scan_ref(r.abs(), k.abs(), v.abs(), logw, u.abs(),
                                 dtype=torch.float64, return_state=True)
     cmax = logw.double().reshape(b, h, s // q, q, dh).sum(3).abs().amax((2, 3))
-    cmaxes = (cmax[:, :, None, None], cmax[:, :, None, None])
-    checks = scan_check("K6", got, plain, oracle, scan_limits(abs_oracle, cmaxes, q),
-                        control)
+    limits = scan_limits(abs_oracle, (cmax[:, :, None, None], cmax[:, :, None, None]), q)
+    return oracle, limits, float(cmax.max())
+
+
+def rwkv6_checks(inputs: dict, chunk: int) -> tuple[dict, float]:
+    """K6 on ``inputs`` (r, k, v, logw, u) against the float64 oracle and
+    the plain version. Returns the checks and the largest abs error."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain, rwkv6_scan_state
+
+    r, k, v, logw, u = (inputs[n] for n in ("r", "k", "v", "logw", "u"))
+    got = rwkv6_scan_state(r, k, v, logw, u, chunk)
+    plain = rwkv6_scan_plain(r, k, v, logw, u, chunk)
+    control = rwkv6_scan_state(r, k, v, logw.bfloat16().float(), u, chunk)
+    oracle, limits, cmax = rwkv6_limits(r, k, v, logw, u, min(chunk, r.shape[2]))
+    checks = scan_check("K6", got, plain, oracle, limits, control)
     err = max(max_err(g, p) for g, p in zip(got, plain))
-    checks["largest_chunk_cumsum"] = float(cmax.max())
+    checks["largest_chunk_cumsum"] = cmax
     return checks, err
 
 
@@ -1401,18 +1416,40 @@ def rwkv6_phase(dev) -> dict:
     kernel = lambda: rwkv6_scan_state(r, k, v, logw, u, chunk)  # noqa: E731
     plain = lambda: rwkv6_scan_plain(r, k, v, logw, u, chunk)  # noqa: E731
     k6_ms, plain_ms = timed(kernel, 10), timed(plain, 3)
+    k6_device = kernel_device_ms(kernel, SCAN_KERNELS["rwkv6_scan"])
+    require(k6_device["device_launches_per_call"] == 2,
+            f"K6 under the profiler: {k6_device}; want 2 launches a call, rwkv6_states "
+            "and rwkv6_outputs")
+    k6_sass = scan_sass_has("rwkv6_scan", ("HMMA", "HGMMA"))
+    require(all(k6_sass.values()), f"K6 issues no tensor-core instruction: {k6_sass}")
     # per token and head at chunk q: the carry-in r' S and the update k'^T v
     # (2 dh^2 each), the state's decay once a chunk, (q - 1) / 2 earlier
     # steps of the chunk each (gate product and A: 3 dh; A v: 2 dh), the
     # bonus (5 dh), the scalings and the cumsum (3 dh); expf: the exact
     # gate's (q - 1) / 2 dh, exp(cum_{t-1}) and exp(cum_q - cum) for all
-    # but one step of the chunk, exp(cum_q) once a chunk
+    # but one step of the chunk, exp(cum_q) once a chunk. On split TF32 the
+    # carry-in takes three TF32 products (r' and S split) and the update
+    # three, or two when v is bf16 (exact in TF32); the pairs keep the
+    # exact gate on fp32 FMA.
+    exps = lambda q: b * h * s * ((q - 1) / 2 * dh + 2 * (q - 1) / q * dh + dh / q)  # noqa: E731
+    rest = lambda q: b * h * s * (dh * dh / q + (q - 1) / 2 * 5 * dh + 8 * dh)  # noqa: E731
+    update_products = 2 if v.dtype == torch.bfloat16 else 3
     bound = scan_bound(
         sum(t.numel() * t.element_size() for t in (r, k, v, logw, u))
         + 4 * (b * h * s * dh + b * h * dh * dh),
-        lambda q: (b * h * s * (4 * dh * dh + dh * dh / q + (q - 1) / 2 * 5 * dh + 8 * dh),
-                   b * h * s * ((q - 1) / 2 * dh + 2 * (q - 1) / q * dh + dh / q)),
-        chunk)
+        lambda q: (b * h * s * 4 * dh * dh + rest(q), exps(q)),
+        chunk,
+        tf32_work=lambda q: (b * h * s * (3 + update_products) * 2 * dh * dh, rest(q), exps(q)))
+    # the two launches' own bytes, reckoned from the shapes (not a
+    # measurement): rwkv6_states reads k and logw once a CTA (two CTAs a
+    # head), v once, writes the entering states (chunks 1 ..) and the final
+    # state; rwkv6_outputs reads r, k, v, logw and the entering states and
+    # writes y
+    seq_bytes = r.element_size() * b * h * s * dh     # one of r, k, v
+    states_bytes = 4 * b * h * (s // chunk - 1) * dh * dh
+    design_bytes = (2 * (seq_bytes + logw.numel() * 4) + seq_bytes + states_bytes
+                    + 4 * b * h * dh * dh
+                    + 3 * seq_bytes + logw.numel() * 4 + states_bytes + 4 * b * h * s * dh)
     launches = numbers["launches"]["rwkv6_scan"]
     emit("serve_rwkv6", **numbers, k6_seconds=launches * k6_ms / 1e3,
          k6_share_of_prefill=launches * k6_ms / 1e3 / numbers["prefill_seconds"],
@@ -1421,15 +1458,17 @@ def rwkv6_phase(dev) -> dict:
          k6_inputs={"served": f"the last layer's r, k, v, logw, u of the first batch's "
                               f"prefill, r strides {list(r.stride())}",
                     "randn_fast_decay": "bf16 randn r, k, v; logw = max(-exp(4 randn), -30)"},
-         k6_checks=checks)
+         k6_checks=checks, k6_design_bytes=design_bytes,
+         k6_design_bytes_ms=design_bytes / PEAK_BYTES * 1e3)
     return dict(
         name="rwkv6_scan", route="cuda", source="src/repro_torch/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:70",
         launches=launches, max_abs_err=max(errs),
         max_abs_err_vs_float64=max(c[p]["vs_float64"][0] for c in checks.values()
                                    for p in ("y", "state")),
-        ms=k6_ms, plain_ms=plain_ms, library_ms=None,
+        ms=k6_ms, **k6_device, plain_ms=plain_ms, library_ms=None,
         library_call="none: no one PyTorch call computes the RWKV6 WKV recurrence",
+        sass_has_tensor_core_op=k6_sass,
         shapes=f"r, k, v ({b}, {h}, {s}, {dh}) bf16 (transposed views), logw f32, "
                f"chunk {chunk}; y and final state f32",
         **bound)
@@ -1482,11 +1521,11 @@ def zamba2_phase(dev) -> list[dict]:
     kernel = lambda: ssm_scan_state(x, dt, A, B, C, chunk)  # noqa: E731
     plain = lambda: ssm_scan_plain(x, dt, A, B, C, chunk)  # noqa: E731
     k5_ms, plain_ms = timed(kernel, 10), timed(plain, 3)
-    k5_device = kernel_device_ms(kernel, ("ssm_states", "ssm_outputs"))
+    k5_device = kernel_device_ms(kernel, SCAN_KERNELS["ssm_scan"])
     require(k5_device["device_launches_per_call"] == 2,
             f"K5 under the profiler: {k5_device}; want 2 launches a call, ssm_states "
             "and ssm_outputs")
-    k5_sass = ssm_sass_has(("HMMA", "HGMMA"))
+    k5_sass = scan_sass_has("ssm_scan", ("HMMA", "HGMMA"))
     require(all(k5_sass.values()), f"K5 issues no tensor-core instruction: {k5_sass}")
     # per token and head at chunk q: the carry-in C S^T and the update
     # (dt x w)^T B (2 dh N each), the state's decay once a chunk, (q + 1) / 2
@@ -1829,6 +1868,7 @@ def main() -> None:
         launches=launches.get("cc_propagate", 0),
         max_abs_err=results["cc_propagate"]["max_abs_err"],
         ms=timed(lambda: cc_propagate(G, c, sched), 20),
+        **kernel_device_ms(lambda: cc_propagate(G, c, sched), ("cc_propagate_kernel",)),
         plain_ms=timed(lambda: cc_propagate_plain(G, c, sched), 5),
         library_ms=timed(lambda: torch.maximum((G * c).amax(1), c), 10),
         library_call="torch.maximum((G * c).amax(1), c)",

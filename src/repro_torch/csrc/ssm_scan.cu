@@ -74,13 +74,7 @@
 // right; cum adds __fmul_rn(dt, a) with __fadd_rn, so both launches read
 // one set of bits.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <initializer_list>
-#include <type_traits>
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -90,8 +84,6 @@ constexpr int DH = 64, N = 64, QMAX = 64, THREADS = 128, HG = 8, LDS = 68;
 // 272 in fp32 (multiples of 16 for cp.async; fragment reads hit distinct
 // banks).
 template <class T> constexpr int kPitch = std::is_same<T, float>::value ? 68 : 72;
-// bfloat16 data is exact in TF32: not split
-template <class T> constexpr bool kExact = !std::is_same<T, float>::value;
 
 struct Params {
   const void* x;
@@ -109,96 +101,6 @@ struct Params {
   int H, S, Q, nc;
   int vec;             // x, B and C rows start on 16 bytes: 16-byte cp.async
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void set_zero(float& v) { v = 0.f; }
-__device__ __forceinline__ void set_zero(__nv_bfloat16& v) { v = __float2bfloat16(0.f); }
-
-__device__ __forceinline__ void cp16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int PENDING> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// x rounded to TF32 (10 stored mantissa bits), to nearest, ties to even;
-// the low 13 bits come out zero (kernels/ref.py:tf32_round).
-__device__ __forceinline__ uint32_t tf32_rne(float x) {
-  uint32_t r;
-  asm("cvt.rn.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float v, uint32_t& big, uint32_t& small) {
-  big = tf32_rne(v);
-  small = tf32_rne(__fsub_rn(v, __uint_as_float(big)));
-}
-
-// An A fragment (m16 x k8) as TF32 halves: big and small, or, when the
-// operand is exact in TF32, the value itself in big.
-struct FragA {
-  uint32_t big[4], small[4];
-};
-
-template <bool EXACT>
-__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2, float a3) {
-  FragA f;
-  const float v[4] = {a0, a1, a2, a3};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if constexpr (EXACT) {
-      f.big[i] = __float_as_uint(v[i]);
-      f.small[i] = 0u;
-    } else {
-      split(v[i], f.big[i], f.small[i]);
-    }
-  }
-  return f;
-}
-
-// d += a b on the tensor cores, m16n8k8, TF32 in, fp32 accumulate.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One k-step of an fp32-accurate product: the TF32 products of the note,
-// in its order. AX / BX: the A / B operand is exact in TF32.
-template <bool AX, bool BX>
-__device__ __forceinline__ void mma_step(float (&d)[4], const FragA& a, float b0, float b1) {
-  if constexpr (AX && BX) {
-    mma(d, a.big, __float_as_uint(b0), __float_as_uint(b1));
-  } else if constexpr (AX) {
-    uint32_t bb0, bs0, bb1, bs1;
-    split(b0, bb0, bs0);
-    split(b1, bb1, bs1);
-    mma(d, a.big, bs0, bs1);
-    mma(d, a.big, bb0, bb1);
-  } else if constexpr (BX) {
-    mma(d, a.small, __float_as_uint(b0), __float_as_uint(b1));
-    mma(d, a.big, __float_as_uint(b0), __float_as_uint(b1));
-  } else {
-    uint32_t bb0, bs0, bb1, bs1;
-    split(b0, bb0, bs0);
-    split(b1, bb1, bs1);
-    mma(d, a.small, bb0, bb1);
-    mma(d, a.big, bs0, bs1);
-    mma(d, a.big, bb0, bb1);
-  }
-}
 
 // Copy `rows` rows of 64 elements (global row r at src + r * stride) into
 // a shared tile of kPitch<T> elements a row: 16-byte cp.async when `vec`,
@@ -522,13 +424,6 @@ int launch(const Params& p, int Bt, void* stream) {
   if (err != cudaSuccess) return (int)err;
   ssm_outputs<T><<<dim3(p.nc, Bt, (p.H + HG - 1) / HG), THREADS, outputs_smem, s>>>(p);
   return (int)cudaGetLastError();
-}
-
-bool aligned16(const void* ptr, long long elem_bytes, std::initializer_list<long long> strides) {
-  if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
-  for (long long st : strides)
-    if ((st * elem_bytes) % 16) return false;
-  return true;
 }
 
 }  // namespace

@@ -2,8 +2,9 @@
 
 Each source file becomes one shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the root
-of the checkout. The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+of the checkout. The library's file name carries a hash of its source, the
+headers it may include (``csrc/*.cuh``) and the flags, so an edited source
+or header is rebuilt and an unchanged one is reused.
 Nothing here runs at import time: a ``Kernel`` compiles when it is first
 called (or when ``build_all`` is asked to), so the CPU tests import every
 module without a compiler.
@@ -50,9 +51,11 @@ class Kernel:
 
     @property
     def library(self) -> Path:
-        """Path of the built library, named by a hash of source and flags."""
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        """Path of the built library, named by a hash of the source, the
+        headers beside it (``csrc/*.cuh``) and the flags."""
+        text = self.source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
 
     def start_build(self) -> subprocess.Popen | None:

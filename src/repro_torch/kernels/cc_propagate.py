@@ -6,12 +6,14 @@ any of the 11 partitioning techniques (``ops.dls_tile_schedule``); the
 result does not depend on it, because max is exact.
 
 CUDA kernel: ``csrc/cc_propagate.cu``. It replaces the Pallas kernel
-``repro/kernels/cc_propagate.py:cc_propagate``. One CTA per row tile, taken
-in the schedule's order; each warp owns rows of the tile and walks the
-column tiles in order with 16-byte loads, keeping a running max. The step
-reads the n x n adjacency once, so it is bound by bytes (4 n^2 over the
-card's memory rate: 0.32 ms at n = 16,384 on an H100); the design streams
-each row once, coalesced, and keeps the labels in L1/L2.
+``repro/kernels/cc_propagate.py:cc_propagate``. The step reads the n x n
+adjacency once, so it is bound by bytes (4 n^2 over the card's memory
+rate: 0.32 ms at n = 16,384 on an H100), and the whole card streams it: a
+grid that fills every SM takes work items of (slot, 8 rows of the slot's
+row tile) in the schedule's slot order, so row tiles are begun in the DLS
+order; padding slots (a tile index below 0 or past the last tile) do
+nothing. Each warp streams one row with several 16-byte loads in flight a
+lane, keeping a running max seeded with the row's own label.
 
 On a CPU tensor ``cc_propagate`` runs ``cc_propagate_plain``, the same
 tile walk in PyTorch; on a CUDA tensor it launches the kernel or raises.

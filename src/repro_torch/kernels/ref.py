@@ -121,13 +121,12 @@ def _tf32_terms(a: torch.Tensor, b: torch.Tensor, a_exact: bool, b_exact: bool,
     return [(as_, bb), (ab, bs), (ab, bb)]
 
 
-def _mma_sum(terms: list) -> torch.Tensor:
+def _mma_sum(terms: list, acc: torch.Tensor | None = None) -> torch.Tensor:
     """fp32 sum of the products in ``terms`` over k-steps of 8, as the
     tensor cores' m16n8k8 steps add them: each step adds every term's
-    eight products into the one accumulator, the terms in their order.
-    Products of TF32 values are exact in fp32."""
+    eight products into the one accumulator (``acc``, or none), the terms
+    in their order. Products of TF32 values are exact in fp32."""
     k = terms[0][0].shape[-1]
-    acc = None
     for k0 in range(0, k, 8):
         for a, b in terms:
             p = a[..., k0:k0 + 8] @ b[..., k0:k0 + 8, :]
@@ -158,16 +157,19 @@ def ssm_chunk_cumsum(dt: torch.Tensor, A: torch.Tensor, q: int) -> torch.Tensor:
     return cum
 
 
-def ssm_state_pass(U: torch.Tensor, decay: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def chunk_state_pass(U: torch.Tensor, decay: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The chunk-state pass, chunks in order: ``state_c = fmaf(state_{c-1},
-    decay_c, U_c)`` from a zero state. ``U`` ``(Bt, H, nc, dh, N)``, decay
-    ``(Bt, H, nc)``. Returns the states entering each chunk ``(Bt, H, nc,
-    dh, N)`` (chunk 0's zero) and the final state."""
+    decay_c, U_c)`` from a zero state. ``U`` ``(Bt, H, nc, rows, cols)``,
+    decay ``(Bt, H, nc)`` (K5: one a chunk) or ``(Bt, H, nc, rows)`` (K6:
+    one a row). Returns the states entering each chunk ``(Bt, H, nc, rows,
+    cols)`` (chunk 0's zero) and the final state."""
     state = torch.zeros_like(U[:, :, 0])
     entering = []
     for c in range(U.shape[2]):
         entering.append(state)
-        state = fma32(state, decay[:, :, c, None, None].expand_as(state), U[:, :, c])
+        d = decay[:, :, c]
+        d = d.reshape(d.shape + (1,) * (state.dim() - d.dim()))
+        state = fma32(state, d.expand_as(state), U[:, :, c])
     return torch.stack(entering, dim=2), state
 
 
@@ -179,7 +181,7 @@ def ssm_scan_split_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     Per chunk of ``q`` steps, with ``cum`` from ``ssm_chunk_cumsum``:
     the update ``U = (x w)^T B`` (``w_s = exp(cum_Q - cum_s) dt_s``) and the
-    decay ``exp(cum_Q)``; the state pass (``ssm_state_pass``); then the
+    decay ``exp(cum_Q)``; the state pass (``chunk_state_pass``); then the
     output ``y = fmaf(exp(cum_t), C state^T, G x)`` with the gated scores
     ``G[t, s] = (C B^T)[t, s] exp(cum_t - cum_s) dt_s`` for s <= t. Each
     product's TF32 terms and their order are ``_tf32_terms``' (x, B and C
@@ -201,7 +203,7 @@ def ssm_scan_split_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     U = _mma_sum(_tf32_terms(xw.transpose(-1, -2), Bc.expand(bt, h, nc, q, n),
                              False, exact, one_tf32))
     decay = torch.exp(cum[..., -1])
-    entering, state = ssm_state_pass(U, decay)
+    entering, state = chunk_state_pass(U, decay)
     # the output launch: each chunk's intra-chunk part and carry-in
     cb = _mma_sum(_tf32_terms(Cc, Bc.transpose(-1, -2), exact, exact, one_tf32))
     tri = torch.arange(q)[:, None] >= torch.arange(q)[None, :]
@@ -215,6 +217,128 @@ def ssm_scan_split_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = y.permute(0, 2, 3, 1, 4).reshape(bt, s, h, dh)
     if parts:
         return y, state, dict(cum=cum, U=U, decay=decay, entering=entering)
+    return y, state
+
+
+def rwkv6_chunk_cumsum(logw: torch.Tensor, q: int, pad: int) -> torch.Tensor:
+    """The inclusive cumsum of ``logw`` over each chunk of ``q`` steps, in
+    time order, in float32 (the kernels' sequential fp32 adds; PyTorch's
+    CPU ``cumsum`` accumulates in float64): ``(Bt, H, nc, pad, dh)`` for
+    logw ``(Bt, H, S, dh)``, each chunk's steps past ``q`` padded with
+    ``logw = 0``, so their cumsum stays the chunk's last."""
+    bt, h, s, dh = logw.shape
+    lw = logw.float().reshape(bt, h, s // q, q, dh)
+    cum = torch.empty((bt, h, s // q, pad, dh), dtype=torch.float32)
+    acc = torch.zeros_like(lw[..., 0, :])
+    for t in range(pad):
+        if t < q:
+            acc = acc + lw[..., t, :]
+        cum[..., t, :] = acc
+    return cum
+
+
+def rwkv6_scan_split_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         logw: torch.Tensor, u: torch.Tensor, q: int,
+                         one_tf32: bool = False, ref_point: str = "sub_chunk",
+                         parts: bool = False):
+    """K6's arithmetic on the CPU (csrc/rwkv6_scan.cu): the chunk-parallel
+    form with the per-channel gate recentred at 16-step sub-chunks, every
+    matrix product on split TF32, in float32.
+
+    Each chunk of ``q`` steps is padded with zero steps (logw 0, r, k, v
+    0) to a multiple of 16, P steps, in sub-chunks of 16; ``cum`` is
+    ``rwkv6_chunk_cumsum``, ``cm1`` its exclusive form (``cum_{t-1}``,
+    0 at step 0), ``cQ`` the chunk's last. The state launch: ``K^ = k
+    exp(cQ - cum)``, ``U = K^T v``, the state pass ``state = fmaf(state,
+    exp(cQ), U)`` row by row (``chunk_state_pass``). The output launch:
+    ``A[t, s]`` for s < t, in blocks of sub-chunks (i, j):
+
+    * j < i on the tensor cores, ``A_ij = R~ K~^T`` with ``R~ = r exp(cm1
+      - e_j)`` and ``K~ = k exp(e_j - cum)``, ``e_j`` the cumsum at the
+      last step of sub-chunk j (``ref_point="chunk_end"`` puts the
+      reference at the chunk's end, the Pallas docstring's form, whose
+      first factor overflows under fast decay; it moves ``e'`` below
+      too);
+    * j = i: its lower-left quadrant (steps 8..15 against 0..7) the same
+      way on the tensor cores, recentred at ``e'``, the cumsum at the
+      sub-chunk's step 7; its two 8-step triangles exactly, ``sum_c
+      fmaf(r k, exp(cm1_t - cum_s), acc)`` over channels c = 4 m + p, m
+      ascending, into four sums (p = 0..3) added as ``(a_0 + a_1) + (a_2
+      + a_3)``; the diagonal the bonus ``sum_c fmaf(r u, k, acc)`` in the
+      same order;
+
+    then ``y = (r exp(cm1)) S_in + A v``, one accumulator, the carry-in's
+    k-steps first. Each product's TF32 terms and their order are
+    ``_tf32_terms``' (v exact when bfloat16); ``one_tf32`` keeps only the
+    big halves. Returns ``(y, state)`` as ``rwkv6_scan_state`` does, and
+    with ``parts`` also a dict of ``cum``, ``U``, the entering states, A
+    and ``max_exponent``, the largest argument any exp takes."""
+    bt, h, s, dh = r.shape
+    nc = s // q
+    P = 16 * -(-q // 16)
+    exact = v.dtype == torch.bfloat16
+
+    def chunks(t):
+        t = t.float().reshape(bt, h, nc, q, dh)
+        return torch.cat([t, t.new_zeros((bt, h, nc, P - q, dh))], dim=3)
+
+    rc, kc, vc = chunks(r), chunks(k), chunks(v)
+    cum = rwkv6_chunk_cumsum(logw, q, P)
+    cm1 = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]], dim=3)
+    cQ = cum[..., -1, :]
+    exps = []
+
+    def gate(x):
+        exps.append(x.max())
+        return torch.exp(x)
+
+    # the state launch
+    kh = kc * gate(cQ[..., None, :] - cum)
+    U = _mma_sum(_tf32_terms(kh.transpose(-1, -2), vc, False, exact, one_tf32))
+    entering, state = chunk_state_pass(U, gate(cQ))
+    # the output launch: A by blocks of 16-step sub-chunks
+    A = torch.zeros((bt, h, nc, P, P), dtype=torch.float32)
+    uf = u.float()[None, :, None, None, :]
+    for i in range(P // 16):
+        ti = slice(16 * i, 16 * i + 16)
+        for j in range(i):
+            tj = slice(16 * j, 16 * j + 16)
+            e = cQ if ref_point == "chunk_end" else cum[..., 16 * j + 15, :]
+            rt = rc[..., ti, :] * gate(cm1[..., ti, :] - e[..., None, :])
+            kt = kc[..., tj, :] * gate(e[..., None, :] - cum[..., tj, :])
+            A[..., ti, tj] = _mma_sum(_tf32_terms(rt, kt.transpose(-1, -2), False, False,
+                                                  one_tf32))
+        steps = torch.arange(16)
+        tri = (steps[:, None] > steps[None, :]) & (steps[:, None] // 8 == steps[None, :] // 8)
+        diff = cm1[..., ti, None, :] - cum[..., None, ti, :]         # (.., t, s, c)
+        exps.append(diff[..., tri, :].max())
+        g = torch.exp(torch.where(tri[..., None], diff, 0.0))
+        rk = rc[..., ti, None, :] * kc[..., None, ti, :]
+        ru = rc[..., ti, :] * uf
+        pair, bonus = [], []
+        for p in range(4):
+            acc = torch.zeros_like(rk[..., 0])
+            accb = torch.zeros_like(ru[..., 0])
+            for c in range(p, dh, 4):
+                acc = fma32(rk[..., c], g[..., c], acc)
+                accb = fma32(ru[..., c], kc[..., ti, c], accb)
+            pair.append(acc)
+            bonus.append(accb)
+        blk = torch.where(tri, (pair[0] + pair[1]) + (pair[2] + pair[3]), 0.0)
+        e = cQ if ref_point == "chunk_end" else cum[..., 16 * i + 7, :]
+        lo, hi = slice(16 * i, 16 * i + 8), slice(16 * i + 8, 16 * i + 16)
+        rt = rc[..., hi, :] * gate(cm1[..., hi, :] - e[..., None, :])
+        kt = kc[..., lo, :] * gate(e[..., None, :] - cum[..., lo, :])
+        blk[..., 8:, :8] = _mma_sum(_tf32_terms(rt, kt.transpose(-1, -2), False, False,
+                                                one_tf32))
+        A[..., ti, ti] = blk + torch.diag_embed((bonus[0] + bonus[1]) + (bonus[2] + bonus[3]))
+    rh = rc * gate(cm1)
+    y = _mma_sum(_tf32_terms(rh, entering, False, False, one_tf32))
+    y = _mma_sum(_tf32_terms(A, vc, False, exact, one_tf32), acc=y)
+    y = y[..., :q, :].reshape(bt, h, s, dh)
+    if parts:
+        return y, state, dict(cum=cum, U=U, entering=entering, A=A,
+                              max_exponent=float(torch.stack(exps).max()))
     return y, state
 
 

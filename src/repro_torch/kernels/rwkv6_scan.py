@@ -1,25 +1,36 @@
 """RWKV6 chunked WKV scan (K6): data-dependent per-channel decay.
 
 The function of the Pallas kernel ``repro/kernels/rwkv6_scan.py:
-rwkv6_scan``: its code's exact form (the docstring there names a factored
-form the code does not use). Per (batch, head) the chunks run in order,
-carrying a ``(dh, dh)`` fp32 state; inside a chunk of ``Q`` steps
+rwkv6_scan``: its code's exact form. Per (batch, head) the chunks run in
+order, carrying a ``(dh, dh)`` fp32 state; inside a chunk of ``Q`` steps
 
 * ``A[t, s] = sum_c r[t,c] k[s,c] exp(cum_{t-1,c} - cum_{s,c})`` on the
-  strict lower triangle (a ``(Q, Q, dh)`` gate, every exponent <= 0);
+  strict lower triangle;
 * ``y = A v + diag(sum_c r u k) v + (r * exp(cum_{t-1})) state``;
 * ``state <- diag(exp(cum_Q)) state + (k * exp(cum_Q - cum))^T v``,
 
 with ``cum`` the inclusive cumsum of ``logw`` over the chunk and
 ``cum_{t-1}`` the exclusive one, as the model's ``_wkv_chunked`` takes it.
+The factored form that the Pallas kernel's docstring names, with one
+reference point at the chunk's end, is not this function's: its first
+factor ``exp(cum_{t-1} - cum_Q)`` overflows under fast decay.
 ``rwkv6_scan_state`` returns the output and the final state, which the
 model's prefill stores in its decode cache; ``rwkv6_scan`` the output
 alone, as the Pallas kernel does.
 
 CUDA kernel: ``csrc/rwkv6_scan.cu`` (its note gives the design and the
-bound). On a CPU tensor the wrappers run ``rwkv6_scan_plain``, the same
-chunk recurrence in PyTorch; on a CUDA tensor they launch the kernel or
-raise.
+bound): the chunk-parallel form in two launches, the chunks' updates and
+the state pass, then every chunk's output. Inside a chunk the gate is
+recentred at each 16-step sub-chunk: the blocks of A below the diagonal
+become products ``(r exp(cum_{t-1} - e_j)) (k exp(e_j - cum_s))^T``, every
+exponent <= 0, on the tensor cores as split TF32 (so does each diagonal
+block's lower-left quadrant, recentred at its step 7), and only pairs
+within one 8-step run take the exact per-pair gate. ``kernels/ref.py:
+rwkv6_scan_split_ref`` emulates its arithmetic on the CPU. On a CPU
+tensor the wrappers run ``rwkv6_scan_plain``, the same chunk recurrence
+in PyTorch; on a CUDA tensor they launch the kernel or raise. The wrapper
+allocates the kernel's scratch, the state entering each chunk (``S / Q``
+states of ``dh * dh`` floats a (batch, head)).
 """
 
 from __future__ import annotations
@@ -79,7 +90,8 @@ def rwkv6_scan_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and logw has a contiguous last axis (other strides are free: the
     model's transposed head views go in as they are). Anything else
     raises. A chunk above ``MAX_CHUNK`` runs as sub-chunks of its largest
-    divisor up to ``MAX_CHUNK`` (``_build.kernel_chunk``).
+    divisor up to ``MAX_CHUNK`` (``_build.kernel_chunk``). The kernel's two
+    launches count as one in ``RWKV6_SCAN.launches["rwkv6_scan"]``.
     """
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, logw, u, chunk)
@@ -108,9 +120,11 @@ def rwkv6_scan_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     u = u.contiguous()
     y = torch.empty((b, h, s, dh), dtype=torch.float32, device=r.device)
     state = torch.empty((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    chunk_state = torch.empty((b, h, s // q, dh, dh), dtype=torch.float32, device=r.device)
     ll = ctypes.c_longlong
     RWKV6_SCAN.launch(
         "rwkv6_scan", ptr(r), ptr(k), ptr(v), ptr(logw), ptr(u), ptr(y), ptr(state),
+        ptr(chunk_state),
         ctypes.c_int(int(r.dtype == torch.bfloat16)), ctypes.c_int(b), ctypes.c_int(h),
         ctypes.c_int(s), ctypes.c_int(dh), ctypes.c_int(q),
         *(ll(st) for t in (r, k, v, logw) for st in t.stride()[:3]), stream(r.device))

@@ -137,6 +137,60 @@ def test_cc_propagate_bitwise(cuda, tech):
     assert torch.equal(tops.cc_step(G, c, technique=tech), got)
 
 
+def _cc_case(cuda, n, seed, density=0.05):
+    rng = np.random.default_rng(seed)
+    G = torch.from_numpy((rng.uniform(size=(n, n)) < density).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.integers(1, 10 * n, n).astype(np.float32)).to(cuda)
+    return G, c
+
+
+def _cc_poisoned(cuda, G, c, sched, **tiles):
+    """``cc_propagate`` after the allocator has held NaN in a block of the
+    output's size, so a row the kernel leaves unwritten shows."""
+    poison = torch.full((G.shape[0],), float("nan"), device=cuda)
+    del poison
+    return cc_propagate(G, c, sched, **tiles)
+
+
+@pytest.mark.parametrize("tile_r,tile_c", [(64, 256), (96, 4), (8, 1536), (1536, 512)])
+def test_cc_propagate_bitwise_at_other_tiles(cuda, tile_r, tile_c):
+    """Row tiles of 64, 96 (12 groups of 8 rows), 8 (one group) and the
+    whole matrix, under every technique: bitwise the plain walk and the
+    reference."""
+    G, c = _cc_case(cuda, 1536, 5)
+    want = tref.cc_propagate_ref(G, c)
+    for tech in sorted(PARTITIONERS):
+        sched = torch.from_numpy(tops.dls_tile_schedule(tech, 1536, tile_r)).to(cuda)
+        got = _cc_poisoned(cuda, G, c, sched, tile_r=tile_r, tile_c=tile_c)
+        assert torch.equal(got, want), tech
+        assert torch.equal(got, cc_propagate_plain(G, c, sched, tile_r, tile_c)), tech
+
+
+def test_cc_propagate_padding_slots_do_nothing(cuda):
+    """Slots holding -1 or the tile count visit no tile: the other tiles'
+    rows are bitwise the reference's, and so are the plain walk's."""
+    G, c = _cc_case(cuda, 2048, 6)
+    sched = torch.from_numpy(tops.dls_tile_schedule("GSS", 2048, 128)).to(cuda)
+    skipped = sched[[1, 5, 9]].tolist()
+    sched[1], sched[5], sched[9] = -1, 16, 17
+    got = _cc_poisoned(cuda, G, c, sched, tile_r=128, tile_c=1024)
+    plain = cc_propagate_plain(G, c, sched, 128, 1024)
+    want = tref.cc_propagate_ref(G, c)
+    rows = torch.ones(2048, dtype=torch.bool, device=cuda)
+    for t in skipped:
+        rows[t * 128:(t + 1) * 128] = False
+    assert torch.equal(got[rows], want[rows]) and torch.equal(plain[rows], want[rows])
+
+
+def test_cc_propagate_bitwise_at_the_smokes_size(cuda):
+    """n = 16,384 (1 GiB of G), the smoke's size, under three techniques."""
+    G, c = _cc_case(cuda, 16384, 8, density=0.001)
+    want = tref.cc_propagate_ref(G, c)
+    for tech in ("STATIC", "MFSC", "TSS"):
+        sched = torch.from_numpy(tops.dls_tile_schedule(tech, 16384, 256)).to(cuda)
+        assert torch.equal(_cc_poisoned(cuda, G, c, sched), want), tech
+
+
 def test_end_to_end_small(cuda):
     beta, _, _ = tapps.linear_regression_device(8192, 17)
     ref = tapps.linear_regression_oracle(8192, 17)
@@ -1009,7 +1063,116 @@ def test_ssm_scan_runs_on_tensor_cores(cuda):
 
     ssm_scan_state(*_ssm_mamba2_inputs(cuda, 1, 64, 2, torch.bfloat16, 0), 64)
     torch.cuda.synchronize()
-    sass = _smoke().ssm_sass_has(("HMMA",))
+    sass = _smoke().scan_sass_has("ssm_scan", ("HMMA",))
+    assert len(sass) == 4 and all(sass.values()), sass
+
+
+def _rwkv6_draw_inputs(cuda, b, h, s, dtype, draw, seed, pad=0):
+    """r, k, v as transposed head views of one (B, S, 3 H 64 + ``pad``)
+    projection (with an odd ``pad`` in bfloat16 their rows do not start on
+    16 bytes); logw drawn as ``tests/test_torch_rwkv6_tf32.py`` draws it:
+    ``model``, Finch's decay at the model's initial bias (-0.6) spread by
+    0.5 randn, whose small chunk cumsums keep the smoke's limit tight, or
+    ``fast``, the smoke's max(-exp(4 randn), -30)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    proj = torch.randn((b, s, 3 * h * 64 + pad), generator=gen, device=cuda).to(dtype)
+    r, k, v = (proj[..., i * h * 64:(i + 1) * h * 64].reshape(b, s, h, 64).transpose(1, 2)
+               for i in range(3))
+    z = torch.randn((b, s, h * 64), generator=gen, device=cuda)
+    logw = (-torch.exp(torch.clamp(-0.6 + 0.5 * z, max=3.4)) if draw == "model"
+            else torch.clamp(-torch.exp(4.0 * z), min=-30.0))
+    u = torch.randn((h, 64), generator=gen, device=cuda) * 0.1
+    return r, k, v, logw.reshape(b, s, h, 64).transpose(1, 2), u
+
+
+def _rwkv6_within_the_smokes_limit(inputs, chunk):
+    """K6 on the card against the float64 oracle within the smoke's limit
+    (``rwkv6_limits``: eps32 sqrt(3 Q) (1 + c) sum|terms|) and against its
+    CPU emulation (``rwkv6_scan_split_ref``, at the chunk the kernel runs)
+    within twice it, for y and the final state; one launch counted."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_state
+
+    smoke = _smoke()
+    q = _build.kernel_chunk(_build.seq_chunk(inputs[0].shape[2], chunk), 64)
+    before = _build.RWKV6_SCAN.launches["rwkv6_scan"]
+    got = rwkv6_scan_state(*inputs, chunk)
+    torch.cuda.synchronize()
+    assert _build.RWKV6_SCAN.launches["rwkv6_scan"] == before + 1
+    emulated = tref.rwkv6_scan_split_ref(*(t.cpu() for t in inputs), q)
+    oracle, limits, _ = smoke.rwkv6_limits(*inputs, q)
+    for g, e, o, lim, what in zip(got, emulated, oracle, limits, ("y", "state")):
+        assert g.dtype == torch.float32 and g.shape == o.shape and bool(torch.isfinite(g).all())
+        bad, err, share = smoke.beyond(g, o, lim)
+        assert bad == 0, (what, "vs float64", bad, err, share)
+        bad, err, share = smoke.beyond(g, e.to(g.device), 2 * lim)
+        assert bad == 0, (what, "vs the emulation", bad, err, share)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [8, 16, 24, 64, 128])
+def test_rwkv6_scan_split_tf32_within_the_smokes_limit(cuda, dtype, chunk):
+    """The sub-chunk gate and split TF32 at each chunk the kernel takes
+    (8 and 24 padded to 16 and 32 steps, 128 run as 64), y and the final
+    state, in bfloat16 (v exact in TF32) and float32 (every operand
+    split), on strided head views."""
+    _rwkv6_within_the_smokes_limit(
+        _rwkv6_draw_inputs(cuda, 2, 3, 384, dtype, "model", chunk), chunk)
+
+
+@pytest.mark.parametrize("b,h,draw", [(1, 1, "fast"), (3, 41, "model"), (2, 5, "fast")])
+def test_rwkv6_scan_grids_and_fast_decay(cuda, b, h, draw):
+    """(batch, head) counts off the states launch's pairs of CTAs and the
+    output launch's grid, under both draws (fast decay: chunk cumsums to
+    about 900, where a factor with its reference point at the chunk's end
+    overflows)."""
+    for chunk in (64, 24):
+        _rwkv6_within_the_smokes_limit(
+            _rwkv6_draw_inputs(cuda, b, h, 192, torch.bfloat16, draw, h), chunk)
+
+
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_reads_strided_views(cuda, pad, dtype):
+    """r, k, v and logw read in place as transposed head views (rows on 16
+    bytes, and, with ``pad`` 1 in bfloat16, not); the outputs bitwise those
+    of contiguous copies, where only the staging differs."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_state
+
+    inputs = _rwkv6_draw_inputs(cuda, 2, 3, 256, dtype, "model", 11, pad=pad)
+    assert not inputs[0].is_contiguous()
+    got = _rwkv6_within_the_smokes_limit(inputs, 64)
+    for g, want in zip(got, rwkv6_scan_state(*(t.contiguous() for t in inputs), 64)):
+        assert torch.equal(g, want)
+
+
+def test_rwkv6_scan_is_two_launches_counted_once(cuda):
+    """One call: one count in ``RWKV6_SCAN.launches``, the smoke's limit
+    held, and the profiler records two device launches, rwkv6_states and
+    rwkv6_outputs."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_state
+
+    smoke = _smoke()
+    inputs = _rwkv6_draw_inputs(cuda, 2, 4, 256, torch.bfloat16, "model", 3)
+    _rwkv6_within_the_smokes_limit(inputs, 64)
+    before = _build.RWKV6_SCAN.launches["rwkv6_scan"]
+    device = smoke.kernel_device_ms(lambda: rwkv6_scan_state(*inputs, 64),
+                                    smoke.SCAN_KERNELS["rwkv6_scan"])
+    assert device["device_launches_per_call"] == 2, device
+    assert isinstance(device["device_ms"], float), device
+    # kernel_device_ms calls it once to warm up, then five times
+    assert _build.RWKV6_SCAN.launches["rwkv6_scan"] == before + 6
+
+
+def test_rwkv6_scan_runs_on_tensor_cores(cuda):
+    """Both of K6's kernels, in both input types, issue tensor-core
+    products (HMMA: mma.sync) by ``cuobjdump -sass``."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_state
+
+    rwkv6_scan_state(*_rwkv6_draw_inputs(cuda, 1, 2, 64, torch.bfloat16, "model", 0), 64)
+    torch.cuda.synchronize()
+    sass = _smoke().scan_sass_has("rwkv6_scan", ("HMMA",))
     assert len(sass) == 4 and all(sass.values()), sass
 
 
