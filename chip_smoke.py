@@ -17,6 +17,14 @@ super-table walker kernel and the DLS-scheduled CC step — at real sizes:
 * one CC iteration (``propagate`` -> ``changed``) on the walker's
   CC-iteration program over the same n = 16,384 graph, tiles 256 x 1,024
   (16 inner steps a slot), on 1 and 2 shards;
+* the paper's own host entry points beside the card: Listing 2
+  (``linear_regression``) on the VEE's host pool at 1,000,000 x 101,
+  Listing 1 (``connected_components``) over the scale-14 CSR graph against
+  a loop of ``cc_iteration_device`` on the card, the device tuner's and
+  persistent re-balancing's CC tables (tile 256, 2 shards) walked on the
+  card, the simulator's fused and sequential makespans of the linreg table
+  beside the measured walks, and the coordinator (2 nodes x 4 workers,
+  then one node killed);
 * LM serving of Granite-8B at full size (36 layers, d_model 4,096, 32 heads
   over 8 kv heads, d_ff 14,336, vocab 49,152; 33.0 GB of fp32 weights drawn
   on the card): 8 requests of 2,048 tokens in GSS chunks over 4 slots, 16
@@ -51,7 +59,9 @@ walk and to a float64 oracle, and the batched path (``merge_device_lowerings``
 its single-launch walk). Then the CC-iteration path
 (``cc_iteration_device``: one walker launch per shard, bitwise equal to
 ``cc_propagate_ref``, to the CC step and to the plain walk, the flip count
-exact) and the serving path (``serve_lm``: exactly 36 x 6 = 216 K4
+exact), the paper's entry points (phase ``paper_entry_points``: each
+card drive with the counters set to 0 just before and read just after)
+and the serving path (``serve_lm``: exactly 36 x 6 = 216 K4
 launches, none in decode; the first batch's logits through K4 against the
 same weights through K4's plain version; K4 alone at the serving shape
 against its plain version and a float64 oracle), then the two recurrent
@@ -212,6 +222,15 @@ REDESIGNED = frozenset({
     "dag_walk[moe.experts]", "dag_walk[cc_iteration]", "ssm_scan", "rwkv6_scan",
     "cc_propagate",
 })
+# The paper's own host entry points beside the card (phase
+# `paper_entry_points`): Listings 1 and 2 on the VEE's host pool, the
+# device tuner's and persistent re-balancing's tables walked on the card,
+# the simulator beside the measured walks, and the coordinator. The
+# tuner's costs are Listing 1's own `cost_of_range`, nnz + 1 a row; the
+# walk's tiles are the CC-iteration program's, on 2 shards; the
+# coordinator runs 2 nodes x 4 workers.
+PAPER_WORKERS, PAPER_SHARDS, CC_TILE = 8, 2, 256
+COORD_NODES, COORD_WORKERS = 2, 4
 MIGRATIONS = (
     ("linreg", "host_to_device", LIN_UNITS + 128),
     ("linreg", "device_to_host", 2 * LIN_UNITS - 256),
@@ -939,6 +958,189 @@ def cc_iteration_phase(G, c, step) -> dict:
         library_call="torch.maximum((G * c).amax(1), c) (propagate only)",
         shapes=f"G ({n}, {n}) f32, {len(table)} slots, tiles 256 x 1024",
         **dict(zip(("bound_ms", "bound_by"), bound_ms(cc_bytes, 2 * n * n + 2 * n))))
+
+
+def paper_entry_points_phase(graph, G, c, lin, lin_rows, stage_device_ms: dict,
+                             fused_device_ms, beta_dev, beta_ref, beta_limits) -> None:
+    """The paper's host entry points beside the card, at the smoke's sizes.
+
+    Listing 2 (``linear_regression``) on the VEE's host pool at Fig. 10's
+    size, held to the float64 oracle and to ``linear_regression_device``'s
+    beta within the end-to-end limits ``beta_limits``. Listing 1
+    (``connected_components``) on the host pool over the CSR ``graph`` to
+    convergence, its labels and iteration count bitwise those of a loop of
+    ``cc_iteration_device`` on the card until no label flips. The device
+    tuner (``select_offline_device_dag``, Listing 1's per-row costs) picks
+    the CC iteration's techniques on 2 shards, and persistent re-balancing
+    (``rebalance_dag`` on the per-chunk nnz) moves chunks of a contiguous
+    assignment; each table is walked on the card (``dag_walk_sharded``),
+    bitwise ``cc_propagate_ref`` with exact flips. ``frozen_dag_makespans``
+    on the linreg table, with costs spread from the walker's measured
+    per-stage device ms, printed beside the measured fused and stagewise
+    walks. The coordinator (2 nodes x 4 workers) runs Listing 1's first
+    propagation, then again with a node killed; both bitwise
+    ``cc_step_numpy``. Launch counters are set to 0 before each card drive
+    and read after it. Prints one line, ``paper_entry_points``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (Coordinator, CoordinatorConfig, SchedulerConfig,
+                                  build_dag_tables, build_dag_tables_cached,
+                                  frozen_dag_makespans, rebalance_dag,
+                                  select_offline_device_dag)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dag_walk import dag_walk_sharded, dag_walk_stagewise
+    from repro_torch.kernels.ref import cc_propagate_ref
+    from repro_torch.vee import apps
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def zero_counts():
+        for k in _build.KERNELS:
+            k.launches.clear()
+
+    # Listing 2 on the VEE
+    feat_lim, icpt_lim = beta_limits
+    t = time.perf_counter()
+    beta_vee, hist = apps.linear_regression(
+        LINREG_ROWS, LINREG_COLS, SchedulerConfig(technique="GSS", n_workers=PAPER_WORKERS))
+    seconds = time.perf_counter() - t
+    errs = {}
+    for what, other in (("oracle", beta_ref), ("device", beta_dev.astype("float64"))):
+        diff = np.abs(beta_vee - other)
+        errs[what] = [float(diff[:-1].max()), float(diff[-1].max())]
+        require(errs[what][0] <= feat_lim and errs[what][1] <= icpt_lim,
+                f"listing 2 on the VEE: beta vs the {what} {errs[what]} beyond "
+                f"{[feat_lim, icpt_lim]}")
+    out["listing2"] = dict(seconds=seconds, chunks=len(hist[0].schedule),
+                           feature_and_intercept_abs_err=errs,
+                           limits=[feat_lim, icpt_lim])
+
+    # Listing 1 on the VEE, and the same loop on the card
+    n = graph.n_rows
+    t = time.perf_counter()
+    labels, iters, _ = apps.connected_components(
+        graph, SchedulerConfig(technique="MFSC", n_workers=PAPER_WORKERS))
+    host_s = time.perf_counter() - t
+    zero_counts()
+    t = time.perf_counter()
+    cd, dev_iters = c, 0
+    while dev_iters < 100:
+        o = apps.cc_iteration_device(G, cd)
+        dev_iters += 1
+        cd = o["propagate"]
+        if int(o["changed"][0]) == 0:
+            break
+    dev_s = time.perf_counter() - t
+    launches = launch_counts(_build.KERNELS)
+    require(launches == {"walk_cc": dev_iters},
+            f"listing 1 on the card: launches {launches}, want {dev_iters} walk_cc")
+    require(dev_iters == iters, f"listing 1: {iters} iterations on the VEE, "
+                                f"{dev_iters} on the card")
+    dev_labels = cd.cpu().numpy()
+    require(np.array_equal(dev_labels.astype(np.int64), labels)
+            and np.array_equal(labels.astype(np.float32), dev_labels),
+            "listing 1: the VEE's labels differ from the card's")
+    out["listing1"] = dict(iterations=iters, components=int(len(np.unique(labels))),
+                           host_seconds=host_s, card_seconds=dev_s, launches=launches)
+
+    # the device tuner's table, walked
+    want = cc_propagate_ref(G, c)
+    flips = int((want != c).sum())
+    dag, stages, operands = apps.cc_iteration_lowering(n, CC_TILE)
+    values = {"G": G, "c_col": c, "c_row": c}
+    nnz = graph.row_nnz()
+    t = time.perf_counter()
+    techs, tuned_ms, uniform = select_offline_device_dag(
+        dag, {"propagate": (nnz + 1).astype(np.float64)}, tile=CC_TILE,
+        n_shards=PAPER_SHARDS)
+    tune_s = time.perf_counter() - t
+    require(tuned_ms <= min(uniform.values()), "the device tuner lost to a uniform technique")
+
+    def walked(tables, what):
+        zero_counts()
+        got = dag_walk_sharded(stages, operands, values, tables, CC_TILE)
+        counts = launch_counts(_build.KERNELS)
+        require(counts == {"walk_cc": tables.shape[0]},
+                f"{what}: launches {counts}, want {tables.shape[0]} walk_cc")
+        require(torch.equal(got["propagate"], want), f"{what}: labels differ from "
+                                                     "cc_propagate_ref")
+        require(int(got["changed"][0]) == flips, f"{what}: changed "
+                                                 f"{int(got['changed'][0])} != {flips}")
+        walk = lambda: dag_walk_sharded(stages, operands, values, tables, CC_TILE)  # noqa: E731
+        return dict(launches=counts, slots=int((tables[:, :, 2] > 0).sum()),
+                    **kernel_device_ms(walk))
+
+    tuned = build_dag_tables_cached(dag, CC_TILE, techs, n_shards=PAPER_SHARDS)
+    out["tuned_walk"] = dict(techniques=techs, simulated_makespan=tuned_ms,
+                             best_uniform=min(uniform.values()), tune_seconds=tune_s,
+                             **walked(tuned.tables, "the tuned table"))
+
+    # persistent re-balancing's table, walked
+    def chunk_nnz(d):
+        return {name: np.array([nnz[s * CC_TILE:(s + z) * CC_TILE].sum()
+                                for s, z in d.stage_chunks[name]], dtype=np.float64)
+                for name in d.stage_names}
+
+    def shard_loads(d):
+        load = np.zeros(d.n_shards)
+        for name, per_chunk in chunk_nnz(d).items():
+            np.add.at(load, d.chunk_shard[name], per_chunk)
+        return load
+
+    old = build_dag_tables(dag, CC_TILE, techs, n_shards=PAPER_SHARDS, n_workers=4,
+                           assignment="contiguous")
+    new = rebalance_dag(old, chunk_nnz(old))
+    old_load, new_load = shard_loads(old), shard_loads(new)
+    require(new_load.max() < old_load.max(), f"re-balancing did not lower the largest "
+                                             f"shard load: {old_load} -> {new_load}")
+    out["rebalance"] = dict(
+        shard_nnz_before=old_load.tolist(), shard_nnz_after=new_load.tolist(),
+        before=walked(old.tables, "the contiguous table"),
+        after=walked(new.tables, "the re-balanced table"))
+
+    # the simulator beside the card: the linreg table walked above
+    ddt = build_dag_tables_cached(lin.dag, 1, None)
+    costs = {}
+    for name in ddt.stage_names:
+        ms_ = stage_device_ms[name]["device_ms"]
+        require(isinstance(ms_, float), f"walk_stages measured no device ms for {name}")
+        units = lin.dag.stages[name].n_rows
+        costs[name] = np.full(units, ms_ / 1e3 / units)
+    sim_fused, sim_seq = frozen_dag_makespans(ddt, costs)
+    require(sim_fused <= sim_seq, f"simulated fused {sim_fused} > sequential {sim_seq}")
+    stagewise = kernel_device_ms(lambda: dag_walk_stagewise(
+        lin.stages, lin.operands, lin.values, lin_rows, TILE))
+    out["simulator"] = dict(
+        table_slots=int(len(ddt.slots(0))), stage_device_ms={
+            k: stage_device_ms[k]["device_ms"] for k in ddt.stage_names},
+        simulated_fused_ms=sim_fused * 1e3, simulated_sequential_ms=sim_seq * 1e3,
+        measured_fused_device_ms=fused_device_ms,
+        measured_stagewise_device_ms=stagewise["device_ms"],
+        stagewise_launches_per_call=stagewise["device_launches_per_call"])
+
+    # the coordinator: Listing 1's first propagation, then with a node down
+    c_host = np.arange(1, n + 1, dtype=np.int64)
+    step = apps.cc_step_numpy(graph, c_host)
+    require(np.array_equal(step.astype(np.float32), want.cpu().numpy()),
+            "cc_step_numpy differs from cc_propagate_ref")
+    co = Coordinator(CoordinatorConfig(n_nodes=COORD_NODES, node_workers=COORD_WORKERS))
+    co.broadcast("c", c_host)
+    co.ship_program(lambda store, s, z: graph.row_max_gather(store["c"], s, s + z))
+    runs = {}
+    for killed in (None, COORD_NODES - 1):
+        if killed is not None:
+            co.kill_node(killed)
+        t = time.perf_counter()
+        parts = co.run(n)
+        rows = np.concatenate([parts[k] for k in sorted(parts)])
+        require(np.array_equal(rows, step), f"coordinator (node killed: {killed}): rows "
+                                            "differ from cc_step_numpy")
+        runs["one_node_down" if killed is not None else "all_nodes"] = dict(
+            ranges=len(parts), seconds=time.perf_counter() - t)
+    out["coordinator"] = dict(nodes=COORD_NODES, workers=COORD_WORKERS, **runs)
+    emit("paper_entry_points", **out, seconds=time.perf_counter() - t_phase)
 
 
 def decode_profile(model, params, tok, cache, index: int, served_step_ms: float,
@@ -1875,8 +2077,9 @@ def main() -> None:
         shapes=f"G ({n_cc}, {n_cc}) f32, tiles 256 x 1024",
         **dict(zip(("bound_ms", "bound_by"), bound_ms(cc_bytes, cc_flops)))))
     # where the walker's time goes: each stage alone
-    emit("walk_stages", device_ms={"linreg": walk_stages(lin, lin_rows, k_out),
-                                   "recommendation": walk_stages(rec, rec_rows, k_rec)})
+    stage_device_ms = {"linreg": walk_stages(lin, lin_rows, k_out),
+                       "recommendation": walk_stages(rec, rec_rows, k_rec)}
+    emit("walk_stages", device_ms=stage_device_ms)
     emit("times", card=card, seconds=time.perf_counter() - t)
 
     # -- 6. migration: host <-> device mid-flight, the seeded walk (K3) -------
@@ -2041,6 +2244,9 @@ def main() -> None:
     kernels.append(moe_phase(dev, walk_inputs))
     kernels.extend(batched_phase(dev, walk_inputs))
     kernels.append(cc_iteration_phase(G, c, u))
+    paper_entry_points_phase(graph, G, c, lin, lin_rows, stage_device_ms["linreg"],
+                             kernels[0]["device_ms"], beta, beta_ref,
+                             (feat_lim, icpt_lim))
     kernels.append(k4_mla_phase(dev))
     kernels.append(serve_phase(dev))
     gc.collect()

@@ -1,7 +1,8 @@
 """Scheduler core: partitioners, queues and the host executors, the
-pipeline-DAG runtime, super-tables, chunk-boundary checkpoints with
-host<->device migration, the lowering toolkit, the config registry and
-the front door's same-shape batching."""
+pipeline-DAG runtime, super-tables with persistent re-balancing, the
+distributed coordinator, the discrete-event simulator and the auto-tuners,
+chunk-boundary checkpoints with host<->device migration, the lowering
+toolkit, the config registry and the front door's same-shape batching."""
 
 from .admission import (
     BatchPolicy,
@@ -9,6 +10,20 @@ from .admission import (
     coalesce_submissions,
     merge_dags,
 )
+from .autotune import (
+    DagTuner,
+    OnlineTuner,
+    OnlineTuneResult,
+    default_search_space,
+    select_offline,
+    select_offline_dag,
+    select_offline_device_dag,
+    select_offline_hetero,
+    select_offline_server,
+    tune_online_dag,
+    tune_online_hetero,
+)
+from .coordinator import Coordinator, CoordinatorConfig, NodeSched
 from .dag import (
     DEP_ELEMENTWISE,
     DEP_FULL,
@@ -24,12 +39,17 @@ from .dag import (
 )
 from .device_schedule import (
     DeviceDagTables,
+    assign_chunks,
     build_dag_tables,
     build_dag_tables_cached,
     build_task_table,
     clear_dag_table_cache,
+    cost_balanced_assignment,
     dag_signature,
     dag_table_cache_stats,
+    per_shard_tables,
+    rebalance,
+    rebalance_dag,
 )
 from .executor import ExecutionStats, ScheduledExecutor, SchedulerConfig
 from .lower import (
@@ -47,10 +67,12 @@ from .online import (
     EXP3Selector,
     FeedbackLog,
     OnlineChoice,
+    OnlineRound,
     OnlineScheduler,
     StageFeedback,
     UCB1Selector,
     default_online_arms,
+    replay_online_dag,
 )
 from .partitioners import PARTITIONERS, chunk_schedule, make_partitioner
 from .preempt import (
@@ -72,6 +94,17 @@ from .queues import (
     SlotDistributedQueues,
 )
 from .registry import make_config
+from .simulator import (
+    DagSimResult,
+    DagStats,
+    SimOverheads,
+    SimResult,
+    frozen_dag_makespans,
+    simulate,
+    simulate_dag,
+    simulate_server,
+    stats_from_events,
+)
 from .submit import Submission, as_submission
 from .task import RangeTask, tasks_from_schedule
 from .telemetry import NULL_TRACER, NullTracer, Span, Tracer, as_tracer
@@ -84,15 +117,26 @@ __all__ = [
     "VICTIM_STRATEGIES", "VictimSelector", "make_victim_selector",
     "RangeTask", "tasks_from_schedule",
     "SchedulerConfig", "ScheduledExecutor", "ExecutionStats",
+    "SimOverheads", "SimResult", "simulate", "DagSimResult", "simulate_dag",
+    "frozen_dag_makespans", "simulate_server", "DagStats",
+    "stats_from_events",
     "DEP_FULL", "DEP_ELEMENTWISE", "Stage", "StageDep", "PipelineDAG",
     "PipelineExecutor", "StageResult", "DagResult", "TaskEvent",
     "EventLog", "NullEventLog",
-    "DeviceDagTables", "build_dag_tables", "build_task_table",
+    "Coordinator", "CoordinatorConfig", "NodeSched",
+    "build_task_table", "assign_chunks", "per_shard_tables", "rebalance",
+    "cost_balanced_assignment",
+    "DeviceDagTables", "build_dag_tables", "rebalance_dag",
     "dag_signature", "build_dag_tables_cached", "dag_table_cache_stats",
     "clear_dag_table_cache",
+    "select_offline", "OnlineTuner", "default_search_space",
+    "select_offline_dag", "DagTuner", "select_offline_server",
+    "select_offline_device_dag", "select_offline_hetero",
+    "tune_online_hetero",
     "ChunkObservation", "StageFeedback", "FeedbackLog", "OnlineChoice",
-    "OnlineScheduler", "UCB1Selector", "EXP3Selector", "SELECTORS",
-    "default_online_arms",
+    "OnlineRound", "OnlineScheduler", "UCB1Selector", "EXP3Selector",
+    "SELECTORS", "default_online_arms",
+    "replay_online_dag", "OnlineTuneResult", "tune_online_dag",
     "Submission", "as_submission",
     "Lowered", "row_stage", "chain_dag", "fanout_stage", "run_direct",
     "measure_stage_costs", "costs_from_sizes",

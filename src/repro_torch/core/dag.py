@@ -176,16 +176,24 @@ class EventLog:
     appending the field tuple costs ~0.1 us. The log stores those raw
     tuples and materializes ``cls`` instances lazily — the first len()/
     index/iteration after an append builds the event list once and caches
-    it, so analysis code sees a normal sequence of TaskEvent objects while
-    the worker loop never pays for them.
+    it, so analysis code (tests, DagResult.stats) sees a normal sequence
+    of TaskEvent objects while the worker loop never pays for them.
+    ``iter_stat_tuples`` feeds ``stats_from_events`` without
+    materializing anything.
     """
 
-    __slots__ = ("_raw", "_mat", "cls")
+    __slots__ = ("_raw", "_mat", "cls", "_si", "_t0i", "_t1i", "_wi")
 
     def __init__(self, cls=None):
-        self.cls = cls if cls is not None else TaskEvent
+        cls = cls if cls is not None else TaskEvent
+        self.cls = cls
         self._raw: list[tuple] = []
         self._mat: list | None = None
+        names = [f.name for f in dataclasses.fields(cls)]
+        self._si = names.index("stage")
+        self._t0i = names.index("t_start")
+        self._t1i = names.index("t_end")
+        self._wi = names.index("wait_s") if "wait_s" in names else -1
 
     def append_raw(self, *fields) -> None:
         """Record one event as its positional field tuple (hot path)."""
@@ -214,6 +222,13 @@ class EventLog:
 
     def __getitem__(self, i):
         return self._events()[i]
+
+    def iter_stat_tuples(self):
+        """Yield (stage, exec_s, wait_s) per event straight off the raw
+        tuples — the DagStats aggregation path (no materialization)."""
+        si, t0i, t1i, wi = self._si, self._t0i, self._t1i, self._wi
+        for t in self._raw:
+            yield t[si], t[t1i] - t[t0i], (t[wi] if wi >= 0 else 0.0)
 
 
 class NullEventLog(EventLog):
@@ -247,7 +262,8 @@ class DagResult:
     """Whole-DAG outcome: stage values/results, event timeline, pool stats.
 
     ``transfer_events`` and ``preemptions`` are the reference's uniform
-    cross-engine surfaces; the port's engines leave them empty.
+    cross-engine surfaces; the port's engines leave them empty. ``stats``
+    reads like the simulator's (``res.stats.total_exec_s`` on both).
     """
 
     values: dict[str, Any]
@@ -266,6 +282,17 @@ class DagResult:
         if r.t_first is None:
             return (0.0, 0.0)
         return (r.t_first, r.t_last)
+
+    @property
+    def stats(self):
+        """Per-stage chunk accounting (a core.simulator.DagStats) built
+        from the event timeline: measured exec seconds and queue waits,
+        with ``transfer_events`` folded into the transfer columns."""
+        from .simulator import stats_from_events
+        st = stats_from_events(self.events)
+        for ev in self.transfer_events:
+            st.add_transfer(ev.consumer, ev.t_end - ev.t_start)
+        return st
 
     def overlap_s(self, a: str, b: str) -> float:
         """Seconds during which stages ``a`` and ``b`` were both active."""

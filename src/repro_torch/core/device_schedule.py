@@ -8,6 +8,11 @@ analogue) or in contiguous runs (the PERGROUP analogue), and a pipeline
 DAG is merged into per-shard ``(stage, start, size)`` super-tables that
 the walker kernel (kernels/dag_walk.py) drains in one launch per shard.
 
+Work stealing becomes persistent re-balancing: after a walk each shard
+reports its measured load, and ``rebalance`` / ``rebalance_dag`` shift
+chunks from overloaded to underloaded shards (nearest first) for the next
+walk.
+
 All tables are padded to a fixed slot count; padding rows have size 0 and
 are skipped by the walker.
 """
@@ -25,12 +30,14 @@ __all__ = [
     "assign_chunks",
     "per_shard_tables",
     "cost_balanced_assignment",
+    "rebalance",
     "DeviceDagTables",
     "build_dag_tables",
     "dag_signature",
     "build_dag_tables_cached",
     "dag_table_cache_stats",
     "clear_dag_table_cache",
+    "rebalance_dag",
 ]
 
 
@@ -103,6 +110,56 @@ def cost_balanced_assignment(
         assign[c] = s
         load[s] += float(chunk_costs[c])
     return assign
+
+
+def rebalance(
+    assignment: np.ndarray,
+    measured_load: np.ndarray,
+    chunk_costs: np.ndarray,
+    neighbors_first: np.ndarray | None = None,
+    max_moves: int = 8,
+) -> np.ndarray:
+    """Persistent-stealing step: move chunks from the most- to the
+    least-loaded shard, preferring moves to neighbouring shards.
+
+    ``measured_load``: per-shard load from the previous step (summed on
+    the device, fed back on the host). ``neighbors_first``: (n_shards, n_shards)
+    preference matrix (smaller = closer); defaults to ring distance.
+    Returns the updated chunk->shard assignment for the next step.
+    """
+    assignment = assignment.copy()
+    n_shards = len(measured_load)
+    load = np.asarray(measured_load, dtype=np.float64).copy()
+    if neighbors_first is None:
+        i = np.arange(n_shards)
+        neighbors_first = np.minimum(
+            np.abs(i[:, None] - i[None, :]),
+            n_shards - np.abs(i[:, None] - i[None, :]),
+        )
+    for _ in range(max_moves):
+        src = int(np.argmax(load))
+        mean = load.mean()
+        if load[src] <= 1.05 * mean:  # within 5% of balance: stop
+            break
+        # candidate destinations: underloaded, nearest first (SEQPRI analogue)
+        dsts = sorted(
+            (s for s in range(n_shards) if load[s] < mean),
+            key=lambda s: neighbors_first[src, s],
+        )
+        if not dsts:
+            break
+        dst = dsts[0]
+        # steal from the tail of src's chunks (paper: thief pops victim tail)
+        src_chunks = np.where(assignment == src)[0]
+        if len(src_chunks) <= 1:
+            load[src] = -np.inf  # cannot shed further
+            continue
+        c = src_chunks[-1]
+        assignment[c] = dst
+        delta = float(chunk_costs[c])
+        load[src] -= delta
+        load[dst] += delta
+    return assignment
 
 
 # ---------------------------------------------------------------------------
@@ -448,3 +505,52 @@ def clear_dag_table_cache() -> None:
     _DAG_TABLE_CACHE.clear()
     _DAG_TABLE_STATS["hits"] = 0
     _DAG_TABLE_STATS["misses"] = 0
+
+
+def rebalance_dag(
+    ddt: DeviceDagTables,
+    measured: dict[str, np.ndarray],
+    neighbors_first: np.ndarray | None = None,
+    max_moves: int = 8,
+    max_slots: int | None = None,
+) -> DeviceDagTables:
+    """Persistent re-balancing over per-(stage, chunk) measured loads.
+
+    Generalizes ``rebalance`` from one flat chunk set to the whole DAG:
+    ``measured`` maps stage name -> per-chunk load (aligned with
+    ``ddt.stage_chunks``). Root stages migrate their chunks independently
+    against the SHARED per-shard load (summed over all stages, so a shard
+    hot on one stage sheds another stage's chunks too); elementwise
+    consumers re-align to the new producer owners when the super-tables
+    are rebuilt. Returns a new DeviceDagTables for the next iteration.
+    """
+    names = list(ddt.stage_names)
+    n_shards = ddt.n_shards
+    load = np.zeros(n_shards, dtype=np.float64)
+    for n in names:
+        costs = np.asarray(measured.get(n, np.ones(len(ddt.stage_chunks[n]))),
+                           dtype=np.float64)
+        for c, sh in enumerate(ddt.chunk_shard[n]):
+            load[sh] += float(costs[c])
+    root_assign: dict[str, np.ndarray] = {}
+    for n in names:
+        if any(k == "elementwise" for _, k in ddt.deps[n]):
+            continue  # re-aligned to its producer at rebuild time
+        costs = np.asarray(measured.get(n, np.ones(len(ddt.stage_chunks[n]))),
+                           dtype=np.float64)
+        new = rebalance(ddt.chunk_shard[n], load, costs,
+                        neighbors_first=neighbors_first, max_moves=max_moves)
+        for c, (old, sh) in enumerate(zip(ddt.chunk_shard[n], new)):
+            if old != sh:
+                load[old] -= float(costs[c])
+                load[sh] += float(costs[c])
+        root_assign[n] = new
+    n_tiles = {n: int(ddt.stage_chunks[n][:, 1].sum()) for n in names}
+    stage_chunks, chunk_shard = _dag_chunk_assignment(
+        names, n_tiles, ddt.deps, ddt.techniques, n_shards, ddt.n_workers,
+        "roundrobin", None, ddt.seed, root_assign=root_assign)
+    tables = _merge_shard_slots(names, ddt.deps, stage_chunks, chunk_shard,
+                                ddt.tile, n_shards, max_slots)
+    return DeviceDagTables(tables, ddt.stage_names, ddt.tile, ddt.techniques,
+                           stage_chunks, chunk_shard, ddt.deps,
+                           ddt.seed, ddt.n_workers)

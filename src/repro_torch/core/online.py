@@ -1,7 +1,7 @@
 """Online adaptive scheduling: the runtime feedback loop.
 
 The port's copy of the reference's feedback loop (``repro/core/online.py``
-without the virtual-time replay, which needs the simulator):
+without the hetero arms, which need the co-execution stack):
 
   ``ChunkObservation``  one completed chunk: (stage, range, measured cost).
   ``FeedbackLog``       thread-safe streaming statistics per stage —
@@ -26,13 +26,15 @@ Integration points (all feed the same OnlineScheduler object):
   * ``core/dag.py``: ``PipelineExecutor(dag, cfg).run(Submission(online=...))``
     consults the bandit per stage per run and resizes stage remainders
     mid-run.
+  * ``replay_online_dag``: the same loop over ``simulate_dag`` rounds in
+    virtual time (core/simulator.py), deterministic given the seeds.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -42,6 +44,7 @@ __all__ = [
     "ChunkObservation", "StageFeedback", "FeedbackLog", "OnlineChoice",
     "BanditSelector", "UCB1Selector", "EXP3Selector", "SELECTORS",
     "OnlineScheduler", "default_online_arms", "rechunk_pending",
+    "OnlineRound", "replay_online_dag",
 ]
 
 _LAYOUTS = ("CENTRALIZED", "PERCORE", "PERGROUP")
@@ -50,9 +53,9 @@ _LAYOUTS = ("CENTRALIZED", "PERCORE", "PERGROUP")
 def default_online_arms(include_ss: bool = True) -> list[tuple[str, str, str]]:
     """The bandit's arm set: 11 partitioners x 3 assignment layouts.
 
-    Victim strategy is fixed to SEQ, as in the reference: the reference's
-    virtual-time replay that trains selectors cannot distinguish victim
-    orders, so extra victim arms would only slow exploration. ``include_ss=False``
+    Victim strategy is fixed to SEQ — the virtual-time replay that trains
+    selectors cannot distinguish victim orders (see select_offline_dag), so
+    extra victim arms would only slow exploration. ``include_ss=False``
     drops the pathological chunk=1 technique for faster convergence.
     """
     techs = [t for t in PARTITIONERS if include_ss or t != "SS"]
@@ -303,9 +306,10 @@ def rechunk_pending(
 class OnlineScheduler:
     """The runtime feedback loop: per-stage bandits + moldable resizing.
 
-    One object serves a whole deployment: every PipelineExecutor round
-    ``suggest``s, ``record``s and ``observe``s against it, so learning
-    transfers across rounds.
+    One object serves a whole deployment: PipelineExecutor rounds and
+    virtual-time simulate_dag replays all ``suggest``/``record``/``observe``
+    against it, so learning transfers across rounds and (in tests)
+    simulated rounds.
 
     Selection: each stage gets its own bandit (``selector`` in SELECTORS)
     over ``arms``; ``suggest(stage)`` returns an OnlineChoice whose combo
@@ -475,3 +479,58 @@ class OnlineScheduler:
         """Lifetime count of remainder re-chunks per stage (reporting)."""
         with self._lock:
             return dict(self._resizes)
+
+
+# ---------------------------------------------------------------------------
+# deterministic round-based replay (convergence harness)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class OnlineRound:
+    """One scheduling round of a replay: combos played and the outcome."""
+
+    combos: dict[str, tuple[str, str, str]]
+    makespan: float
+    stage_span: dict[str, float] = field(default_factory=dict)
+
+
+def replay_online_dag(
+    dag,
+    stage_costs: dict[str, np.ndarray],
+    online: OnlineScheduler,
+    rounds: int,
+    n_workers: int = 20,
+    overheads=None,
+    seed: int = 0,
+    resize_in_sim: bool = True,
+) -> list[OnlineRound]:
+    """Train ``online`` on ``rounds`` virtual-time replays of one DAG.
+
+    Each round consults the bandit per stage, replays the DAG with
+    ``simulate_dag`` under the chosen combos (feeding chunk observations —
+    and moldable resizes, when ``resize_in_sim`` — through the same online
+    object the real pool would), then credits each stage's bandit with the
+    stage's realized span. Deterministic given the selector seeds, so the
+    convergence property tests replay exactly.
+    """
+    from .simulator import SimOverheads, simulate_dag
+
+    ov = overheads if overheads is not None else SimOverheads()
+    history: list[OnlineRound] = []
+    names = list(dag.stage_names)
+    for _ in range(max(1, rounds)):
+        choices = {n: online.suggest(n) for n in names}
+        res = simulate_dag(
+            dag, stage_costs, {n: c.combo for n, c in choices.items()},
+            n_workers=n_workers, overheads=ov, seed=seed,
+            online=online if resize_in_sim else None)
+        spans = {}
+        for n, c in choices.items():
+            span = max(0.0, res.stage_finish[n] - res.stage_start[n])
+            spans[n] = span
+            # per-ROW reward, matching the real executor/server paths
+            rows = max(1, dag.stages[n].n_rows)
+            online.observe(c, (span if span > 0 else res.makespan) / rows)
+        history.append(OnlineRound(
+            {n: c.combo for n, c in choices.items()}, res.makespan, spans))
+    return history

@@ -157,7 +157,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_offset:
         raise NotImplementedError(
             f"chunked_attention with kv_offset={kv_offset} is the sequence-"
-            "sharded attention, which waits for the mesh layer (ROADMAP A11)")
+            "sharded attention, which waits for the mesh layer (ROADMAP A17)")
     sq, skv = q.shape[2], k.shape[2]
     q_block, kv_block = min(q_block, sq), min(kv_block, skv)
     if sq % q_block or skv % kv_block:

@@ -1,4 +1,12 @@
-"""The paper's IDA pipelines lowered for the device walker.
+"""The paper's IDA pipelines, on the host pool and on the device walker.
+
+Connected components (sparse, load-imbalanced — paper Listing 1):
+
+    c = seq(1, n)
+    while diff > 0 and iter <= maxi:
+        u = max(rowMaxs(G * t(c)), c)   # neighbour propagation
+        diff = sum(u != c)
+        c = u
 
 Linear regression training (dense, balanced — paper Listing 2):
 
@@ -9,7 +17,13 @@ as two sum stages joined by a barrier edge (``moments`` -> ``syrk_gemv``),
 the two-branch recommendation pipeline (``item_norms``, ``user_bias``
 -> ``scores``), and one connected-components iteration (``propagate`` ->
 ``changed``, the walker program with an inner axis over column tiles).
-Each is frozen into a super-table by
+
+On the host, both listings run on the VEE (``connected_components``,
+``linear_regression``) and as pipeline DAGs on one shared pool
+(``connected_components_dag``, ``linear_regression_dag``,
+``recommendation_pipeline``, and the ``*_online`` loops under the online
+feedback scheduler), on numpy as the reference runs them. On the device,
+each pipeline is frozen into a super-table by
 ``core/device_schedule.py:build_dag_tables_cached`` and drained by the
 walker (kernels/dag_walk.py) in one launch. Data is made with numpy from a
 seed, exactly as the JAX package's lowerings make it, and lies on the
@@ -32,17 +46,25 @@ import numpy as np
 import torch
 
 from ..core.admission import BATCH_SEP, merge_dags
-from ..core.dag import DEP_ELEMENTWISE, DEP_FULL, PipelineDAG, Stage, StageDep
+from ..core.dag import (DEP_ELEMENTWISE, DEP_FULL, DagResult, PipelineDAG,
+                        PipelineExecutor, Stage, StageDep)
 from ..core.device_schedule import build_dag_tables_cached
 from ..core.executor import SchedulerConfig
+from ..core.online import OnlineScheduler, default_online_arms
 from ..core.preempt import (PreemptiveRunner, migrate_to_device,
                             resume_on_host, run_device_prefix)
+from ..core.submit import Submission
 from ..kernels.cc_propagate import propagate_body
 from ..kernels.dag_walk import (WalkOperand, WalkStage, dag_walk_sharded,
                                 dag_walk_stagewise)
+from .engine import VEE, PipelineResult
 from .sparse import CSRMatrix
 
 __all__ = [
+    "cc_step_numpy", "connected_components", "linear_regression",
+    "connected_components_dag", "linreg_dag", "linear_regression_dag",
+    "linear_regression_online", "recommendation_online",
+    "recommendation_dag", "recommendation_pipeline",
     "linear_regression_oracle", "recommendation_oracle", "DeviceLowering",
     "run_device_dag", "linreg_device_lowering", "linear_regression_device",
     "recommendation_device_lowering", "recommendation_device",
@@ -77,6 +99,297 @@ def recommendation_oracle(n_users: int, n_items: int, density: float = 0.3,
     norms = np.sqrt((R ** 2).sum(axis=0)) + 1e-9
     bias = R.mean(axis=1)
     return np.argmax(R / norms - bias[:, None], axis=1)
+
+
+# ---------------------------------------------------------------- host pool
+# The paper's Listings 1 and 2 on the VEE and the pipeline-DAG runtime, on
+# numpy, as the reference runs them.
+
+def cc_step_numpy(G: CSRMatrix, c: np.ndarray) -> np.ndarray:
+    """Serial oracle for one propagation step (whole matrix)."""
+    return G.row_max_gather(c)
+
+
+def connected_components(
+    G: CSRMatrix,
+    config: SchedulerConfig,
+    max_iter: int = 100,
+) -> tuple[np.ndarray, int, list[PipelineResult]]:
+    """Paper Listing 1 on DaphneSched. Returns (labels, iters, per-iter results)."""
+    n = G.n_rows
+    c = np.arange(1, n + 1, dtype=np.int64)
+    row_nnz = G.row_nnz()
+
+    def cost_of_range(start: int, size: int) -> float:
+        return float(row_nnz[start : start + size].sum() + size)
+
+    history: list[PipelineResult] = []
+    vee = VEE(config)
+    for it in range(1, max_iter + 1):
+        c_cur = c  # bind for the closure
+
+        def op(start, size, c_cur=c_cur):
+            return G.row_max_gather(c_cur, start, start + size)
+
+        res = vee.run(n, op, combine="concat", cost_of_range=cost_of_range)
+        u = res.value
+        history.append(res)
+        diff = int((u != c).sum())
+        c = u
+        if diff == 0:
+            return c, it, history
+    return c, max_iter, history
+
+
+def linear_regression(
+    num_rows: int,
+    num_cols: int,
+    config: SchedulerConfig,
+    lam: float = 0.001,
+    seed: int = 1,
+) -> tuple[np.ndarray, list[PipelineResult]]:
+    """Paper Listing 2 on DaphneSched. Returns (beta, stage results)."""
+    rng = np.random.default_rng(seed)
+    XY = rng.uniform(0.0, 1.0, size=(num_rows, num_cols))
+    X, y = XY[:, :-1], XY[:, -1:]
+
+    # normalization / standardization (dense row-parallel)
+    Xmean = X.mean(axis=0)
+    Xstd = X.std(axis=0)
+    Xstd[Xstd == 0] = 1.0
+
+    vee = VEE(config)
+    history: list[PipelineResult] = []
+
+    # A = syrk(X1) = X1^T X1 and b = gemv(X1, y), partial-summed over row
+    # blocks; X1 = [(X - mean)/std, 1]
+    def partial_syrk_gemv(start: int, size: int):
+        Xb = (X[start : start + size] - Xmean) / Xstd
+        Xb = np.concatenate([Xb, np.ones((Xb.shape[0], 1))], axis=1)
+        yb = y[start : start + size]
+        return np.concatenate([Xb.T @ Xb, Xb.T @ yb], axis=1)
+
+    res = vee.run(num_rows, partial_syrk_gemv, combine="sum")
+    history.append(res)
+    Ab = res.value
+    A, b = Ab[:, :-1], Ab[:, -1:]
+    A = A + np.eye(A.shape[0]) * lam
+    beta = np.linalg.solve(A, b)
+    return beta, history
+
+
+def connected_components_dag(
+    G: CSRMatrix,
+    config: SchedulerConfig,
+    per_stage: dict | None = None,
+    max_iter: int = 100,
+    tuner=None,
+) -> tuple[np.ndarray, int, list[DagResult]]:
+    """Paper Listing 1 through the pipeline-DAG runtime.
+
+    ``per_stage`` maps stage name -> (technique, layout, victim) combo or
+    SchedulerConfig; ``tuner`` (a core.DagTuner) overrides it per iteration
+    and observes the iteration wall time (online per-stage selection).
+    """
+    n = G.n_rows
+    c = np.arange(1, n + 1, dtype=np.int64)
+    history: list[DagResult] = []
+    for it in range(1, max_iter + 1):
+        if tuner is not None:
+            per_stage = tuner.suggest()
+        dag = cc_iteration_dag(G, c)
+        res = PipelineExecutor(dag, config).run(Submission(per_stage=per_stage))
+        if tuner is not None:
+            tuner.observe(res.wall_time_s)
+        history.append(res)
+        diff = int(res.values["changed"])
+        c = res.values["propagate"]
+        if diff == 0:
+            return c, it, history
+    return c, max_iter, history
+
+
+def linreg_dag(
+    num_rows: int,
+    num_cols: int,
+    lam: float = 0.001,
+    seed: int = 1,
+):
+    """Paper Listing 2 as a composable DAG (no execution).
+
+    Returns ``(dag, finalize)``: stage ``moments`` partial-sums column
+    sums and squared sums (for mean/std standardization); ``syrk_gemv``
+    depends on it in full and accumulates X1^T X1 and X1^T y over row
+    blocks. ``finalize(values)`` performs the tiny host-side solve and
+    returns beta. Used by linear_regression_dag and the online loop.
+    """
+    rng = np.random.default_rng(seed)
+    XY = rng.uniform(0.0, 1.0, size=(num_rows, num_cols))
+    X, y = XY[:, :-1], XY[:, -1:]
+
+    def moments_op(inputs, s, z):
+        Xb = X[s:s + z]
+        return np.stack([Xb.sum(axis=0), (Xb ** 2).sum(axis=0)])
+
+    def syrk_gemv_op(inputs, s, z):
+        m = inputs["moments"]
+        mean = m[0] / num_rows
+        std = np.sqrt(np.maximum(m[1] / num_rows - mean ** 2, 0.0))
+        std[std == 0] = 1.0
+        Xb = (X[s:s + z] - mean) / std
+        Xb = np.concatenate([Xb, np.ones((Xb.shape[0], 1))], axis=1)
+        yb = y[s:s + z]
+        return np.concatenate([Xb.T @ Xb, Xb.T @ yb], axis=1)
+
+    dag = PipelineDAG([
+        Stage("moments", num_rows, moments_op, combine="sum"),
+        Stage("syrk_gemv", num_rows, syrk_gemv_op, combine="sum",
+              deps=(StageDep("moments", DEP_FULL),)),
+    ])
+
+    def finalize(values: dict) -> np.ndarray:
+        Ab = values["syrk_gemv"]
+        A, b = Ab[:, :-1], Ab[:, -1:]
+        A = A + np.eye(A.shape[0]) * lam
+        return np.linalg.solve(A, b)
+
+    return dag, finalize
+
+
+def linear_regression_dag(
+    num_rows: int,
+    num_cols: int,
+    config: SchedulerConfig,
+    lam: float = 0.001,
+    seed: int = 1,
+    per_stage: dict | None = None,
+) -> tuple[np.ndarray, DagResult]:
+    """Paper Listing 2 as a DAG: moments -> standardized syrk/gemv -> solve.
+
+    The DAG comes from ``linreg_dag``; the tiny solve happens on the host
+    after the run. Returns (beta, DagResult).
+    """
+    dag, finalize = linreg_dag(num_rows, num_cols, lam=lam, seed=seed)
+    res = PipelineExecutor(dag, config).run(Submission(per_stage=per_stage))
+    return finalize(res.values), res
+
+
+def _make_online(online, selector: str, seed: int):
+    """Default OnlineScheduler for real-pool loops (SS excluded: chunk=1
+    over thousands of rows swamps a thread pool with task dust)."""
+    if online is not None:
+        return online
+    return OnlineScheduler(selector=selector,
+                           arms=default_online_arms(include_ss=False),
+                           seed=seed)
+
+
+def linear_regression_online(
+    num_rows: int,
+    num_cols: int,
+    config: SchedulerConfig,
+    rounds: int = 3,
+    online=None,
+    selector: str = "ucb",
+    lam: float = 0.001,
+    seed: int = 1,
+) -> tuple[np.ndarray, list[DagResult], object]:
+    """Paper Listing 2 served repeatedly under the online feedback loop.
+
+    Each round replays the linreg DAG on a real PipelineExecutor pool with
+    the same core.online.OnlineScheduler: the per-stage bandits pick the
+    round's configs, measured chunk times stream back, and stage
+    remainders resize mid-run — the closed-loop counterpart of passing a
+    ``select_offline_dag`` assignment in ``per_stage``. Returns
+    (beta from the final round, per-round DagResults, the trained
+    scheduler — reusable across calls to keep learning).
+    """
+    online = _make_online(online, selector, seed)
+    dag, finalize = linreg_dag(num_rows, num_cols, lam=lam, seed=seed)
+    history: list[DagResult] = []
+    for _ in range(max(1, rounds)):
+        res = PipelineExecutor(dag, config).run(Submission(online=online))
+        history.append(res)
+    return finalize(history[-1].values), history, online
+
+
+def recommendation_online(
+    n_users: int,
+    n_items: int,
+    config: SchedulerConfig,
+    rounds: int = 3,
+    online=None,
+    selector: str = "ucb",
+    density: float = 0.3,
+    seed: int = 0,
+) -> tuple[np.ndarray, list[DagResult], object]:
+    """The recommendation DAG served repeatedly under the feedback loop.
+
+    Same closed loop as ``linear_regression_online`` over the two-branch
+    recommendation pipeline. Returns (final top items, per-round
+    DagResults, the trained OnlineScheduler).
+    """
+    online = _make_online(online, selector, seed)
+    dag = recommendation_dag(n_users, n_items, density=density, seed=seed)
+    history: list[DagResult] = []
+    for _ in range(max(1, rounds)):
+        res = PipelineExecutor(dag, config).run(Submission(online=online))
+        history.append(res)
+    return history[-1].values["scores"], history, online
+
+
+def recommendation_dag(
+    n_users: int,
+    n_items: int,
+    density: float = 0.3,
+    seed: int = 0,
+) -> PipelineDAG:
+    """The two-branch recommendation DAG (no execution).
+
+    ``item_norms`` (reduction over the ratings matrix) and ``user_bias``
+    (per-user mean) have no edge between them, so they overlap on a
+    shared pool; ``scores`` consumes item_norms in full and user_bias
+    elementwise and emits each user's top item.
+    """
+    rng = np.random.default_rng(seed)
+    R = rng.uniform(0.0, 1.0, size=(n_users, n_items))
+    R *= rng.uniform(size=(n_users, n_items)) < density
+
+    item_norms = Stage(
+        "item_norms", n_users,
+        lambda inputs, s, z: (R[s:s + z] ** 2).sum(axis=0), combine="sum")
+    user_bias = Stage(
+        "user_bias", n_users,
+        lambda inputs, s, z: R[s:s + z].mean(axis=1), combine="concat")
+
+    def scores_op(inputs, s, z):
+        norms = np.sqrt(inputs["item_norms"]) + 1e-9
+        bias = inputs["user_bias"][s:s + z]
+        return np.argmax(R[s:s + z] / norms - bias[:, None], axis=1)
+
+    scores = Stage(
+        "scores", n_users, scores_op, combine="concat",
+        deps=(StageDep("item_norms", DEP_FULL),
+              StageDep("user_bias", DEP_ELEMENTWISE)))
+    return PipelineDAG([item_norms, user_bias, scores])
+
+
+def recommendation_pipeline(
+    n_users: int,
+    n_items: int,
+    config: SchedulerConfig,
+    per_stage: dict | None = None,
+    density: float = 0.3,
+    seed: int = 0,
+) -> tuple[np.ndarray, DagResult]:
+    """Run the recommendation DAG on one PipelineExecutor pool.
+
+    See ``recommendation_dag`` for the stage graph (the two independent
+    branches overlap on the shared pool). Returns (top_items, result).
+    """
+    dag = recommendation_dag(n_users, n_items, density=density, seed=seed)
+    res = PipelineExecutor(dag, config).run(Submission(per_stage=per_stage))
+    return res.values["scores"], res
 
 
 def values_from_reference(values: dict[str, np.ndarray],

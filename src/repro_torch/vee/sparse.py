@@ -13,7 +13,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["CSRMatrix", "rmat_graph"]
+__all__ = ["CSRMatrix", "rmat_graph", "replicated_graph"]
 
 
 @dataclass
@@ -59,13 +59,16 @@ class CSRMatrix:
         hi = self.n_rows if hi is None else hi
         ip = self.indptr[lo:hi + 1]
         vals = c[self.indices[ip[0]:ip[-1]]]
-        offsets = (ip - ip[0])[:-1]
         out = c[lo:hi].copy()
         if len(vals) == 0:
             return out
-        seg_max = np.maximum.reduceat(vals, np.minimum(offsets, len(vals) - 1))
+        # reduce over the non-empty rows' starts only: each segment then
+        # ends where the row does. (Clipping every start into range instead
+        # would cut the last non-empty row of a block that ends in empty
+        # rows short of its last neighbour.)
         nonempty = np.diff(ip) > 0
-        out[nonempty] = np.maximum(out[nonempty], seg_max[nonempty])
+        seg_max = np.maximum.reduceat(vals, (ip[:-1] - ip[0])[nonempty])
+        out[nonempty] = np.maximum(out[nonempty], seg_max)
         return out
 
     def to_dense(self) -> np.ndarray:
@@ -125,3 +128,27 @@ def rmat_graph(
         src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
     keep = src != dst  # drop self-loops
     return CSRMatrix.from_edges(src[keep], dst[keep], n)
+
+
+def replicated_graph(base_scale: int = 10, copies: int = 50, edge_factor: int = 8,
+                     seed: int = 0, relabel: bool | str = "blocks") -> CSRMatrix:
+    """The paper's dataset construction: a base co-purchase-like graph scaled
+    up by replication ("a scale-up factor of 50 was applied", in the
+    paper's evaluation).
+
+    Returns a block-diagonal CSR of ``copies`` disjoint RMAT copies:
+    coarse-grain loads are homogeneous across copies (the property that makes
+    STATIC competitive under PERGROUP pre-partitioning) while within-copy
+    hub skew preserves the fine-grain imbalance DLS techniques exploit.
+    """
+    base = rmat_graph(scale=base_scale, edge_factor=edge_factor, seed=seed,
+                      relabel=relabel)
+    nb = base.n_rows
+    n = nb * copies
+    src_parts, dst_parts = [], []
+    rows = np.repeat(np.arange(nb), np.diff(base.indptr))
+    for c in range(copies):
+        src_parts.append(rows + c * nb)
+        dst_parts.append(base.indices.astype(np.int64) + c * nb)
+    return CSRMatrix.from_edges(np.concatenate(src_parts),
+                                np.concatenate(dst_parts), n)

@@ -173,10 +173,11 @@ _GUARD = textwrap.dedent("""
                                      for s in (1, 2)])
     assert len(run_device_dag(merged)[0]) == 4
     for m in ("task", "victim", "queues", "online", "telemetry", "executor",
-              "submit", "dag", "preempt", "registry", "lower", "admission"):
+              "submit", "dag", "preempt", "registry", "lower", "admission",
+              "simulator", "autotune", "coordinator"):
         assert f"repro_torch.core.{m}" in sys.modules, m
     for m in ("configs.base", "configs.qwen2_moe_a2_7b", "models.layers",
-              "models.moe", "vee.ml_apps"):
+              "models.moe", "vee.ml_apps", "vee.engine"):
         assert f"repro_torch.{m}" in sys.modules, m
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad

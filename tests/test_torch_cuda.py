@@ -32,7 +32,8 @@ import pytest
 import torch
 
 from repro_torch.core import (PipelineDAG, PreemptiveRunner, SchedulerConfig,
-                              Stage, build_dag_tables)
+                              Stage, build_dag_tables, rebalance_dag,
+                              select_offline_device_dag)
 from repro_torch.core.preempt import device_remainder
 from repro_torch.core.partitioners import PARTITIONERS
 from repro_torch.kernels import _build
@@ -43,6 +44,7 @@ from repro_torch.kernels.cc_propagate import cc_propagate, cc_propagate_plain
 from repro_torch.configs import get_config
 from repro_torch.vee import apps as tapps
 from repro_torch.vee import ml_apps as tml
+from repro_torch.vee.sparse import rmat_graph
 
 SUM_RTOL = 1e-4
 ROOT = Path(__file__).resolve().parents[1]
@@ -519,6 +521,88 @@ def test_cc_iteration_fused_and_stagewise_bitwise(cuda, n_shards):
         for k in plain:
             assert torch.equal(fused[k], plain[k]), k
             assert torch.equal(staged[k], plain[k]), k
+
+
+def _cc_graph_on(cuda, scale=12):
+    graph = rmat_graph(scale=scale, edge_factor=8)
+    G = torch.from_numpy(graph.to_dense()).to(cuda)
+    c = torch.arange(1, graph.n_rows + 1, dtype=torch.float32, device=cuda)
+    return graph, G, c
+
+
+def _cc_tables_walk_bitwise(tables, stages, operands, G, c):
+    """Every shard's table bitwise its plain walk; the sharded walk
+    bitwise the reference step, its flips exact, one launch a shard."""
+    values = {"G": G, "c_col": c, "c_row": c}
+    for table in tables:
+        walked = twalk.dag_walk(stages, operands, values, table, 256)
+        plain = twalk.dag_walk_plain(stages, operands, values, table, 256)
+        for k in walked:
+            assert torch.equal(walked[k], plain[k]), k
+    before = _build.DAG_WALK.launches["walk_cc"]
+    got = twalk.dag_walk_sharded(stages, operands, values, tables, 256)
+    assert _build.DAG_WALK.launches["walk_cc"] == before + len(tables)
+    want = tref.cc_propagate_ref(G, c)
+    assert torch.equal(got["propagate"], want)
+    assert int(got["changed"][0]) == int((want != c).sum())
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_tuned_cc_table_walks_bitwise(cuda, n_shards):
+    """The device tuner's per-stage techniques (Listing 1's per-row cost,
+    nnz + 1), frozen and walked: bitwise the plain walk and the step."""
+    graph, G, c = _cc_graph_on(cuda)
+    dag, stages, operands = tapps.cc_iteration_lowering(graph.n_rows, 256, 1024)
+    techs, best, uniform = select_offline_device_dag(
+        dag, {"propagate": (graph.row_nnz() + 1).astype(np.float64)}, tile=256,
+        n_shards=n_shards)
+    assert best <= min(uniform.values())
+    tables = build_dag_tables(dag, 256, techs, n_shards=n_shards).tables
+    _cc_tables_walk_bitwise(tables, stages, operands, G, c)
+
+
+def test_rebalanced_cc_table_walks_bitwise(cuda):
+    """A contiguous assignment re-balanced on the per-chunk nnz: a lower
+    largest shard load, and the new table walks bitwise as the old."""
+    graph, G, c = _cc_graph_on(cuda)
+    dag, stages, operands = tapps.cc_iteration_lowering(graph.n_rows, 256, 1024)
+    nnz = graph.row_nnz()
+    old = build_dag_tables(dag, 256, tapps.CC_TECHNIQUES, n_shards=2, n_workers=4,
+                           assignment="contiguous")
+
+    def measured(d):
+        return {n: np.array([nnz[s * 256:(s + z) * 256].sum()
+                             for s, z in d.stage_chunks[n]], dtype=np.float64)
+                for n in d.stage_names}
+
+    def largest_load(d):
+        load = np.zeros(d.n_shards)
+        for n, per_chunk in measured(d).items():
+            np.add.at(load, d.chunk_shard[n], per_chunk)
+        return load.max()
+
+    new = rebalance_dag(old, measured(old))
+    assert largest_load(new) < largest_load(old)
+    assert not np.array_equal(new.chunk_shard["propagate"], old.chunk_shard["propagate"])
+    for ddt in (old, new):
+        _cc_tables_walk_bitwise(ddt.tables, stages, operands, G, c)
+
+
+def test_listing1_on_the_vee_equals_the_card_loop(cuda):
+    """Listing 1 on the host pool and a loop of ``cc_iteration_device``
+    on the card until no label flips: the same labels and iterations."""
+    graph, G, c = _cc_graph_on(cuda)
+    labels, iters, _ = tapps.connected_components(
+        graph, SchedulerConfig(technique="MFSC", n_workers=4))
+    cd, dev_iters = c, 0
+    while dev_iters < 100:
+        out = tapps.cc_iteration_device(G, cd)
+        dev_iters += 1
+        cd = out["propagate"]
+        if int(out["changed"][0]) == 0:
+            break
+    assert dev_iters == iters
+    assert np.array_equal(cd.cpu().numpy().astype(np.int64), labels)
 
 
 def test_inner_steps_without_an_inner_loop_launch_nothing(cuda):
