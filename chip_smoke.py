@@ -25,6 +25,12 @@ super-table walker kernel and the DLS-scheduled CC step — at real sizes:
   card, the simulator's fused and sequential makespans of the linreg table
   beside the measured walks, and the coordinator (2 nodes x 4 workers,
   then one node killed);
+* telemetry and the multi-tenant server beside the card: the linreg
+  walk's stamps as device spans with their critical path, the linreg
+  pipeline co-executed at 1,000,000 x 101 by 8 host workers and a device
+  lane (``linear_regression_hetero``), ``serve --mode pipelines
+  --compare`` on 8 workers with a trace and metrics, and a linreg job of
+  131,072 x 101 placed on the device lane of a shared server;
 * LM serving of Granite-8B at full size (36 layers, d_model 4,096, 32 heads
   over 8 kv heads, d_ff 14,336, vocab 49,152; 33.0 GB of fp32 weights drawn
   on the card): 8 requests of 2,048 tokens in GSS chunks over 4 slots, 16
@@ -60,8 +66,12 @@ its single-launch walk). Then the CC-iteration path
 (``cc_iteration_device``: one walker launch per shard, bitwise equal to
 ``cc_propagate_ref``, to the CC step and to the plain walk, the flip count
 exact), the paper's entry points (phase ``paper_entry_points``: each
-card drive with the counters set to 0 just before and read just after)
-and the serving path (``serve_lm``: exactly 36 x 6 = 216 K4
+card drive with the counters set to 0 just before and read just after),
+telemetry, co-execution and the server (phase ``server_telemetry``: the
+walker lane's runs launched on K1, the co-executed beta within the linreg
+limits of the walk's, a placed job's walked on the card within the limits
+of its solo run and its host-only run, every chunk once under each
+arbiter) and the serving path (``serve_lm``: exactly 36 x 6 = 216 K4
 launches, none in decode; the first batch's logits through K4 against the
 same weights through K4's plain version; K4 alone at the serving shape
 against its plain version and a float64 oracle), then the two recurrent
@@ -125,6 +135,10 @@ PEAK_BYTES, PEAK_FP32, PEAK_BF16, PEAK_TF32 = 3.35e12, 67e12, 989e12, 495e12
 # (E[x^2] - mean^2) magnifies.
 EPS32 = 2.0 ** -23
 BETA_RTOL = 1e-2          # beta vs the float64 oracle, of the largest |beta|
+# a walked float32 linreg sum vs the host-only run's, of its largest |entry|
+# (the bar tests/test_torch_apps.py holds the walker's sums to; at 131,072
+# rows the host's tile-by-tile fold is 1.4e-6 off a float64 sum)
+SUM_RTOL = 1e-5
 REC_AGREEMENT = 0.9999    # scores vs the float64 oracle (see RecOracle)
 # A migrated run's sum entry comes from two summers (the host's PyTorch
 # tile sums and the kernel's), and the never-preempted walk it is held to
@@ -1143,6 +1157,231 @@ def paper_entry_points_phase(graph, G, c, lin, lin_rows, stage_device_ms: dict,
     emit("paper_entry_points", **out, seconds=time.perf_counter() - t_phase)
 
 
+def server_telemetry_phase(dev, lin, lin_rows, lin_stamps, stage_device_ms: dict,
+                           beta_dev, beta_limits) -> None:
+    """Telemetry, co-execution and the multi-tenant server, on the card.
+
+    The walk trace: the main path's linreg stamps (one row a slot of the
+    1,000,000 x 101 walk) folded into device spans by ``device_walk_spans``,
+    each stage's measured device ms spread evenly over its rows; one span a
+    live slot, a Chrome trace that validates, and a critical path that
+    telescopes to the span sum and reconciles with the spans' ``DagStats``
+    (an identity: the spans' times are the measured ms, shared out).
+    Co-execution: ``linear_regression_hetero`` at the same size on a
+    lowering on ``dev``, 8 host workers and one walker lane, its costs from
+    ``calibrate_hetero_costs`` (device rates: the walker's per-stage device
+    ms; host rates: the chunk times of a host-only one-worker SS run of the
+    131,072 x 101 lowering, a tile's cost not depending on the row count);
+    the lane must launch K1 for its runs, and the beta lie within the
+    smoke's linreg limits ``beta_limits`` of the K1 walk's ``beta_dev``.
+    The server: ``serve --mode pipelines --compare`` on 8 workers with
+    ``--trace-out`` and ``--metrics-out`` (every job drained under each
+    arbiter, every chunk once, the trace valid, the metrics JSON and the
+    Prometheus text parsed), then the mixed set again with the 131,072 x
+    101 linreg job placed all on the walker lane (``n_device=1``, the
+    submission carrying its lowering): the lane launches K1 in the server
+    and in the job's solo ``HeteroExecutor`` run, both within ``SUM_RTOL``
+    of the host-only run's sums, and the three betas within the linreg
+    limits of one another. Prints the launcher's lines, then
+    ``server_arbiters`` (each arbiter's makespan, p50 and p99 job latency)
+    and ``server_telemetry``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (DagStats, HeteroExecutor, PipelineExecutor,
+                                  PipelineServer, Placement, SchedulerConfig,
+                                  Submission, Tracer, analyze_critical_path,
+                                  calibrate_hetero_costs, device_walk_spans, make,
+                                  select_placement, validate_chrome_trace)
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.vee import apps
+
+    t_phase = time.perf_counter()
+    out = {}
+    feat_lim, icpt_lim = beta_limits
+
+    def exactly_once(res, subs, what):
+        for sub in subs:
+            for name in sub.dag.stage_names:
+                spans = sorted((e.start, e.size) for e in res.events
+                               if e.job == sub.name and e.stage == name)
+                ends = np.cumsum([0] + [z for _, z in spans])
+                require([s_ for s_, _ in spans] == list(ends[:-1])
+                        and ends[-1] == sub.dag.stages[name].n_rows,
+                        f"{what}: {sub.name}/{name} not run exactly once")
+        require(sorted(res.jobs) == sorted(s_.name for s_ in subs),
+                f"{what}: jobs {sorted(res.jobs)} did not all drain")
+
+    # the walk trace
+    names = [st.name for st in lin.stages]
+    stage_ms = {k: stage_device_ms[k]["device_ms"] for k in names}
+    require(all(isinstance(v, float) and v > 0 for v in stage_ms.values()),
+            f"walk_stages measured no device ms: {stage_ms}")
+    row_costs = {k: np.full(LINREG_ROWS, stage_ms[k] / 1e3 / LINREG_ROWS) for k in names}
+    tracer = Tracer(job="linreg_walk")
+    t = time.perf_counter()
+    n_spans = device_walk_spans(lin_stamps, names, tracer, row_costs=row_costs)
+    live = int((lin_rows[:, 2] > 0).sum())
+    require(n_spans == live, f"walk trace: {n_spans} spans for {live} live slots")
+    problems = validate_chrome_trace(tracer.to_chrome_trace())
+    require(problems == [], f"walk trace: {problems[:3]}")
+    execs = [sp for sp in tracer.spans() if sp.kind == "exec"]
+    require(all(sp.device for sp in execs), "walk trace: a span without F_DEVICE")
+    stats = DagStats()
+    for sp in execs:
+        stats.add_chunk(sp.stage, sp.dur)
+    span_sum = sum(sp.dur for sp in execs)
+    cp = analyze_critical_path(tracer)
+    cp.reconcile(stats, span_sum)
+    require(abs(cp.total - span_sum) <= 1e-9 * span_sum,
+            f"walk trace: critical path {cp.total} != span sum {span_sum}")
+    for k in names:
+        require(abs(cp.exec_s[k] * 1e3 - stage_ms[k]) <= 1e-6 * stage_ms[k],
+                f"walk trace: {k} on the path {cp.exec_s[k] * 1e3} ms, measured "
+                f"{stage_ms[k]} ms")
+    out["walk_trace"] = dict(spans=n_spans, span_sum_ms=span_sum * 1e3,
+                             critical_path_ms={k: v * 1e3 for k, v in cp.exec_s.items()},
+                             seconds=time.perf_counter() - t)
+
+    # co-execution: device rates from the card, host rates from a host-only
+    # one-worker run of the 131,072 x 101 lowering (per tile, as at full size)
+    walks = lambda: _build.DAG_WALK.launches["walk_linreg"]  # noqa: E731
+    low_b = apps.linreg_device_lowering(B_LIN_ROWS, LINREG_COLS, tile=TILE, device=dev)
+    ref_b = apps.linear_regression_oracle(B_LIN_ROWS, LINREG_COLS)
+    lim_b = (BETA_RTOL * float(abs(ref_b[:-1]).max()), BETA_RTOL * float(abs(ref_b[-1]).max()))
+
+    def beta_err(got, want):
+        b_abs = np.abs(np.asarray(got, "float64") - np.asarray(want, "float64"))
+        return [float(b_abs[:-1].max()), float(b_abs[-1].max())]
+
+    def within(err, lim, what):
+        require(err[0] <= lim[0] and err[1] <= lim[1], f"{what}: beta off by {err}, "
+                                                       f"limits {list(lim)}")
+
+    ss1 = SchedulerConfig(technique="SS", queue_layout="CENTRALIZED", n_workers=1)
+    t = time.perf_counter()
+    host = PipelineExecutor(low_b.dag, ss1).run()
+    host_s = time.perf_counter() - t
+    beta_host = low_b.finalize(host.values)
+    within(beta_err(beta_host, ref_b), lim_b, "the host-only run")
+    host_costs, device_costs = {}, {}
+    for k in names:
+        r = host.stages[k]
+        sizes = np.asarray(r.schedule).reshape(-1, 2)[:, 1]
+        units = lin.dag.stages[k].n_rows
+        host_costs[k] = np.full(units, float(np.sum(r.per_task_costs)) / float(sizes.sum()))
+        device_costs[k] = np.full(units, stage_ms[k] / 1e3 / units)
+    cm = calibrate_hetero_costs(lin.dag, host_costs=host_costs, device_costs=device_costs)
+    t = time.perf_counter()
+    placement, sim_makespan, baselines = select_placement(lin.dag, cm, n_workers=PAPER_WORKERS,
+                                                          passes=1)
+    solve_s = time.perf_counter() - t
+    dev_rows = sum(placement.device_rows(k, lin.dag.stages[k].n_rows) for k in names)
+    require(dev_rows > 0, f"co-execution: the solver put no row on the card ({placement})")
+    w0 = walks()
+    t = time.perf_counter()
+    beta_het, het, chosen = apps.linear_regression_hetero(
+        LINREG_ROWS, LINREG_COLS, SchedulerConfig(n_workers=PAPER_WORKERS), costs=cm,
+        n_device=1, device=dev)
+    het_s = time.perf_counter() - t
+    het_walks, lane_chunks = walks() - w0, het.per_worker_tasks[-1]
+    require(chosen.describe() == placement.describe(),
+            f"co-execution solved {chosen} where the smoke solved {placement}")
+    # the lane walks a run of its shard a launch on the card
+    require(lane_chunks > 0 and 0 < het_walks <= lane_chunks,
+            f"co-execution: the walker lane ran {lane_chunks} chunks in {het_walks} launches")
+    het_err = beta_err(beta_het, beta_dev)
+    within(het_err, (feat_lim, icpt_lim), "co-execution against the K1 walk")
+    out["coexecution"] = dict(
+        placement=chosen.describe(), simulated_makespan_s=sim_makespan,
+        simulated_baselines_s=baselines, solve_seconds=solve_s,
+        measured_seconds=het_s, host_only_rows=B_LIN_ROWS, host_only_seconds=host_s,
+        host_s_per_tile={k: float(host_costs[k][0]) for k in names},
+        device_s_per_tile={k: float(device_costs[k][0]) for k in names},
+        chunks=len(het.events), device_lane_chunks=lane_chunks, walker_launches=het_walks,
+        absorbed_by_host=het.absorbed_by_host, absorbed_by_device=het.absorbed_by_device,
+        beta_vs_walk_abs_err=het_err, limits=[feat_lim, icpt_lim])
+    del het
+
+    # the server: the launcher's mixed set under the four arbiters
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_p, metrics_p = Path(tmp) / "trace.json", Path(tmp) / "metrics.json"
+        t = time.perf_counter()
+        runs = serve.main(["--mode", "pipelines", "--workers", str(PAPER_WORKERS),
+                           "--compare", "--trace-out", str(trace_p),
+                           "--metrics-out", str(metrics_p)])
+        serve_s = time.perf_counter() - t
+        require(list(runs) == ["fifo", "priority", "fair", "preemptive"],
+                f"serve --compare ran {list(runs)}")
+        arbiters = {}
+        for arb, (res, subs, _, _) in runs.items():
+            exactly_once(res, subs, f"serve --arbiter {arb}")
+            arbiters[arb] = dict(makespan_ms=res.makespan_s * 1e3,
+                                 p50_ms=res.latency_percentile(50) * 1e3,
+                                 p99_ms=res.latency_percentile(99) * 1e3,
+                                 chunks=len(res.events), steals=res.steals,
+                                 preemptions=len(res.preemptions))
+        trace = json.loads(trace_p.read_text())
+        problems = validate_chrome_trace(trace)
+        require(problems == [], f"serve --trace-out: {problems[:3]}")
+        snap = json.loads(metrics_p.read_text())
+        require(snap["counters"]["sched_chunks"] == len(runs["preemptive"][0].events),
+                "serve --metrics-out: sched_chunks differs from the run's chunks")
+        prom = metrics_p.with_suffix(".prom").read_text().splitlines()
+        samples = [ln for ln in prom if ln and not ln.startswith("#")]
+        require(samples and all(math.isfinite(float(ln.rsplit(" ", 1)[1]))
+                                for ln in samples), "serve --metrics-out: bad .prom")
+    emit("server_arbiters", arbiters=arbiters)
+    out["server"] = dict(arbiters=arbiters, seconds=serve_s, trace_events=len(
+        trace["traceEvents"]), prometheus_samples=len(samples))
+
+    # one more job: linreg on the card's lowering, placed all on the device lane
+    lnames = low_b.dag.stage_names
+    all_dev = Placement.all_device(lnames)
+    subs = serve._pipeline_submissions() + [Submission(
+        dag=low_b.dag, name="linreg_device", tenant="ml", placement=all_dev,
+        per_stage={k: ("SS", "CENTRALIZED", "SEQ") for k in lnames}, lowering=low_b)]
+    w0 = walks()
+    t = time.perf_counter()
+    res = PipelineServer(make("config", "gss/percore", n_workers=PAPER_WORKERS),
+                         arbiter="fair", n_device=1).serve(subs)
+    placed_s = time.perf_counter() - t
+    placed_walks = walks() - w0
+    exactly_once(res, subs, "the placed job's server")
+    lane = sum(1 for e in res.events if e.worker >= PAPER_WORKERS and e.job == "linreg_device")
+    require(lane > 0 and 0 < placed_walks <= lane,
+            f"the placed job: the walker lane ran {lane} chunks in {placed_walks} launches")
+    w0 = walks()
+    solo = HeteroExecutor(low_b.dag, SchedulerConfig(technique="SS", n_workers=PAPER_WORKERS),
+                          all_dev, n_device=1, lowering=low_b).run()
+    solo_walks = walks() - w0
+    require(solo.per_worker_tasks[-1] > 0 and solo_walks > 0,
+            f"the placed job's solo run: {solo_walks} walker launches")
+    placed = res.jobs["linreg_device"].values
+    for k in lnames:
+        want = host.values[k].double()
+        lim = SUM_RTOL * float(want.abs().max())
+        for what, got in (("server", placed[k]), ("solo", solo.values[k])):
+            err = float((got.double() - want).abs().max())
+            require(err <= lim, f"the placed job's {what} {k} off the host-only run's "
+                                f"by {err} > {lim}")
+    beta_placed, beta_solo = low_b.finalize(placed), low_b.finalize(solo.values)
+    errs = {what: beta_err(b_, want) for what, b_, want in (
+        ("server_vs_solo", beta_placed, beta_solo), ("server_vs_host", beta_placed, beta_host),
+        ("solo_vs_host", beta_solo, beta_host))}
+    for what, err in errs.items():
+        within(err, lim_b, f"the placed job ({what})")
+    out["placed_job"] = dict(
+        rows=B_LIN_ROWS, seconds=placed_s, makespan_ms=res.makespan_s * 1e3,
+        device_lane_chunks=lane, walker_launches=placed_walks, solo_walker_launches=solo_walks,
+        placed_job_chunks=res.jobs["linreg_device"].n_tasks, beta_abs_err=errs,
+        limits=list(lim_b))
+    emit("server_telemetry", **out, seconds=time.perf_counter() - t_phase)
+
+
 def decode_profile(model, params, tok, cache, index: int, served_step_ms: float,
                    steps: int = 3) -> dict:
     """Device ms of a decode step by ``torch.profiler``: the device rows'
@@ -1867,8 +2106,8 @@ def main() -> None:
     torch.cuda.synchronize()
     lowering_s = {"linreg": time.perf_counter() - t_low}
     lin_rows = walk_inputs(lin)
-    k_out, stamps = dag_walk(lin.stages, lin.operands, lin.values, lin_rows, TILE,
-                             stamp=True)
+    k_out, lin_stamps = dag_walk(lin.stages, lin.operands, lin.values, lin_rows, TILE,
+                                 stamp=True)
     p_out = dag_walk_plain(lin.stages, lin.operands, lin.values, lin_rows, TILE)
     X, y = lin.values["X"], lin.values["y"]
     n, d = X.shape
@@ -1898,7 +2137,7 @@ def main() -> None:
     del syrk64, p_syrk
     err_lin = max(e for e, _ in lin_checks)
     expect = [[*row, i] for i, row in enumerate(lin_rows.tolist())]
-    require(stamps.tolist() == expect, "linreg stamps differ from the table")
+    require(lin_stamps.tolist() == expect, "linreg stamps differ from the table")
     sw = dag_walk_stagewise(lin.stages, lin.operands, lin.values, lin_rows, TILE)
     for s in ("moments", "syrk_gemv"):
         require(torch.equal(sw[s], k_out[s]), f"linreg stagewise {s} != fused walk")
@@ -2247,6 +2486,8 @@ def main() -> None:
     paper_entry_points_phase(graph, G, c, lin, lin_rows, stage_device_ms["linreg"],
                              kernels[0]["device_ms"], beta, beta_ref,
                              (feat_lim, icpt_lim))
+    server_telemetry_phase(dev, lin, lin_rows, lin_stamps, stage_device_ms["linreg"], beta,
+                           (feat_lim, icpt_lim))
     kernels.append(k4_mla_phase(dev))
     kernels.append(serve_phase(dev))
     gc.collect()

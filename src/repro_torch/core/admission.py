@@ -7,8 +7,10 @@ super-table and pays one walker launch for the whole batch
 (``vee/apps.py:merge_device_lowerings``) — bit-equal to unbatched
 execution because every member keeps its own op over its own rows.
 
-``TokenBucket``, ``AdmissionController``, ``replay_open_loop`` and
-``FrontDoor`` need the server and the simulator, and wait for ROADMAP A14.
+The rest of the reference's front door — ``TokenBucket``,
+``AdmissionController``, ``AutoscalePolicy``, ``replay_open_loop``,
+``heavy_tailed_trace`` and ``FrontDoor`` — is the second half of ROADMAP
+A14: each raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ from .dag import PipelineDAG, Stage, StageDep
 from .submit import Submission
 
 __all__ = ["BATCH_SEP", "batch_signature", "merge_dags",
-           "coalesce_submissions", "BatchPolicy"]
+           "coalesce_submissions", "BatchPolicy", "TokenBucket",
+           "AdmissionController", "AutoscalePolicy", "replay_open_loop",
+           "heavy_tailed_trace", "FrontDoor"]
 
 BATCH_SEP = "#"
 
@@ -150,3 +154,53 @@ class BatchPolicy:
         """May this submission join a coalescing window at all?"""
         return (self.max_batch > 1 and sub.placement is None
                 and sub.online is None)
+
+
+# ---------------------------------------------------------------------------
+# the open-loop front door: the second half of ROADMAP A14
+# ---------------------------------------------------------------------------
+
+def _front_door(name: str):
+    raise NotImplementedError(
+        f"{name} is part of the serving front door (admission, autoscaling, "
+        "open-loop replay), which is not ported yet (ROADMAP A14, second "
+        "half)")
+
+
+class TokenBucket:
+    """Per-tenant rate limiter of the front door: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        _front_door("TokenBucket")
+
+
+class AdmissionController:
+    """Admit / shed / defer decisions of the front door: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        _front_door("AdmissionController")
+
+
+class AutoscalePolicy:
+    """Pool autoscaling of the front door: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        _front_door("AutoscalePolicy")
+
+
+def replay_open_loop(trace, *args, **kwargs):
+    """Virtual-time open-loop replay through the front door: not ported
+    yet."""
+    _front_door("replay_open_loop")
+
+
+def heavy_tailed_trace(n_jobs, *args, **kwargs):
+    """The heavy-tailed open-loop arrival trace: not ported yet."""
+    _front_door("heavy_tailed_trace")
+
+
+class FrontDoor:
+    """The threaded front door over a PipelineServer: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        _front_door("FrontDoor")

@@ -249,30 +249,30 @@ def select_offline_device_dag(
 
 
 # ---------------------------------------------------------------------------
-# placement and serving selection: need modules the port does not have yet
+# placement and serving selection: the second half of ROADMAP A14
 # ---------------------------------------------------------------------------
 
-def _unported(name: str, module: str):
+def _unported(name: str):
     raise NotImplementedError(
-        f"{name} needs {module}, which is not ported yet (ROADMAP A14)")
+        f"{name} is one of the hetero and server tuners, which are not "
+        "ported yet (ROADMAP A14, second half)")
 
 
 def select_offline_hetero(dag, costs, *args, **kwargs):
-    """Offline substrate placement (host pool + walker): needs
-    core/placement.py."""
-    _unported("select_offline_hetero", "core/placement.py")
+    """Offline substrate placement (host pool + walker): not ported yet."""
+    _unported("select_offline_hetero")
 
 
 def tune_online_hetero(dag, costs, *args, **kwargs):
-    """Online substrate placement: needs core/placement.py and the
-    hetero arms."""
-    _unported("tune_online_hetero", "core/placement.py")
+    """Online substrate placement over ``default_hetero_arms``: not
+    ported yet."""
+    _unported("tune_online_hetero")
 
 
 def select_offline_server(jobs, *args, **kwargs):
-    """Per-job selection under contention: needs core/server.py and
-    simulate_server."""
-    _unported("select_offline_server", "core/server.py")
+    """Per-job selection under contention (needs ``simulate_server``): not
+    ported yet."""
+    _unported("select_offline_server")
 
 
 @dataclass

@@ -425,6 +425,12 @@ class _StageRun:
             self.out[s:s + z] = v
         else:
             self.acc = value if self.acc is None else self.acc + value
+        self._account(task, dt, rel0, rel1)
+
+    def _account(self, task, dt, rel0, rel1) -> None:
+        """Mark one chunk run: its rows, cost, times and the stage's
+        completion; the value is folded by the caller (lock held)."""
+        i, s, z = task
         self.row_done[s:s + z] = True
         self.costs[i] = dt
         self.executed[i] = True

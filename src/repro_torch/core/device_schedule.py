@@ -11,7 +11,8 @@ the walker kernel (kernels/dag_walk.py) drains in one launch per shard.
 Work stealing becomes persistent re-balancing: after a walk each shard
 reports its measured load, and ``rebalance`` / ``rebalance_dag`` shift
 chunks from overloaded to underloaded shards (nearest first) for the next
-walk.
+walk. ``device_walk_spans`` folds the walker's stamp buffer (one
+``(stage, start, size, slot)`` row a slot) into the tracer's device spans.
 
 All tables are padded to a fixed slot count; padding rows have size 0 and
 are skipped by the walker.
@@ -37,6 +38,7 @@ __all__ = [
     "build_dag_tables_cached",
     "dag_table_cache_stats",
     "clear_dag_table_cache",
+    "device_walk_spans",
     "rebalance_dag",
 ]
 
@@ -505,6 +507,52 @@ def clear_dag_table_cache() -> None:
     _DAG_TABLE_CACHE.clear()
     _DAG_TABLE_STATS["hits"] = 0
     _DAG_TABLE_STATS["misses"] = 0
+
+
+def device_walk_spans(
+    stamps: np.ndarray,
+    stage_names,
+    tracer,
+    lane: int = 0,
+    job: str = "",
+    row_costs: dict[str, np.ndarray] | None = None,
+    h_local: float = 0.0,
+    t0: float = 0.0,
+) -> int:
+    """Fold a ``dag_walk(stamp=True)`` event buffer into tracer spans.
+
+    ``stamps`` is the ``(n_slots, 4) int32`` (stage_id, start, size,
+    slot) buffer read back after the walk; slots execute sequentially on one
+    walker lane, so each becomes one device exec span on a virtual
+    clock: duration = the slot's row-cost sum (``row_costs`` per-stage
+    vectors; unit cost per row when absent) plus ``h_local`` table-step
+    overhead, starting at ``t0``. Spans carry ``F_DEVICE`` and the
+    shared ``(job, stage, chunk=slot)`` identity. Returns the number of
+    spans emitted (0 when the tracer is disabled).
+    """
+    from .telemetry import F_DEVICE, as_tracer
+
+    tracer = as_tracer(tracer)
+    if not tracer.enabled:
+        return 0
+    names = list(stage_names)
+    tjob = job or tracer.job
+    t = float(t0)
+    rows = []
+    for sid, s0, z, slot in np.asarray(stamps, dtype=np.int64):
+        if z <= 0:
+            continue
+        name = names[int(sid)]
+        if row_costs is not None and name in row_costs:
+            cost = float(np.asarray(row_costs[name])[s0:s0 + z].sum())
+        else:
+            cost = float(z)
+        t1 = t + h_local + cost
+        rows.append(("exec", tjob, name, int(slot), lane, t, t1,
+                     F_DEVICE, 0.0, f"rows={int(s0)}:{int(s0 + z)}"))
+        t = t1
+    tracer.extend_raw(rows)
+    return len(rows)
 
 
 def rebalance_dag(

@@ -1,7 +1,7 @@
 """Online adaptive scheduling: the runtime feedback loop.
 
-The port's copy of the reference's feedback loop (``repro/core/online.py``
-without the hetero arms, which need the co-execution stack):
+The port's copy of the reference's feedback loop (``repro/core/online.py``);
+``default_hetero_arms`` extends the arms with the substrate choice:
 
   ``ChunkObservation``  one completed chunk: (stage, range, measured cost).
   ``FeedbackLog``       thread-safe streaming statistics per stage —
@@ -43,7 +43,8 @@ from .partitioners import PARTITIONERS
 __all__ = [
     "ChunkObservation", "StageFeedback", "FeedbackLog", "OnlineChoice",
     "BanditSelector", "UCB1Selector", "EXP3Selector", "SELECTORS",
-    "OnlineScheduler", "default_online_arms", "rechunk_pending",
+    "OnlineScheduler", "default_online_arms", "default_hetero_arms",
+    "rechunk_pending",
     "OnlineRound", "replay_online_dag",
 ]
 
@@ -60,6 +61,26 @@ def default_online_arms(include_ss: bool = True) -> list[tuple[str, str, str]]:
     """
     techs = [t for t in PARTITIONERS if include_ss or t != "SS"]
     return [(t, l, "SEQ") for t in techs for l in _LAYOUTS]
+
+
+def default_hetero_arms(
+    include_ss: bool = True,
+) -> list[tuple[str, str, str, str]]:
+    """Bandit arms extended with the SUBSTRATE choice.
+
+    Each arm is ``(technique, layout, victim, substrate)``: the host arms
+    are ``default_online_arms`` tagged "host"; the device arms carry one
+    entry per technique (queue layout and victim strategy do not exist on
+    the frozen device walker, so extra device arms would only slow
+    exploration). The reference plays them through
+    ``replay_online_hetero`` / ``tune_online_hetero`` (ROADMAP A14, second
+    half, in the port) — the per-stage bandit learns WHERE a stage runs
+    along with how it is chunked.
+    """
+    techs = [t for t in PARTITIONERS if include_ss or t != "SS"]
+    host = [(t, l, "SEQ", "host") for t in techs for l in _LAYOUTS]
+    device = [(t, "CENTRALIZED", "SEQ", "device") for t in techs]
+    return host + device
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,6 @@
 """Chunk-boundary checkpoints, preemption, and host<->device migration.
 
-The port of the reference's ``core/preempt.py`` (DESIGN.md §15) without
-its serving-side arbiter:
+The port of the reference's ``core/preempt.py``:
 
 * ``StageCheckpoint`` freezes one stage's unpopped remainder — the
   queued ``(start, size)`` chunks plus everything needed to resume
@@ -21,6 +20,10 @@ its serving-side arbiter:
   tiles still read by pending elementwise consumers are replayed
   (bit-identical rewrites). ``run_device_prefix`` + ``resume_on_host`` is
   the reverse direction.
+* ``PreemptiveArbiter`` wraps any serving arbiter: when a deadline job's
+  fluid slack goes negative, lower-priority jobs with no live deadline
+  are parked at their next chunk boundary and resume when the pressure
+  clears (``make_arbiter("preemptive", ...)``).
 
 Why chunk-boundary-only preemption keeps bit-equality: ops run outside
 the runtime lock and fold at ``record()``; a preempted worker never
@@ -52,13 +55,14 @@ from .dag import (DagResult, EventLog, PipelineDAG, StageResult, TaskEvent,
                   _StageRun, _resolve_stage_config, _stage_inputs, _try_pop)
 from .device_schedule import build_dag_tables_cached
 from .online import rechunk_pending
+from .server import ARBITERS, Arbiter, job_stage_costs, make_arbiter
 from .telemetry import F_STOLEN, as_tracer
 
 __all__ = [
     "StageCheckpoint", "JobCheckpoint", "PreemptableStageRun",
     "PreemptiveRunner", "resume_on_host", "DeviceRemainder",
     "device_remainder", "migrate_to_device", "run_device_prefix",
-    "checkpoint_from_reference",
+    "checkpoint_from_reference", "PreemptionEvent", "PreemptiveArbiter",
 ]
 
 
@@ -251,22 +255,53 @@ class PreemptableStageRun(_StageRun):
         self.sum_state = None if stage.combine == "concat" else [None, 0, {}]
 
     def record(self, task, value, dt, rel0, rel1) -> None:
-        """Base fold plus the ascending sum fold (caller holds the lock)."""
-        super().record(task, value, dt, rel0, rel1)
-        st = self.sum_state
-        if st is None:
+        """The ascending sum fold; concat rows as the base writes them
+        (caller holds the lock)."""
+        if self.sum_state is None:
+            super().record(task, value, dt, rel0, rel1)
             return
         _i, s, z = task
-        st[2][int(s)] = (value, int(z))
-        acc, nxt, parts = st
+        self.sum_state[2][int(s)] = (value, int(z))
+        self._account(task, dt, rel0, rel1)
+        self._advance()
+
+    def frontier(self) -> int | None:
+        """The next row the ascending sum fold takes (None: a concat stage)."""
+        return None if self.sum_state is None else self.sum_state[1]
+
+    def prefix(self):
+        """The ascending sum fold's accumulator over ``[0, frontier)``."""
+        return self.sum_state[0]
+
+    def record_prefix(self, tasks, value, spans) -> None:
+        """Fold a run of chunks walked on from the prefix (lock held).
+
+        ``tasks`` are contiguous and start at the ``frontier``; ``value``
+        is the ``prefix`` with their rows added in ascending order, as a
+        walk seeded with the prefix accumulates it, and becomes the new
+        prefix. ``spans`` gives each task's ``(dt, rel0, rel1)``.
+        """
+        st = self.sum_state
+        if st is None or st[1] != int(tasks[0][1]):
+            raise ValueError(
+                f"stage {self.stage.name!r}: a run from row {tasks[0][1]} is "
+                f"not at the sum fold's frontier {self.frontier()}")
+        _i, s, z = tasks[-1]
+        st[0], st[1] = value, int(s + z)
+        for task, (dt, rel0, rel1) in zip(tasks, spans):
+            self._account(task, dt, rel0, rel1)
+        self._advance()
+
+    def _advance(self) -> None:
+        """Fold the parked partials the prefix has reached; at the last
+        chunk the prefix is the stage's value (lock held)."""
+        acc, nxt, parts = self.sum_state
         while nxt in parts:
             v, zz = parts.pop(nxt)
             acc = v if acc is None else acc + v
             nxt += zz
-        st[0], st[1] = acc, nxt
+        self.sum_state[0], self.sum_state[1] = acc, nxt
         if self.done:
-            # override the base completion-order fold with the
-            # deterministic ascending association
             self.acc = self.value = acc
 
     def checkpoint(self) -> StageCheckpoint:
@@ -753,3 +788,117 @@ def run_device_prefix(lowering, n_slots: int):
                        reason="prefix")
     ck.validate(dag)
     return ck, walked
+
+
+# ---------------------------------------------------------------------------
+# the preemptive arbiter
+
+
+@dataclass(frozen=True)
+class PreemptionEvent:
+    """One park/resume decision: when, who, which way, and why."""
+
+    t: float
+    job: str
+    kind: str      # "preempt" | "resume"
+    reason: str
+
+
+class PreemptiveArbiter(Arbiter):
+    """Wrap any arbiter with deadline-pressure eviction.
+
+    Per ``order`` call (one per chunk boundary of the server), a
+    deadline job is *pressured* when its fluid slack — time to deadline
+    minus remaining-work estimate spread over ``n_workers`` — drops
+    below ``slack_s``. While any job is pressured, jobs at or below the
+    most urgent pressured priority whose deadline is absent or already
+    expired are parked: dropped from the dispatch order, so their next
+    chunk never pops, which is exactly a chunk-boundary preemption of
+    the pipeline runtime. The moment pressure clears they reappear — their
+    queued remainder is intact in the live ``_StageRun`` state, so
+    "resume" is simply being schedulable again (an implicit checkpoint;
+    no state is copied). Already-expired deadline jobs are never
+    pressured (the miss is unavoidable) and ARE victim-eligible.
+
+    ``admission`` (an object with ``estimate_service_s(job)``, the
+    reference's AdmissionController) sharpens the remaining-work estimate
+    with feedback rates; without it the estimate is the job's declared
+    stage costs. Park/resume transitions land in ``preemption_log``,
+    which the server's result surfaces.
+    """
+
+    name = "preemptive"
+
+    def __init__(self, inner: str | Any = "fair", n_workers: int = 1,
+                 slack_s: float = 0.0, admission=None, **inner_kwargs):
+        self.inner = (inner if not isinstance(inner, str)
+                      else make_arbiter(inner, **inner_kwargs))
+        self.n_workers = max(1, int(n_workers))
+        self.slack_s = float(slack_s)
+        self.admission = admission
+        self.preemption_log: list[PreemptionEvent] = []
+        self._est: dict[str, float] = {}
+
+    def _estimate(self, js) -> float:
+        """Total service-seconds estimate for this job (cached)."""
+        key = js.job.name
+        if key not in self._est:
+            if self.admission is not None:
+                self._est[key] = float(
+                    self.admission.estimate_service_s(js.job))
+            else:
+                self._est[key] = float(sum(
+                    np.asarray(c, dtype=float).sum()
+                    for c in job_stage_costs(js.job).values()))
+        return self._est[key]
+
+    def slack(self, js, now: float) -> float:
+        """Fluid slack: deadline minus projected finish, seconds."""
+        deadline = js.arrival + js.job.deadline_s
+        left = max(self._estimate(js) - js.service, 0.0)
+        return deadline - (now + left / self.n_workers)
+
+    def order(self, jobs, now: float):
+        """Inner order minus the currently-parked victims."""
+        ordered = self.inner.order(jobs, now)
+        pressured = []
+        for js in jobs:
+            if js.job.deadline_s is None or js.done:
+                continue
+            if now >= js.arrival + js.job.deadline_s:
+                continue  # expired: the miss is sunk, don't thrash for it
+            if self.slack(js, now) < self.slack_s:
+                pressured.append(js)
+        victims: set[str] = set()
+        if pressured:
+            pmax = max(p.job.priority for p in pressured)
+            pressed = {p.job.name for p in pressured}
+            for js in jobs:
+                if js.done or js.job.name in pressed:
+                    continue
+                if js.job.priority > pmax:
+                    continue
+                live_deadline = (js.job.deadline_s is not None
+                                 and now < js.arrival + js.job.deadline_s)
+                if not live_deadline:
+                    victims.add(js.job.name)
+        for js in jobs:
+            parked = js.job.name in victims
+            if parked and not js.preempted:
+                self.preemption_log.append(PreemptionEvent(
+                    now, js.job.name, "preempt", "deadline_pressure"))
+            elif js.preempted and not parked:
+                self.preemption_log.append(PreemptionEvent(
+                    now, js.job.name, "resume", "pressure_cleared"))
+            js.preempted = parked
+        if not victims:
+            return ordered
+        return [js for js in ordered if js.job.name not in victims]
+
+    def charge(self, js, dt: float, now: float) -> None:
+        """Delegate accounting to the wrapped arbiter."""
+        self.inner.charge(js, dt, now)
+
+
+# make_arbiter("preemptive", ...) resolves to this module
+ARBITERS.setdefault("preemptive", PreemptiveArbiter)

@@ -1,11 +1,17 @@
-"""String-spec registry for scheduler configs (the port's copy of
-``core/registry.py:make_config``).
+"""String-spec registry for the scheduling surfaces (the port's copy of
+``core/registry.py``).
+
+A short string names a policy, kwargs refine it, instances pass through:
 
   ``make_config("gss/percore")``         -> SchedulerConfig
   ``make_config("mfsc/pergroup/rand")``  -> technique/layout/victim
+  ``make_placement("device", names)``    -> Placement (uniform)
+  ``make_placement("split:0.5", names)`` -> SPLIT(0.5) on every stage
+  ``make_placement("a=host,b=split:0.3")`` -> per-stage assignment
+  ``make_arbiter("priority")``           -> re-exported from core.server
 
-``make_placement``, ``make_arbiter`` and the ``make`` dispatcher need the
-placement solver and the server, and wait for ROADMAP A14.
+``make(kind, spec, **kw)`` dispatches by kind — the single entry point
+``launch/serve.py`` wires its CLI flags through.
 """
 
 from __future__ import annotations
@@ -14,10 +20,13 @@ import dataclasses
 
 from .executor import SchedulerConfig
 from .partitioners import PARTITIONERS
+from .placement import SPLIT, Placement, StagePlacement
 from .queues import QUEUE_LAYOUTS
+from .server import make_arbiter
 from .victim import VICTIM_STRATEGIES
 
-__all__ = ["make_config"]
+__all__ = ["make_config", "make_placement", "make_arbiter", "REGISTRY",
+           "make"]
 
 
 def make_config(spec, **kwargs) -> SchedulerConfig:
@@ -53,3 +62,63 @@ def make_config(spec, **kwargs) -> SchedulerConfig:
         raise ValueError(f"unknown victim strategy {parts[2]!r}; options: "
                          f"{sorted(VICTIM_STRATEGIES)}")
     return SchedulerConfig(**fields, **kwargs)
+
+
+def _stage_placement(token: str) -> StagePlacement:
+    """Parse one ``host`` / ``device`` / ``split:F`` token."""
+    token = token.strip().lower()
+    if token.startswith("split"):
+        _, _, frac = token.partition(":")
+        if not frac:
+            raise ValueError(
+                f"placement token {token!r} needs a fraction: split:0.5")
+        return StagePlacement(SPLIT, float(frac))
+    return StagePlacement(token)  # validates host/device
+
+
+def make_placement(spec, stage_names=None) -> Placement:
+    """Build a Placement from a spec string.
+
+    Uniform specs (``"host"``, ``"device"``, ``"split:0.5"``) apply one
+    StagePlacement to every stage in ``stage_names`` (required). Keyed
+    specs (``"a=host,b=split:0.3"``) assign listed stages; unlisted
+    stages default to HOST as everywhere else. A Placement passes
+    through unchanged.
+    """
+    if isinstance(spec, Placement):
+        return spec
+    text = str(spec).strip()
+    if "=" in text:
+        assign = {}
+        for part in text.split(","):
+            if not part.strip():
+                continue
+            name, _, tok = part.partition("=")
+            if not tok:
+                raise ValueError(f"placement entry {part!r} must be "
+                                 "stage=host|device|split:F")
+            assign[name.strip()] = _stage_placement(tok)
+        return Placement(assign)
+    if stage_names is None:
+        raise ValueError(
+            f"uniform placement spec {text!r} needs stage_names")
+    sp = _stage_placement(text)
+    return Placement({n: sp for n in stage_names})
+
+
+REGISTRY = {
+    "config": make_config,
+    "placement": make_placement,
+    "arbiter": make_arbiter,
+}
+
+
+def make(kind: str, spec, **kwargs):
+    """Dispatch ``spec`` to the ``kind`` factory in REGISTRY."""
+    try:
+        factory = REGISTRY[kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown registry kind {kind!r}; options: {sorted(REGISTRY)}"
+        ) from None
+    return factory(spec, **kwargs)

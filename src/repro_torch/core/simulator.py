@@ -21,7 +21,7 @@ contention — the paper's "SS explodes" effect emerges naturally).
 ``frozen_dag_makespans`` compares that fused launch with one launch per
 stage. Results are pure functions of the costs and the seed: the same
 inputs give the same virtual times to the bit. The multi-tenant
-``simulate_server`` needs the serving stack and is not ported yet.
+``simulate_server`` is the second half of ROADMAP A14 and not ported yet.
 """
 
 from __future__ import annotations
@@ -698,8 +698,7 @@ def simulate_dag(
 
 
 def simulate_server(jobs, *args, **kwargs):
-    """Multi-tenant serving replay: needs the serving stack (``Job``, the
-    arbiters), which the port does not have yet."""
+    """Multi-tenant serving replay in virtual time: not ported yet."""
     raise NotImplementedError(
-        "simulate_server needs the serving stack (core/server.py), which is "
-        "not ported yet (ROADMAP A14)")
+        "simulate_server (the server's virtual-time replay) is not ported "
+        "yet (ROADMAP A14, second half)")

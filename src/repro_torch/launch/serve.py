@@ -1,5 +1,6 @@
-"""LM serving with DLS-technique admission chunks (the port's copy of the
-``--mode lm`` path of ``launch/serve.py``).
+"""Serving launcher: LM continuous batching with DLS-technique admission
+chunks, and multi-tenant IDA pipeline serving through the PipelineServer
+(the port's copy of ``launch/serve.py``).
 
     # on the card, Granite-8B at full size
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
@@ -8,23 +9,35 @@
     # on the CPU, the reduced config
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-The loop is the reference's: the partitioner of ``--technique`` cuts the
-backlog into chunks (``next_chunk() or 1``); a chunk is padded to a
-multiple of ``--slots`` by repeating its last request; each slot batch
-gets a fresh cache, one prefill and ``gen_len - 1`` greedy decode steps
-(argmax over the unmasked padded-vocab logits, the token at position
-``prompt_len + t``). The weights are fp32, drawn on ``--device`` from a
+    # concurrent IDA pipelines from three tenants on one host pool, under
+    # all four arbiters, with a Chrome trace and a metrics snapshot
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode pipelines \
+        --workers 8 --compare --trace-out trace.json --metrics-out m.json
+
+``--mode lm``: the partitioner of ``--technique`` cuts the backlog into
+chunks (``next_chunk() or 1``); a chunk is padded to a multiple of
+``--slots`` by repeating its last request; each slot batch gets a fresh
+cache, one prefill and ``gen_len - 1`` greedy decode steps (argmax over
+the unmasked padded-vocab logits, the token at position ``prompt_len +
+t``). The weights are fp32, drawn on ``--device`` from a
 ``torch.Generator`` seeded 0 (the reference's ``jax.random`` key 0 gives
-other numbers). The cache (KV for the dense family; token shifts and
-the WKV state for RWKV6; conv rows, SSM state and the shared attention's
-KV for Zamba2) is updated in place where the reference donates it to a
+other numbers). The cache (KV for the dense family; token shifts and the
+WKV state for RWKV6; conv rows, SSM state and the shared attention's KV
+for Zamba2) is updated in place where the reference donates it to a
 functional update. On a CUDA device a prompt over 1,024 tokens prefills
 its attention through K4 (``models/attention.py:chunked_attention``), an
 RWKV6 prompt its WKV through K6 and a Zamba2 prompt its SSD scan through
 K5.
 
-``--mode pipelines`` and ``--mode openloop`` wait for the server and
-front-door stack (ROADMAP A14).
+``--mode pipelines`` serves the reference's mixed four-job submission set
+(a CC iteration over a scale-11 RMAT graph, linreg 20,000 x 21, two
+recommendation passes 4,096 x 64; three tenants, staggered arrivals, a
+deadline on the interactive tenant) on one host pool of ``--workers``
+threads under ``--arbiter`` (or all four with ``--compare``). The
+pipelines are the host DAGs, numpy on the host pool as in the reference,
+so the mode runs the same on the CPU and beside the card. ``--mode
+openloop`` (the admission front door) is the second half of ROADMAP A14
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,7 +54,8 @@ from ..configs import get_config
 from ..core import make_partitioner
 from ..models import Model
 
-__all__ = ["ServeResult", "serve_lm", "main"]
+__all__ = ["ServeResult", "serve_lm", "serve_pipelines", "serve_openloop",
+           "main"]
 
 
 @dataclass
@@ -133,8 +147,133 @@ def serve_lm(args, params: dict | None = None) -> ServeResult:
     return res
 
 
-def main(argv: list[str] | None = None) -> None:
-    """Entry point: LM serving (``--mode lm``)."""
+def _pipeline_submissions(scale: int = 11):
+    """A mixed multi-tenant submission set: graph analytics + ML training +
+    interactive recommendations (heterogeneous stage costs, staggered
+    arrivals)."""
+    from ..core import Submission
+    from ..vee import linreg_dag, recommendation_dag, rmat_graph
+    from ..vee.apps import cc_iteration_dag
+
+    G = rmat_graph(scale=scale, edge_factor=8, seed=5, relabel="blocks")
+    labels = np.arange(1, G.n_rows + 1, dtype=np.int64)
+    nnz = G.row_nnz().astype(float)
+    cc_costs = {"propagate": nnz * 2e-7 + 5e-8,
+                "changed": np.full(G.n_rows, 2e-8)}
+    lr_dag, _ = linreg_dag(20_000, 21)
+    return [
+        Submission(name="cc_batch", dag=cc_iteration_dag(G, labels),
+                   tenant="graph", weight=1.0, priority=0,
+                   stage_costs=cc_costs),
+        Submission(name="linreg_train", dag=lr_dag, tenant="ml", weight=2.0,
+                   priority=1, arrival_s=0.005),
+        Submission(name="recommend_1", dag=recommendation_dag(4096, 64, seed=1),
+                   tenant="interactive", weight=4.0, priority=2,
+                   arrival_s=0.01, deadline_s=2.0),
+        Submission(name="recommend_2", dag=recommendation_dag(4096, 64, seed=2),
+                   tenant="interactive", weight=4.0, priority=2,
+                   arrival_s=0.02, deadline_s=2.0),
+    ]
+
+
+def _telemetry(args):
+    """Build the (tracer, metrics) pair requested by ``--trace-out`` /
+    ``--metrics-out``; either is None when its flag is absent, which the
+    runtimes treat as the NullTracer path."""
+    from ..core import MetricsRegistry, Tracer
+
+    tracer = Tracer() if args.trace_out else None
+    metrics = MetricsRegistry() if args.metrics_out else None
+    return tracer, metrics
+
+
+def _dump_telemetry(args, tracer, metrics) -> None:
+    """Write the Chrome trace and the metrics snapshot (JSON + a ``.prom``
+    Prometheus-text sibling) after a traced run."""
+    from pathlib import Path
+
+    if tracer is not None:
+        tracer.write_chrome_trace(args.trace_out)
+        print(f"[serve] trace: {len(tracer)} events -> {args.trace_out}",
+              flush=True)
+    if metrics is not None:
+        out = Path(args.metrics_out)
+        out.write_text(metrics.to_json() + "\n")
+        prom = out.with_suffix(".prom")
+        prom.write_text(metrics.to_prometheus())
+        print(f"[serve] metrics -> {out} (+ {prom})", flush=True)
+
+
+def _make_serving_arbiter(spec: str, args):
+    """Resolve an --arbiter spec; ``preemptive`` wraps weighted-fair with
+    the pool size and slack from the command line."""
+    from ..core import make_arbiter
+
+    if spec == "preemptive":
+        return make_arbiter("preemptive", inner="fair",
+                            n_workers=args.workers, slack_s=args.slack)
+    return make_arbiter(spec)
+
+
+def serve_pipelines(args) -> dict:
+    """Serve the mixed submission set on one shared pool per arbiter.
+
+    Prints the reference's lines (per arbiter: makespan, p50 and p99 job
+    latency, then one line per job and the critical path when traced) and
+    writes ``--trace-out`` / ``--metrics-out`` after the last arbiter.
+    Returns ``{arbiter: (ServerResult, submissions, tracer, metrics)}``.
+    """
+    from ..core import PipelineServer, analyze_critical_path, make
+
+    cfg = make("config", args.config, n_workers=args.workers)
+    arbiters = (("fifo", "priority", "fair", "preemptive") if args.compare
+                else (args.arbiter,))
+    tracer = metrics = None
+    runs = {}
+    for arb in arbiters:
+        # fresh tracer per arbiter: job names repeat across compare runs and
+        # would otherwise merge into one misleading job hull
+        tracer, metrics = _telemetry(args)
+        subs = _pipeline_submissions()
+        tenant_of = {s.name: s.tenant for s in subs}
+        server = PipelineServer(cfg, arbiter=_make_serving_arbiter(arb, args),
+                                tracer=tracer, metrics=metrics)
+        for s in subs:
+            server.submit(s)
+        res = server.serve()
+        preempt = (f" preemptions={len(res.preemptions)}"
+                   if arb == "preemptive" else "")
+        print(f"[serve:pipelines] arbiter={arb} jobs={len(res.jobs)}{preempt} "
+              f"makespan={res.makespan_s * 1e3:.1f}ms "
+              f"p50={res.latency_percentile(50) * 1e3:.1f}ms "
+              f"p99={res.latency_percentile(99) * 1e3:.1f}ms", flush=True)
+        for name, r in sorted(res.jobs.items()):
+            dl = ("" if r.deadline_met is None
+                  else f" deadline_met={r.deadline_met}")
+            print(f"  {name:>14} tenant={tenant_of[name]:<12} "
+                  f"latency={r.latency_s * 1e3:8.1f}ms "
+                  f"service={r.service_s * 1e3:7.1f}ms "
+                  f"tasks={r.n_tasks}{dl}", flush=True)
+        if tracer is not None:
+            cp = analyze_critical_path(tracer, makespan=res.makespan_s)
+            print(f"  critical path ({arb}): {cp.describe()}", flush=True)
+        runs[arb] = (res, subs, tracer, metrics)
+    _dump_telemetry(args, tracer, metrics)
+    return runs
+
+
+def serve_openloop(args) -> None:
+    """Replay a heavy-tailed open-loop trace through the admission front
+    door: the second half of ROADMAP A14, not ported yet."""
+    raise NotImplementedError(
+        "--mode openloop needs the admission front door (TokenBucket, "
+        "AdmissionController, replay_open_loop), which is not ported yet "
+        "(ROADMAP A14, second half)")
+
+
+def main(argv: list[str] | None = None):
+    """Entry point: LM serving, or multi-tenant pipeline serving. Returns
+    what the mode's function returns."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["lm", "pipelines", "openloop"], default="lm")
     ap.add_argument("--arch", default="granite-8b")
@@ -144,14 +283,33 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--technique", default="GSS",
-                    help="admission-chunk technique (11 options)")
+                    help="admission-chunk technique for --mode lm (11 options)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to serve on (the tests pass cpu)")
+                    help="torch device to serve --mode lm on (the tests pass cpu)")
+    ap.add_argument("--config", default="gss/percore",
+                    help="technique[/layout[/victim]] registry spec for "
+                         "--mode pipelines (core.make_config)")
+    ap.add_argument("--arbiter", default="fair",
+                    choices=["fifo", "priority", "fair", "preemptive"],
+                    help="inter-job policy for --mode pipelines")
+    ap.add_argument("--slack", type=float, default=0.5,
+                    help="deadline-pressure slack (s) for --arbiter preemptive")
+    ap.add_argument("--workers", type=int, default=4,
+                    help="shared pool size for --mode pipelines")
+    ap.add_argument("--compare", action="store_true",
+                    help="pipelines mode: run all four arbiters")
+    ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
+                    help="write a Chrome/Perfetto trace of the run "
+                         "(--mode pipelines)")
+    ap.add_argument("--metrics-out", default=None, metavar="METRICS.json",
+                    help="write a metrics snapshot as JSON plus a .prom "
+                         "Prometheus-text sibling (--mode pipelines)")
     args = ap.parse_args(argv)
-    if args.mode != "lm":
-        raise NotImplementedError(f"--mode {args.mode} needs the server and "
-                                  "front-door stack: ROADMAP A14")
-    serve_lm(args)
+    if args.mode == "pipelines":
+        return serve_pipelines(args)
+    if args.mode == "openloop":
+        return serve_openloop(args)
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -9,15 +9,18 @@ from .apps import (
     cc_step_numpy,
     connected_components,
     connected_components_dag,
+    hetero_affinity_dag,
     linear_regression,
     linear_regression_dag,
     linear_regression_device,
+    linear_regression_hetero,
     linear_regression_online,
     linreg_dag,
     linreg_device_lowering,
     recommendation_dag,
     recommendation_device,
     recommendation_device_lowering,
+    recommendation_hetero,
     recommendation_online,
     recommendation_oracle,
     recommendation_pipeline,
@@ -36,6 +39,7 @@ __all__ = [
     "linear_regression_online", "recommendation_online",
     "DeviceLowering", "run_device_dag", "linreg_device_lowering",
     "linear_regression_device", "recommendation_device_lowering",
-    "recommendation_device",
+    "recommendation_device", "linear_regression_hetero",
+    "recommendation_hetero", "hetero_affinity_dag",
     "moe_dispatch_lowering", "moe_device_lowering", "skewed_tokens",
 ]

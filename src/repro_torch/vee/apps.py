@@ -31,7 +31,9 @@ lowering's ``device``.
 
 ``linear_regression_migrated`` / ``recommendation_migrated`` run the same
 pipelines with one mid-flight move between the host pool and the walker
-(core/preempt.py). ``merge_device_lowerings`` coalesces same-tile
+(core/preempt.py); ``linear_regression_hetero`` / ``recommendation_hetero``
+split them across host workers and walker lanes by a solved placement
+(core/placement.py, core/hetero.py). ``merge_device_lowerings`` coalesces same-tile
 lowerings into one super-table, the front door's batching on the device
 path: one walker launch drains the whole batch.
 """
@@ -72,7 +74,8 @@ __all__ = [
     "linear_regression_migrated", "recommendation_migrated", "merge_device_lowerings",
     "split_device_values",
     "CC_TECHNIQUES", "cc_iteration_dag", "cc_iteration_lowering",
-    "cc_iteration_device",
+    "cc_iteration_device", "hetero_affinity_dag", "linear_regression_hetero",
+    "recommendation_hetero",
 ]
 
 
@@ -978,3 +981,129 @@ def recommendation_migrated(
                                          device=device)
     values, seconds = _run_migrated(low, cut, direction)
     return values["scores"], values, seconds
+
+
+# --------------------------------------- heterogeneous co-execution
+
+def hetero_affinity_dag(n: int = 4096):
+    """The transfer-heavy co-execution demo workload: opposite branch
+    affinities.
+
+    ``ingest`` feeds two independent branches — ``featurize`` is
+    host-friendly, ``embed`` wants the accelerator — and ``join``
+    consumes both elementwise. The transfer term is priced so that
+    ping-ponging rows across the boundary is expensive: the solver must
+    keep each branch substrate-resident and overlap them to win. Returns
+    ``(dag, HeteroCostModel)``; the ops are placeholders (virtual-time
+    replays never execute stage bodies).
+    """
+    from ..core.placement import HeteroCostModel, TransferModel
+
+    def _op(inputs, s, z):
+        return np.zeros(z)
+
+    dag = PipelineDAG([
+        Stage("ingest", n, _op, combine="concat"),
+        Stage("featurize", n, _op, combine="concat",
+              deps=(StageDep("ingest", DEP_ELEMENTWISE),)),
+        Stage("embed", n, _op, combine="concat",
+              deps=(StageDep("ingest", DEP_ELEMENTWISE),)),
+        Stage("join", n, _op, combine="concat",
+              deps=(StageDep("featurize", DEP_ELEMENTWISE),
+                    StageDep("embed", DEP_ELEMENTWISE))),
+    ])
+    costs = HeteroCostModel(
+        host={"ingest": np.full(n, 1e-7), "featurize": np.full(n, 1e-7),
+              "embed": np.full(n, 1e-5), "join": np.full(n, 1e-7)},
+        device={"ingest": np.full(n, 2e-7), "featurize": np.full(n, 2e-6),
+                "embed": np.full(n, 1e-8), "join": np.full(n, 2e-6)},
+        transfer=TransferModel(latency_s=5e-5, bytes_per_row=64.0,
+                               gb_per_s=4.0))
+    return dag, costs
+
+
+def _run_hetero(low: DeviceLowering, config, placement, costs,
+                device_speedup, n_device: int):
+    """Solve a placement for ``low.dag`` (if none given) and co-execute it.
+
+    The executor runs at tile granularity (technique pinned to ``SS`` on
+    the tile-unit DAG), so sum stages fold per-tile partials in ascending
+    order. The device lanes walk their runs over ``low`` on its device
+    (core/hetero.py): on the CPU the values are bit-equal to the
+    host-only ``PipelineExecutor(technique="SS", n_workers=1)`` run
+    whatever the placement; on the card the walker's sums differ from it
+    by rounding. Returns (values, HeteroResult, Placement).
+    """
+    from ..core.hetero import HeteroExecutor
+    from ..core.placement import calibrate_hetero_costs, select_placement
+
+    if placement is None:
+        cm = costs if costs is not None else calibrate_hetero_costs(
+            low.dag, device_speedup=device_speedup)
+        placement, _, _ = select_placement(
+            low.dag, cm, n_workers=config.n_workers, passes=1)
+    cfg = dataclasses.replace(config, technique="SS",
+                              queue_layout="CENTRALIZED")
+    res = HeteroExecutor(low.dag, cfg, placement, n_device=n_device,
+                         lowering=low).run()
+    return res.values, res, placement
+
+
+def linear_regression_hetero(
+    num_rows: int,
+    num_cols: int,
+    config: SchedulerConfig,
+    placement=None,
+    costs=None,
+    device_speedup: float = 4.0,
+    tile: int = 64,
+    n_device: int = 1,
+    lam: float = 0.001,
+    seed: int = 1,
+    device: str | torch.device = "cuda",
+):
+    """Paper Listing 2 split across the host pool and device walker lanes.
+
+    Lowers linreg for the device path (``linreg_device_lowering``, its
+    data on ``device``), solves a placement with ``select_placement`` over
+    calibrated per-substrate costs (unless ``placement``/``costs`` are
+    given), and co-executes it with a HeteroExecutor — host chunk workers
+    and ``n_device`` walker lanes sharing the DAG, the lanes walking their
+    rows on ``device`` (results bit-equal to the host-only path on the
+    CPU, within rounding of it on the card). Returns (beta,
+    HeteroResult, Placement).
+    """
+    low = linreg_device_lowering(num_rows, num_cols, tile=tile, lam=lam,
+                                 seed=seed, device=device)
+    values, res, placement = _run_hetero(low, config, placement, costs,
+                                         device_speedup, n_device)
+    return low.finalize(values), res, placement
+
+
+def recommendation_hetero(
+    n_users: int,
+    n_items: int,
+    config: SchedulerConfig,
+    placement=None,
+    costs=None,
+    device_speedup: float = 4.0,
+    tile: int = 64,
+    n_device: int = 1,
+    density: float = 0.3,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+):
+    """The two-branch recommendation DAG split across both substrates.
+
+    Same flow as ``linear_regression_hetero`` over the
+    ``recommendation_device_lowering`` stage graph (independent branches
+    can land on different substrates and overlap in real time). Returns
+    (top_items, HeteroResult, Placement) — top items in row space, a
+    numpy array.
+    """
+    low = recommendation_device_lowering(n_users, n_items, tile=tile,
+                                         density=density, seed=seed,
+                                         device=device)
+    values, res, placement = _run_hetero(low, config, placement, costs,
+                                         device_speedup, n_device)
+    return np.asarray(values["scores"]).reshape(-1), res, placement

@@ -20,8 +20,10 @@ the host ``experts`` stage bit for bit. The CUDA body sums in another order
 
 Host DAG ops run on the CPU, whatever device the weights lie on (they copy
 the weights to the host on first use); the walker's values lie on the
-lowering's device. ``transformer_step_lowering`` and ``serving_pair`` need
-the model stack and the server, and wait (ROADMAP A11, A14).
+lowering's device. ``transformer_step_lowering`` needs the model stack's
+lowering and waits (ROADMAP A11); ``serving_pair``, two such lowerings
+served through the front door, is the second half of ROADMAP A14 and
+raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from .apps import DeviceLowering
 __all__ = [
     "skewed_tokens", "moe_dispatch_lowering", "moe_dispatch_lowering_for",
     "moe_device_lowering", "moe_params_from_reference", "expert_tile",
+    "serving_pair",
 ]
 
 
@@ -344,3 +347,11 @@ def moe_device_lowering(low: Lowered) -> DeviceLowering:
         return _combine(stage_values["experts"], idx, w, pos, cap)
 
     return DeviceLowering(dag, stages, operands, values, cap, finalize)
+
+
+def serving_pair(archs=("qwen2-0.5b", "granite-8b"), *args, **kwargs):
+    """Serve two models' transformer-step lowerings through the front
+    door: not ported yet."""
+    raise NotImplementedError(
+        "serving_pair needs the serving front door (ROADMAP A14, second "
+        "half) and transformer_step_lowering (ROADMAP A11)")

@@ -1380,3 +1380,113 @@ def test_recurrent_model_on_card_matches_cpu(cuda, arch):
     for got, want in zip(_leaves(cg), _leaves(cc)):
         if want.numel():
             _close_scaled(got.cpu(), want, 1e-3, "cache")
+
+
+# ------------------------------------------- telemetry and co-execution
+
+def test_device_walk_spans_from_the_card_equal_the_plain_walks(cuda):
+    """The CUDA walk's stamp buffer folds into the same device spans as the
+    plain walk's, on a GSS table with padding slots."""
+    from repro_torch.core import Tracer, device_walk_spans, validate_chrome_trace
+
+    low = tapps.linreg_device_lowering(4096, 33, tile=64, device=cuda)
+    rows = build_dag_tables(low.dag, 1, "GSS", n_shards=1, n_workers=4,
+                            max_slots=200).tables[0].copy()
+    rows[:, 1:] *= low.tile
+    _, got = twalk.dag_walk(low.stages, low.operands, low.values, rows, low.tile,
+                            stamp=True)
+    _, want = twalk.dag_walk_plain(low.stages, low.operands, low.values, rows,
+                                   low.tile, stamp=True)
+    assert np.array_equal(got, want)
+    names = [s.name for s in low.stages]
+    costs = {n: np.full(4096, 1e-6 * (k + 1)) for k, n in enumerate(names)}
+    traces = []
+    for stamps in (got, want):
+        tr = Tracer(job="walk")
+        n = device_walk_spans(stamps, names, tr, row_costs=costs)
+        assert n == int((rows[:, 2] > 0).sum())
+        traces.append(tr.to_chrome_trace())
+    assert traces[0] == traces[1]
+    assert validate_chrome_trace(traces[0]) == []
+
+
+def _close_linreg(got, want, what):
+    """Walked and host float32 sums agree within 1e-5 of the stage's largest
+    |entry| (the bar ``test_torch_apps.py`` holds the walker's sums to)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    lim = 1e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= lim, what
+
+
+def _beta_close(got, want):
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-2 * float(np.abs(want[:-1]).max()))
+
+
+def test_linear_regression_hetero_on_a_cuda_lowering_is_its_host_run(cuda):
+    """Co-executed on the card: the walker lane's sums differ from the
+    host-only run's by rounding only, and every launch walks a run."""
+    from repro_torch.core import PipelineExecutor
+
+    before = _build.DAG_WALK.launches["walk_linreg"]
+    beta, res, placement = tapps.linear_regression_hetero(
+        4096, 33, SchedulerConfig(n_workers=4), n_device=1, device=cuda)
+    launches = _build.DAG_WALK.launches["walk_linreg"] - before
+    lane_chunks = res.per_worker_tasks[-1]
+    assert (launches > 0) == (lane_chunks > 0) and launches <= lane_chunks
+    low = tapps.linreg_device_lowering(4096, 33, tile=64, device=cuda)
+    host = PipelineExecutor(low.dag, SchedulerConfig(
+        technique="SS", queue_layout="CENTRALIZED", n_workers=1)).run()
+    for k in host.values:
+        _close_linreg(res.values[k], host.values[k], k)
+    _beta_close(beta, low.finalize(host.values))
+    walked, _ = tapps.run_device_dag(low)
+    _beta_close(beta, low.finalize(walked))
+
+
+def test_walker_lanes_launch_k1_for_their_runs(cuda):
+    """With no host worker absorbing, the lane walks every device row of the
+    cuda lowering through K1, a run a launch."""
+    from repro_torch.core import HeteroExecutor, PipelineExecutor, Placement
+
+    low = tapps.linreg_device_lowering(8192, 33, tile=64, device=cuda)
+    before = _build.DAG_WALK.launches["walk_linreg"]
+    het = HeteroExecutor(low.dag, SchedulerConfig(technique="SS", n_workers=2),
+                         Placement.all_device(low.dag.stage_names), n_device=1,
+                         rebalance=False, lowering=low).run()
+    launches = _build.DAG_WALK.launches["walk_linreg"] - before
+    assert het.per_worker_tasks == [0, 0, 256]
+    # each stage's 128 tiles in runs of half what is left: 64, 32, ..., 1, 1
+    assert launches == 2 * 8
+    host = PipelineExecutor(low.dag, SchedulerConfig(
+        technique="SS", queue_layout="CENTRALIZED", n_workers=1)).run()
+    for k in host.values:
+        _close_linreg(het.values[k], host.values[k], k)
+
+
+def test_server_all_device_job_is_its_solo_hetero_run(cuda):
+    """A placed job that carries its cuda lowering is walked on the card by
+    the server's lane as by a solo ``HeteroExecutor``: the two differ by
+    the walker's rounding only (run boundaries follow thread timing)."""
+    from repro_torch.core import (HeteroExecutor, Placement, PipelineServer,
+                                  Submission)
+
+    low = tapps.linreg_device_lowering(4096, 33, tile=64, device=cuda)
+    names = low.dag.stage_names
+    pl = Placement.all_device(names)
+    ss = {n: ("SS", "CENTRALIZED", "SEQ") for n in names}
+    other = tapps.recommendation_device_lowering(1024, 64, tile=64, device=cuda)
+    before = _build.DAG_WALK.launches["walk_linreg"]
+    res = PipelineServer(SchedulerConfig(technique="GSS", queue_layout="PERCORE",
+                                         n_workers=4), n_device=1).serve(
+        [Submission(dag=low.dag, name="placed", placement=pl, per_stage=ss,
+                    lowering=low),
+         Submission(dag=other.dag, name="other", tenant="b")])
+    lane = sum(1 for e in res.events if e.worker >= 4 and e.job == "placed")
+    launches = _build.DAG_WALK.launches["walk_linreg"] - before
+    assert (launches > 0) == (lane > 0) and launches <= lane
+    solo = HeteroExecutor(low.dag, SchedulerConfig(technique="SS", n_workers=4),
+                          pl, n_device=1, lowering=low).run()
+    for k in names:
+        _close_linreg(res.jobs["placed"].values[k], solo.values[k], k)
+    _beta_close(low.finalize(res.jobs["placed"].values), low.finalize(solo.values))

@@ -161,9 +161,10 @@ def test_serve_lm_matches_reference_loop(prompt_len, capsys):
 def test_serve_main_on_the_cpu(capsys):
     tserve.main(["--smoke", "--device", "cpu", "--requests", "3", "--gen-len", "2"])
     assert "[serve] 3 requests x 2 tokens" in capsys.readouterr().out
-    for mode in ("pipelines", "openloop"):
-        with pytest.raises(NotImplementedError, match="A14"):
-            tserve.main(["--mode", mode, "--device", "cpu"])
+    # --mode pipelines is ported (tests/test_torch_server.py); the open-loop
+    # front door is the second half of A14
+    with pytest.raises(NotImplementedError, match="A14"):
+        tserve.main(["--mode", "openloop", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
