@@ -31,6 +31,14 @@ super-table walker kernel and the DLS-scheduled CC step — at real sizes:
   lane (``linear_regression_hetero``), ``serve --mode pipelines
   --compare`` on 8 workers with a trace and metrics, and a linreg job of
   131,072 x 101 placed on the device lane of a shared server;
+* the serving front door beside the card: ``serve --mode openloop`` on 8
+  workers (800 heavy-tailed arrivals at load 1.5, FIFO against admission,
+  a token bucket and batching), 400 arrivals at load 5.0 under fair and
+  preemptive arbitration, ``FrontDoor`` over 8 host workers and a walker
+  lane serving the launcher's mixed set with the 1,000,000 x 101 linreg
+  job placed on the lane, the hetero and server tuners on the walker's
+  measured stage costs, and ``serving_pair`` (Qwen2-0.5B and Granite-8B
+  at their reduced widths, one inference step each) on the card;
 * LM serving of Granite-8B at full size (36 layers, d_model 4,096, 32 heads
   over 8 kv heads, d_ff 14,336, vocab 49,152; 33.0 GB of fp32 weights drawn
   on the card): 8 requests of 2,048 tokens in GSS chunks over 4 slots, 16
@@ -71,7 +79,12 @@ telemetry, co-execution and the server (phase ``server_telemetry``: the
 walker lane's runs launched on K1, the co-executed beta within the linreg
 limits of the walk's, a placed job's walked on the card within the limits
 of its solo run and its host-only run, every chunk once under each
-arbiter) and the serving path (``serve_lm``: exactly 36 x 6 = 216 K4
+arbiter), the serving front door (phase ``front_door``: the open-loop
+replays' property against FIFO, ``FrontDoor`` on the real pool with the
+placed 1,000,000 x 101 linreg job walking K1 on the lane, its beta within
+the linreg limits, the hetero and server tuners, and ``serving_pair``
+bitwise its direct composition on the card) and the serving path
+(``serve_lm``: exactly 36 x 6 = 216 K4
 launches, none in decode; the first batch's logits through K4 against the
 same weights through K4's plain version; K4 alone at the serving shape
 against its plain version and a float64 oracle), then the two recurrent
@@ -245,6 +258,12 @@ REDESIGNED = frozenset({
 # coordinator runs 2 nodes x 4 workers.
 PAPER_WORKERS, PAPER_SHARDS, CC_TILE = 8, 2, 256
 COORD_NODES, COORD_WORKERS = 2, 4
+# The serving front door (phase `front_door`): the reference's open-loop
+# rows (`benchmarks/run.py:bench_openloop`, `bench_preemptive`) run 2,000
+# arrivals; a replay costs time quadratic in its length on the host, so
+# the phase cuts them to 800 (the rows' own quick size) at load 1.5 and
+# 400 at load 5.0 to stay near 20 s.
+OPENLOOP_REQUESTS, PRESSURED_REQUESTS = 800, 400
 MIGRATIONS = (
     ("linreg", "host_to_device", LIN_UNITS + 128),
     ("linreg", "device_to_host", 2 * LIN_UNITS - 256),
@@ -1380,6 +1399,213 @@ def server_telemetry_phase(dev, lin, lin_rows, lin_stamps, stage_device_ms: dict
         placed_job_chunks=res.jobs["linreg_device"].n_tasks, beta_abs_err=errs,
         limits=list(lim_b))
     emit("server_telemetry", **out, seconds=time.perf_counter() - t_phase)
+    return cm
+
+
+def front_door_phase(dev, lin, beta_dev, beta_limits, costs) -> dict:
+    """The serving front door, its replays and its tuners, beside the card.
+
+    Open loop, in virtual time on the host: ``serve --mode openloop
+    --requests 800 --workers 8`` (the ``pipeline_server_openloop`` row's
+    settings: ``heavy_tailed_trace(seed=3, load=1.5, n_workers=8)``, FIFO
+    against the fair front door with the etl tenant's ``TokenBucket(400,
+    20)``, ``BatchPolicy(2e-3, 8)`` and a ``FeedbackLog``), which must keep
+    the reference's property: the front door's p99.9 no worse than FIFO's
+    and its deadline hit rate no lower. Then ``load=5.0``, fair against
+    ``preemptive`` (``bench_preemptive``'s settings), whose hit rate must
+    be no lower. ``FrontDoor`` on the real pool, 8 host workers (technique
+    SS) and one walker lane: the launcher's mixed set (``_pipeline_
+    submissions``, the recommendation passes without their deadline, whose
+    unit declared costs would shed them, so the two coalesce in a 20 ms
+    window), an expired copy of a pass that admission sheds, and the
+    linreg job on ``lin`` (the main path's lowering on the card) placed all
+    on the lane with its lowering: every admitted host member bitwise its
+    one-worker SS run, the placed job's beta within ``beta_limits`` of the
+    K1 walk's ``beta_dev``, at least one K1 launch, exactly the lane's
+    chunks of the placed job flagged ``F_DEVICE``, every chunk once. The
+    tuners on ``costs`` (``calibrate_hetero_costs`` of the walker's
+    per-stage device ms, from ``server_telemetry``): ``select_offline_
+    hetero``, ``tune_online_hetero``, ``replay_online_hetero``, the chosen
+    placement run once through ``HeteroExecutor`` at tile granularity
+    (technique SS, as ``linear_regression_hetero`` runs it; predicted and measured
+    seconds printed side by side; nothing claimed), and ``simulate_server``
+    and ``select_offline_server`` on the mixed set. Last, ``serving_pair()``
+    at its defaults on ``dev``: each model's logits bitwise the direct
+    composition of the same per-row functions on the card."""
+    import numpy as np
+
+    from repro_torch.core import (AdmissionController, BatchPolicy, FrontDoor,
+                                  HeteroExecutor, OnlineScheduler, PipelineExecutor,
+                                  Placement, SchedulerConfig, Submission, Tracer,
+                                  default_hetero_arms, heavy_tailed_trace,
+                                  replay_online_hetero, replay_open_loop,
+                                  select_offline_hetero, select_offline_server,
+                                  simulate_server, tune_online_hetero)
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.vee import ml_apps
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def summary(r, seconds):
+        return dict(p50_ms=r.latency_percentile(50) * 1e3,
+                    p99_ms=r.latency_percentile(99) * 1e3,
+                    p999_ms=r.latency_percentile(99.9) * 1e3,
+                    hit_rate=r.deadline_hit_rate(), shed_rate=r.shed_rate,
+                    batches=r.n_batches, coalesced=r.n_coalesced,
+                    preemptions=len(r.preemptions), jobs=r.n_jobs,
+                    host_seconds=seconds)
+
+    # the open loop: the launcher's replay pair, then the pressured trace
+    t = time.perf_counter()
+    runs = serve.main(["--mode", "openloop", "--requests", str(OPENLOOP_REQUESTS),
+                       "--workers", str(PAPER_WORKERS)])
+    open_s = time.perf_counter() - t
+    base, front = runs["fifo baseline"], runs["front door"]
+    require(front.latency_percentile(99.9) <= base.latency_percentile(99.9)
+            and front.deadline_hit_rate() >= base.deadline_hit_rate(),
+            f"open loop: the front door (p99.9 {front.latency_percentile(99.9)}, hit "
+            f"{front.deadline_hit_rate()}) is worse than FIFO's (p99.9 "
+            f"{base.latency_percentile(99.9)}, hit {base.deadline_hit_rate()})")
+    require(front.n_batches > 0, "open loop: the front door coalesced nothing")
+    out["openloop"] = dict(load=1.5, workers=PAPER_WORKERS, seconds=open_s,
+                           fifo=summary(base, None), front_door=summary(front, None))
+    trace = heavy_tailed_trace(PRESSURED_REQUESTS, seed=3, load=5.0,
+                               n_workers=PAPER_WORKERS)
+    pressured = {}
+    for arb, kw in (("fair", None), ("preemptive", {"inner": "fair",
+                                                     "n_workers": PAPER_WORKERS,
+                                                     "slack_s": 0.5})):
+        t = time.perf_counter()
+        r = replay_open_loop(trace, n_workers=PAPER_WORKERS, arbiter=arb, arbiter_kwargs=kw)
+        pressured[arb] = (r, time.perf_counter() - t)
+    require(pressured["preemptive"][0].deadline_hit_rate()
+            >= pressured["fair"][0].deadline_hit_rate(),
+            "load 5.0: preemptive's hit rate is below fair's")
+    out["pressured"] = dict(load=5.0, workers=PAPER_WORKERS, **{
+        arb: summary(r, sec) for arb, (r, sec) in pressured.items()})
+
+    # FrontDoor on the real pool, a placed job walking K1 on the lane
+    walks = lambda: _build.DAG_WALK.launches["walk_linreg"]  # noqa: E731
+    feat_lim, icpt_lim = beta_limits
+    mixed = [s.replace(deadline_s=None) if s.name.startswith("recommend") else s
+             for s in serve._pipeline_submissions()]
+    expired = mixed[2].replace(name="recommend_late", arrival_s=0.015, deadline_s=0.0)
+    lnames = lin.dag.stage_names
+    placed = Submission(dag=lin.dag, name="linreg_placed", tenant="ml", arrival_s=0.005,
+                        placement=Placement.all_device(lnames),
+                        per_stage={k: ("SS", "CENTRALIZED", "SEQ") for k in lnames},
+                        lowering=lin)
+    subs = mixed + [expired, placed]
+    tracer = Tracer()
+    fd = FrontDoor(SchedulerConfig(technique="SS", n_workers=PAPER_WORKERS),
+                   admission=AdmissionController(),
+                   batching=BatchPolicy(window_s=2e-2, max_batch=8), tracer=tracer)
+    w0 = walks()
+    t = time.perf_counter()
+    res = fd.serve(subs)
+    fd_s = time.perf_counter() - t
+    fd_walks = walks() - w0
+    srv = res.server_result
+    require(res.shed == {"recommend_late": "expired"}, f"FrontDoor shed {res.shed}")
+    require(res.n_batches == 1 and "batch1(recommend_1x2)" in srv.jobs,
+            f"FrontDoor launched {sorted(srv.jobs)}")
+    require(sorted(res.jobs) == sorted(s.name for s in subs if s.name != "recommend_late"),
+            f"FrontDoor returned {sorted(res.jobs)}")
+    dag_of = {s_.name: s_.dag for s_ in subs}   # the batch: recommend_1's shape
+    for launch, r in srv.jobs.items():
+        dag = dag_of.get(launch, dag_of["recommend_1"])
+        for name in r.values:
+            spans = sorted((e.start, e.size) for e in srv.events
+                           if e.job == launch and e.stage == name)
+            ends = np.cumsum([0] + [z for _, z in spans])
+            require([s_ for s_, _ in spans] == list(ends[:-1])
+                    and ends[-1] == dag.stages[name.split("#")[0]].n_rows,
+                    f"FrontDoor: {launch}/{name} not run exactly once")
+        require(r.n_tasks == sum(1 for e in srv.events if e.job == launch),
+                f"FrontDoor: {launch}'s task count")
+    t = time.perf_counter()
+    ss1 = SchedulerConfig(technique="SS", n_workers=1)
+    for sub in mixed:
+        solo = PipelineExecutor(sub.dag, ss1).run()
+        for k, want in solo.values.items():
+            require(np.array_equal(np.asarray(res.jobs[sub.name].values[k]),
+                                   np.asarray(want)),
+                    f"FrontDoor: {sub.name}/{k} differs from its one-worker SS run")
+    solo_s = time.perf_counter() - t
+    lane = [e for e in srv.events if e.worker >= PAPER_WORKERS and e.job == "linreg_placed"]
+    require(lane and 0 < fd_walks <= len(lane),
+            f"FrontDoor: the walker lane ran {len(lane)} chunks in {fd_walks} K1 launches")
+    flagged = {(s_.job, s_.stage, s_.chunk) for s_ in tracer.spans()
+               if s_.kind == "exec" and s_.device}
+    require(flagged == {(e.job, e.stage, e.task_id) for e in lane},
+            "FrontDoor: F_DEVICE is not exactly on the lane's chunks of the placed job")
+    beta_fd = lin.finalize(res.jobs["linreg_placed"].values)
+    b_abs = np.abs(np.asarray(beta_fd, "float64") - np.asarray(beta_dev, "float64"))
+    fd_err = [float(b_abs[:-1].max()), float(b_abs[-1].max())]
+    require(fd_err[0] <= feat_lim and fd_err[1] <= icpt_lim,
+            f"FrontDoor: the placed job's beta off the K1 walk's by {fd_err}, limits "
+            f"{[feat_lim, icpt_lim]}")
+    out["front_door_pool"] = dict(
+        host_workers=PAPER_WORKERS, device_lanes=1, seconds=fd_s, launches=sorted(srv.jobs),
+        shed=res.shed, batches=res.n_batches, chunks=len(srv.events),
+        placed_chunks=res.jobs["linreg_placed"].n_tasks, device_lane_chunks=len(lane),
+        walker_launches=fd_walks, beta_vs_walk_abs_err=fd_err,
+        limits=[feat_lim, icpt_lim], solo_runs_seconds=solo_s)
+
+    # the tuners on the walker's measured per-stage device ms
+    t = time.perf_counter()
+    placement, predicted, baselines = select_offline_hetero(lin.dag, costs,
+                                                            n_workers=PAPER_WORKERS, passes=1)
+    tuned = tune_online_hetero(lin.dag, costs, n_workers=PAPER_WORKERS, seed=0)
+    online = OnlineScheduler(arms=default_hetero_arms(False), resize=False, seed=0)
+    hist = replay_online_hetero(lin.dag, costs, online, rounds=24, n_workers=PAPER_WORKERS)
+    tune_s = time.perf_counter() - t
+    w0 = walks()
+    t = time.perf_counter()
+    het = HeteroExecutor(lin.dag, SchedulerConfig(technique="SS", n_workers=PAPER_WORKERS),
+                         placement, n_device=1, lowering=lin).run()
+    het_s = time.perf_counter() - t
+    het_walks = walks() - w0
+    dev_rows = sum(placement.device_rows(k, lin.dag.stages[k].n_rows) for k in lnames)
+    require(het_walks > 0 or dev_rows == 0 or het.per_worker_tasks[-1] == 0,
+            f"the tuned placement ({placement.describe()}): the lane walked nothing")
+    b_abs = np.abs(np.asarray(lin.finalize(het.values), "float64")
+                   - np.asarray(beta_dev, "float64"))
+    het_err = [float(b_abs[:-1].max()), float(b_abs[-1].max())]
+    require(het_err[0] <= feat_lim and het_err[1] <= icpt_lim,
+            f"the tuned placement's beta off the K1 walk's by {het_err}")
+    jobs = [s.to_job() for s in mixed]
+    t = time.perf_counter()
+    sim = simulate_server(mixed, n_workers=PAPER_WORKERS, arbiter="fair")
+    assign, tuned_p99, base_p99 = select_offline_server(jobs, n_workers=PAPER_WORKERS,
+                                                        arbiter="fair", objective="p99")
+    server_s = time.perf_counter() - t
+    require(tuned_p99 <= base_p99, "select_offline_server made p99 worse")
+    out["tuners"] = dict(
+        hetero_placement=placement.describe(), predicted_seconds=predicted,
+        measured_seconds=het_s, baselines=baselines, walker_launches=het_walks,
+        beta_vs_walk_abs_err=het_err, online_assign=tuned.assign,
+        online_predicted_seconds=tuned.makespan, replay_rounds=len(hist),
+        replay_last_makespan=hist[-1].makespan, seconds=tune_s,
+        simulated_mixed_makespan=sim.makespan, server_assign=assign,
+        server_p99=tuned_p99, server_p99_isolated=base_p99, server_seconds=server_s)
+
+    # two models' steps on the card through one shared pool
+    t = time.perf_counter()
+    results, _, placements, lows = ml_apps.serving_pair(device=dev)
+    pair_s = time.perf_counter() - t
+    for arch, low in zip(results, lows):
+        require(np.array_equal(results[arch], low.run_direct()),
+                f"serving_pair: {arch}'s served logits differ from the direct composition")
+        require(bool(np.isfinite(results[arch]).all()), f"serving_pair: {arch} not finite")
+    out["serving_pair"] = dict(
+        placements={a: p.describe() for a, p in placements.items()},
+        logits_shape={a: list(v.shape) for a, v in results.items()}, seconds=pair_s)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("front_door", **out)
+    return out
 
 
 def decode_profile(model, params, tok, cache, index: int, served_step_ms: float,
@@ -2486,8 +2712,9 @@ def main() -> None:
     paper_entry_points_phase(graph, G, c, lin, lin_rows, stage_device_ms["linreg"],
                              kernels[0]["device_ms"], beta, beta_ref,
                              (feat_lim, icpt_lim))
-    server_telemetry_phase(dev, lin, lin_rows, lin_stamps, stage_device_ms["linreg"], beta,
-                           (feat_lim, icpt_lim))
+    lin_costs = server_telemetry_phase(dev, lin, lin_rows, lin_stamps,
+                                       stage_device_ms["linreg"], beta, (feat_lim, icpt_lim))
+    front_door_phase(dev, lin, beta, (feat_lim, icpt_lim), lin_costs)
     kernels.append(k4_mla_phase(dev))
     kernels.append(serve_phase(dev))
     gc.collect()

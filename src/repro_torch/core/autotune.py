@@ -19,12 +19,15 @@ We implement both modes as a beyond-paper feature:
 
 The per-stage searches (``select_offline_dag``, ``select_offline_device_dag``,
 ``tune_online_dag``, ``DagTuner``) extend both modes to pipeline DAGs.
-All of it is numpy over the port's simulator; the placement and serving
-searches raise until their modules are ported.
+The placement searches (``select_offline_hetero``, ``tune_online_hetero``)
+and the per-job search under contention (``select_offline_server``) score
+co-execution and serving replays. All of it is numpy over the port's
+simulator, bitwise the reference's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from dataclasses import dataclass
 
@@ -33,7 +36,7 @@ import numpy as np
 from .executor import SchedulerConfig
 from .online import OnlineScheduler, default_online_arms, replay_online_dag
 from .partitioners import PARTITIONERS
-from .simulator import SimOverheads, simulate, simulate_dag
+from .simulator import SimOverheads, simulate, simulate_dag, simulate_server
 from .victim import VICTIM_STRATEGIES
 
 __all__ = ["select_offline", "OnlineTuner", "default_search_space",
@@ -249,30 +252,165 @@ def select_offline_device_dag(
 
 
 # ---------------------------------------------------------------------------
-# placement and serving selection: the second half of ROADMAP A14
+# heterogeneous placement selection (host pool + device walker)
 # ---------------------------------------------------------------------------
 
-def _unported(name: str):
-    raise NotImplementedError(
-        f"{name} is one of the hetero and server tuners, which are not "
-        "ported yet (ROADMAP A14, second half)")
+def select_offline_hetero(
+    dag,
+    costs,
+    n_workers: int = 20,
+    stage_configs: dict | tuple | None = None,
+    fractions: tuple[float, ...] = (0.25, 0.5, 0.75),
+    passes: int = 2,
+    overheads: SimOverheads = SimOverheads(),
+    seed: int = 0,
+):
+    """Offline substrate placement: the placement counterpart of the
+    dag/device searches.
+
+    Thin entry point over ``core/placement.py:select_placement``: scores
+    the all-HOST and all-DEVICE baselines with ``simulate_hetero_dag``,
+    then coordinate-descends per stage over {HOST, DEVICE, SPLIT(f)}
+    accepting only improvements — so the returned placement is never
+    worse than min(host-only, device-only) by construction. ``costs`` is a
+    ``HeteroCostModel`` (see ``calibrate_hetero_costs``) or a plain
+    per-row dict applied to both substrates. Returns
+    ``(placement, makespan, baselines)``.
+    """
+    from .placement import select_placement
+
+    return select_placement(
+        dag, costs, n_workers=n_workers, stage_configs=stage_configs,
+        fractions=fractions, passes=passes, overheads=overheads, seed=seed)
 
 
-def select_offline_hetero(dag, costs, *args, **kwargs):
-    """Offline substrate placement (host pool + walker): not ported yet."""
-    _unported("select_offline_hetero")
+def tune_online_hetero(
+    dag,
+    costs,
+    n_workers: int = 20,
+    rounds: int = 40,
+    selector: str = "ucb",
+    arms: list[tuple[str, str, str, str]] | None = None,
+    include_ss: bool = False,
+    overheads: SimOverheads = SimOverheads(),
+    seed: int = 0,
+    online: OnlineScheduler | None = None,
+) -> OnlineTuneResult:
+    """ONLINE substrate placement: bandit arms extended with WHERE to run.
+
+    The closed-loop counterpart of ``select_offline_hetero``: trains an
+    OnlineScheduler whose per-stage arms are
+    ``(technique, layout, victim, substrate)`` 4-tuples
+    (``default_hetero_arms``) over ``rounds`` virtual-time co-execution
+    replays (``replay_online_hetero``); each stage's realized span
+    rewards its arm, so the bandit learns the stage's substrate affinity
+    together with its chunking. Returns an OnlineTuneResult whose
+    ``assign`` maps stages to the converged 4-tuple arms and whose
+    ``makespan`` is the final placement's simulated co-execution
+    makespan. Moldable resizing is disabled (placement replays do not
+    re-chunk mid-run).
+    """
+    from .online import default_hetero_arms
+    from .placement import (DEVICE, HOST, Placement, StagePlacement,
+                            replay_online_hetero, simulate_hetero_dag)
+
+    if online is None:
+        online = OnlineScheduler(
+            selector=selector,
+            arms=arms if arms is not None else default_hetero_arms(include_ss),
+            resize=False, seed=seed)
+    history = replay_online_hetero(
+        dag, costs, online, rounds=rounds, n_workers=n_workers,
+        overheads=overheads, seed=seed)
+    assign = online.best_combos(list(dag.stage_names))
+    placement = Placement({
+        n: StagePlacement(DEVICE if c[3] == DEVICE else HOST)
+        for n, c in assign.items()})
+    final = simulate_hetero_dag(
+        dag, costs, placement,
+        stage_configs={n: c[:3] for n, c in assign.items()},
+        n_workers=n_workers, overheads=overheads, seed=seed).makespan
+    return OnlineTuneResult(assign, final, history, online)
 
 
-def tune_online_hetero(dag, costs, *args, **kwargs):
-    """Online substrate placement over ``default_hetero_arms``: not
-    ported yet."""
-    _unported("tune_online_hetero")
+# ---------------------------------------------------------------------------
+# per-job selection under contention (multi-tenant serving)
+# ---------------------------------------------------------------------------
 
+def select_offline_server(
+    jobs,
+    n_workers: int,
+    arbiter="fair",
+    objective: str = "p99",
+    overheads: SimOverheads = SimOverheads(),
+    include_ss: bool = False,
+    seed: int = 0,
+    passes: int = 1,
+):
+    """Per-job, per-stage scheduling selection under inter-job contention.
 
-def select_offline_server(jobs, *args, **kwargs):
-    """Per-job selection under contention (needs ``simulate_server``): not
-    ported yet."""
-    _unported("select_offline_server")
+    Each job tuned in isolation (``select_offline_dag``) ignores that it
+    shares the pool: a combo that wins alone can lose under contention
+    (e.g. SS-like fine chunks amplify queue traffic exactly when other
+    jobs keep every worker busy). This search scores full serving replays:
+
+    1. Seed every job with its isolated ``select_offline_dag`` assignment
+       — the contention-blind baseline.
+    2. Coordinate-descend over (job, stage) pairs, re-simulating the whole
+       mixed workload with ``simulate_server`` under ``arbiter`` and
+       accepting a combo only when it improves ``objective``.
+
+    ``objective`` is ``"p99"`` / ``"p50"`` (percentile of per-job latency),
+    ``"mean"`` (mean latency), or ``"makespan"``. Returns
+    ``(per_job_assignment, tuned_score, baseline_score)`` where the
+    assignment maps job name -> {stage -> (technique, layout, victim)};
+    the tuned score is never worse than the baseline by construction.
+    """
+    from .server import job_stage_costs
+
+    def measure(res):
+        """Extract the objective value from a ServerSimResult."""
+        if objective == "makespan":
+            return res.makespan
+        if objective == "mean":
+            return float(np.mean(list(res.job_latency.values())))
+        if objective in ("p50", "p99"):
+            return res.latency_percentile(float(objective[1:]))
+        raise ValueError(f"unknown objective {objective!r}")
+
+    def score(assign):
+        """Objective of one per-job assignment under the full mixed replay."""
+        staged = [dataclasses.replace(j, per_stage=dict(assign[j.name]))
+                  for j in jobs]
+        return measure(simulate_server(
+            staged, n_workers=n_workers, arbiter=arbiter,
+            overheads=overheads, seed=seed))
+
+    space = list(dict.fromkeys(
+        (t, l, "SEQ") for t, l, _ in default_search_space(include_ss)))
+    assign = {}
+    for j in jobs:
+        iso, _, _ = select_offline_dag(
+            j.dag, job_stage_costs(j), n_workers=n_workers,
+            overheads=overheads, include_ss=include_ss, seed=seed, passes=1)
+        assign[j.name] = iso
+    baseline = best = score(assign)
+
+    for _ in range(max(1, passes)):
+        improved = False
+        for j in jobs:
+            for stage_name in j.dag.stage_names:
+                for c in space:
+                    if c == assign[j.name][stage_name]:
+                        continue
+                    trial = {n: dict(a) for n, a in assign.items()}
+                    trial[j.name][stage_name] = c
+                    v = score(trial)
+                    if v < best:
+                        best, assign, improved = v, trial, True
+        if not improved:
+            break
+    return assign, best, baseline
 
 
 @dataclass

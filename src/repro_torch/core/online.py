@@ -72,10 +72,9 @@ def default_hetero_arms(
     are ``default_online_arms`` tagged "host"; the device arms carry one
     entry per technique (queue layout and victim strategy do not exist on
     the frozen device walker, so extra device arms would only slow
-    exploration). The reference plays them through
-    ``replay_online_hetero`` / ``tune_online_hetero`` (ROADMAP A14, second
-    half, in the port) — the per-stage bandit learns WHERE a stage runs
-    along with how it is chunked.
+    exploration). ``placement.replay_online_hetero`` /
+    ``autotune.tune_online_hetero`` play them — the per-stage bandit learns
+    WHERE a stage runs along with how it is chunked.
     """
     techs = [t for t in PARTITIONERS if include_ss or t != "SS"]
     host = [(t, l, "SEQ", "host") for t in techs for l in _LAYOUTS]

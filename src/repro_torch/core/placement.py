@@ -33,10 +33,10 @@ and accounts for moving rows across the boundary:
                          device-only).
 
 ``core/hetero.py`` executes a chosen placement (device super-table shards
-concurrently with host chunk workers) and ``core/online.py:
-default_hetero_arms`` extends the bandit arms with the substrate choice.
-``replay_online_hetero`` (the online substrate bandit's replay) goes with
-the tuners and waits for ROADMAP A14.
+concurrently with host chunk workers); ``core/autotune.py`` wraps the
+solver as ``select_offline_hetero`` / ``tune_online_hetero``, and
+``core/online.py:default_hetero_arms`` extends the bandit arms with the
+substrate choice, which ``replay_online_hetero`` trains in virtual time.
 """
 
 from __future__ import annotations
@@ -551,9 +551,52 @@ def select_placement(
     return Placement(assign), best, baselines
 
 
-def replay_online_hetero(dag, costs, online, rounds, *args, **kwargs):
-    """Train an OnlineScheduler whose arms carry a substrate choice: goes
-    with the hetero and server tuners, the second half of ROADMAP A14."""
-    raise NotImplementedError(
-        "replay_online_hetero goes with the hetero and server tuners, which "
-        "are not ported yet (ROADMAP A14, second half)")
+def replay_online_hetero(
+    dag,
+    costs,
+    online,
+    rounds: int,
+    n_workers: int = 20,
+    overheads: SimOverheads | None = None,
+    seed: int = 0,
+):
+    """Train an OnlineScheduler whose arms carry a substrate choice.
+
+    The feedback loop over ``default_hetero_arms``: each round ONE
+    focus stage (rotating round-robin, the DagTuner discipline) consults
+    its bandit for a ``(technique, layout, victim, substrate)`` arm while
+    the other stages play their current best, the round replays with
+    ``simulate_hetero_dag`` under the implied placement, and the focus
+    stage's realized span — now attributable, because concurrent
+    exploration can't serialize every stage onto the device lane at once
+    and poison each other's substrate rewards — is credited to its arm.
+    The focus stage's bandit plays all its arms within
+    ``n_stages * n_arms`` rounds. Returns the per-round OnlineRound
+    history (combos hold the 4-tuple arms; the MAKESPAN rewards only the
+    focus stage).
+    """
+    from .online import OnlineRound
+
+    cm = _as_cost_model(dag, costs)
+    ov = overheads if overheads is not None else SimOverheads()
+    names = list(dag.stage_names)
+    history: list[OnlineRound] = []
+    for r in range(max(1, rounds)):
+        focus = names[r % len(names)]
+        choice = online.suggest(focus)
+        combos = dict(online.best_combos(names))
+        combos[focus] = choice.combo
+        placement = Placement({
+            n: StagePlacement(DEVICE if c[3] == DEVICE else HOST)
+            for n, c in combos.items()})
+        cfgs = {n: c[:3] for n, c in combos.items()}
+        res = simulate_hetero_dag(dag, cm, placement, stage_configs=cfgs,
+                                  n_workers=n_workers, overheads=ov,
+                                  seed=seed)
+        spans = {n: max(0.0, res.stage_finish[n] - res.stage_start[n])
+                 for n in names}
+        rows = max(1, dag.stages[focus].n_rows)
+        span = spans[focus]
+        online.observe(choice, (span if span > 0 else res.makespan) / rows)
+        history.append(OnlineRound(dict(combos), res.makespan, spans))
+    return history

@@ -28,8 +28,11 @@ ONE worker pool:
                banked credit).
 
 ``core/preempt.py:PreemptiveArbiter`` (``"preemptive"``) wraps any of them
-with deadline-pressure eviction. The virtual-time ``simulate_server`` and
-the server tuner are the second half of ROADMAP A14.
+with deadline-pressure eviction. ``core/simulator.py:simulate_server``
+replays the same arbiters in virtual time for policy search,
+``core/autotune.py:select_offline_server`` tunes per-job stage configs
+under contention, and ``core/admission.py:FrontDoor`` puts admission and
+batching in front of this pool.
 """
 
 from __future__ import annotations

@@ -19,9 +19,9 @@ contention — the paper's "SS explodes" effect emerges naturally).
 ``simulate_dag`` a pipeline DAG on the shared host pool or, with
 ``frozen``, the walker draining a super-table in one launch;
 ``frozen_dag_makespans`` compares that fused launch with one launch per
-stage. Results are pure functions of the costs and the seed: the same
-inputs give the same virtual times to the bit. The multi-tenant
-``simulate_server`` is the second half of ROADMAP A14 and not ported yet.
+stage, and ``simulate_server`` many tenants' jobs on one shared pool
+under the server's arbiters. Results are pure functions of the costs and
+the seed: the same inputs give the same virtual times to the bit.
 """
 
 from __future__ import annotations
@@ -38,8 +38,8 @@ from .partitioners import chunk_schedule, first_chunk_fn, make_partitioner
 from .victim import make_victim_selector
 
 __all__ = ["SimOverheads", "SimResult", "simulate", "DagSimResult",
-           "simulate_dag", "frozen_dag_makespans", "simulate_server",
-           "DagStats", "stats_from_events"]
+           "simulate_dag", "frozen_dag_makespans", "ServerSimResult",
+           "simulate_server", "DagStats", "stats_from_events"]
 
 
 @dataclass
@@ -697,8 +697,204 @@ def simulate_dag(
         queue_wait=queue_wait, stats=stats)
 
 
-def simulate_server(jobs, *args, **kwargs):
-    """Multi-tenant serving replay in virtual time: not ported yet."""
-    raise NotImplementedError(
-        "simulate_server (the server's virtual-time replay) is not ported "
-        "yet (ROADMAP A14, second half)")
+# ---------------------------------------------------------------------------
+# multi-tenant serving simulation (inter-job arbiter policy search)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ServerSimResult:
+    """Virtual-time outcome of one simulate_server replay."""
+
+    makespan: float                      # last job finish minus first arrival
+    job_finish: dict[str, float]
+    job_latency: dict[str, float]        # finish minus arrival, per job
+    tenant_service: dict[str, float]
+    per_worker_busy: list[float]
+    events: list
+    queue_wait: float = 0.0
+    preemptions: list = field(default_factory=list)  # PreemptionEvents
+
+    def latencies(self) -> dict[str, float]:
+        """Job name -> latency in virtual seconds."""
+        return dict(self.job_latency)
+
+    def latency_percentile(self, q: float) -> float:
+        """Percentile ``q`` (0-100) over per-job latencies."""
+        return float(np.percentile(list(self.job_latency.values()), q))
+
+
+def simulate_server(
+    jobs,
+    n_workers: int = 20,
+    arbiter="fair",
+    arbiter_kwargs: dict | None = None,
+    overheads: SimOverheads = SimOverheads(),
+    seed: int = 0,
+    tracer=None,
+) -> ServerSimResult:
+    """Replay mixed Job arrivals through the serving runtime in virtual time.
+
+    Mirrors core/server.py's PipelineServer policy exactly — the same
+    Arbiter classes rank JobState records, intra-job scheduling follows
+    each stage's (technique, layout) with FIFO-head dependency gating and
+    rotating stage cursors (as in simulate_dag) — but against per-row cost
+    vectors (``Job.stage_costs``, else ``Stage.cost_of_range``, else unit)
+    instead of wall clocks, so arbiter policies and per-job configs can be
+    searched in milliseconds. ``jobs`` are Submissions or
+    core.server.Job records (both fine — this is the internal virtual-time
+    surface the auto-tuners drive with Jobs directly); ``arbiter`` is a
+    name in core.server.ARBITERS or an Arbiter instance (instances carry
+    accounting state — pass a name to get a fresh one).
+
+    The ``"preemptive"`` arbiter replays here too: park/resume
+    decisions happen at the same chunk boundaries the threaded server
+    sees (every ``order`` call), so preemption policies are tunable
+    offline; the virtual-time ``PreemptionEvent`` log lands in
+    ``ServerSimResult.preemptions``.
+    """
+    from .server import JobState, ServerTaskEvent, job_stage_costs, make_arbiter
+    from .submit import Submission
+    from .telemetry import as_tracer
+
+    tracer = as_tracer(tracer)
+    traced = tracer.enabled
+    jobs = [j.to_job() if isinstance(j, Submission) else j for j in jobs]
+    names = [j.name for j in jobs]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate job names in {names}")
+    arb = make_arbiter(arbiter, **(arbiter_kwargs or {}))
+    states = [JobState(job=j, seq=i, arrival=float(j.arrival_s))
+              for i, j in enumerate(jobs)]
+    ov = overheads
+
+    stages: dict[str, list[_SimStage]] = {}     # job -> topo-ordered stages
+    by_name: dict[str, dict[str, _SimStage]] = {}
+    job_left: dict[str, int] = {}
+    for j in jobs:
+        costs = job_stage_costs(j)
+        per = dict(j.per_stage or {})
+        jl = []
+        for n in j.dag.stage_names:
+            stage = j.dag.stages[n]
+            combo = _combo_of(per.get(n) or stage.config
+                              or ("STATIC", "CENTRALIZED", "SEQ"))
+            tech, layout, _ = combo
+            schedule = chunk_schedule(tech, stage.n_rows, n_workers, seed=seed)
+            jl.append(_SimStage(n, [(d.producer, d.kind) for d in stage.deps],
+                                schedule, costs[n], layout.upper()))
+        stages[j.name] = jl
+        by_name[j.name] = {st.name: st for st in jl}
+        job_left[j.name] = sum(len(st.chunks) for st in jl)
+        for st in jl:
+            if not st.chunks:
+                st.start = st.finish = 0.0
+
+    job_end = {j.name: 0.0 for j in jobs}
+    for js in states:
+        if job_left[js.job.name] == 0:
+            js.done, js.finish = True, js.arrival
+            job_end[js.job.name] = js.arrival
+
+    def head_ready(jname: str, st: _SimStage) -> float:
+        """Virtual time at which this stage's FIFO-head chunk is runnable."""
+        s, z = st.chunks[st.ptr]
+        rt = 0.0
+        for prod, kind in st.deps:
+            p = by_name[jname][prod]
+            if kind == "full":
+                rt = max(rt, p.finish)
+            else:
+                seg = p.row_time[s:s + z]
+                rt = max(rt, float(seg.max()) if len(seg) else 0.0)
+        return rt
+
+    heap: list[tuple[float, int]] = [(0.0, w) for w in range(n_workers)]
+    heapq.heapify(heap)
+    pending: list[int] = []
+    cursors: dict[tuple[int, int], int] = {}
+    busy = [0.0] * n_workers
+    events: list = []
+    queue_wait = 0.0
+    remaining = sum(job_left.values())
+
+    while remaining > 0:
+        if not heap:
+            raise RuntimeError("simulate_server: no runnable chunk but work "
+                               "remains (unsatisfiable dependency)")
+        t, w = heapq.heappop(heap)
+        admitted = [js for js in states if js.arrival <= t and not js.done]
+        taken = None
+        for js in arb.order(admitted, t):
+            jl = stages[js.job.name]
+            ns = len(jl)
+            cur = cursors.get((w, js.seq), w % ns)
+            for k in range(ns):
+                idx = (cur + k) % ns
+                st = jl[idx]
+                if st.ptr >= len(st.chunks):
+                    continue
+                if head_ready(js.job.name, st) <= t:
+                    taken = (js, idx, st)
+                    break
+            if taken is not None:
+                break
+        if taken is None:
+            # wake at the next event that can change runnability: an
+            # arrival, or an in-flight chunk completion gating some head
+            wakes = [js.arrival for js in states if js.arrival > t]
+            for js in states:
+                if js.done or js.arrival > t:
+                    continue
+                for st in stages[js.job.name]:
+                    if st.ptr < len(st.chunks):
+                        hr = head_ready(js.job.name, st)
+                        if math.isfinite(hr) and hr > t:
+                            wakes.append(hr)
+            if wakes:
+                heapq.heappush(heap, (min(wakes), w))
+            else:
+                pending.append(w)
+            continue
+        js, idx, st = taken
+        jname = js.job.name
+        cursors[(w, js.seq)] = (idx + 1) % len(stages[jname])
+        tid, s, z, cost, t_acc, t_end, wait = _pop_chunk(st, w, t, ov)
+        queue_wait += wait
+        arb.charge(js, cost, t_end)
+        events.append(ServerTaskEvent(
+            jname, js.job.tenant, st.name, tid, s, z, w, t_acc, t_end,
+            False, js.boosted, wait))
+        if traced:
+            tracer.record_raw("exec", jname, st.name, tid, w, t_acc, t_end,
+                              0, wait)
+        busy[w] += cost
+        job_left[jname] -= 1
+        remaining -= 1
+        job_end[jname] = max(job_end[jname], t_end)
+        if job_left[jname] == 0:
+            js.done = True
+            js.finish = job_end[jname]
+        heapq.heappush(heap, (t_end, w))
+        if pending:
+            for pw in pending:
+                heapq.heappush(heap, (t, pw))
+            pending.clear()
+
+    tenant_service: dict[str, float] = {}
+    for js in states:
+        tenant_service[js.job.tenant] = (
+            tenant_service.get(js.job.tenant, 0.0) + js.service)
+    finishes = {js.job.name: float(js.finish) for js in states}
+    arrivals = [js.arrival for js in states]
+    preemptions = list(getattr(arb, "preemption_log", []))
+    if traced:
+        for p in preemptions:
+            tracer.mark(p.kind, p.t, p.job, detail=p.reason)
+    return ServerSimResult(
+        makespan=(max(finishes.values()) - min(arrivals)) if states else 0.0,
+        job_finish=finishes,
+        job_latency={n: finishes[n] - a for n, a in
+                     zip([js.job.name for js in states], arrivals)},
+        tenant_service=tenant_service, per_worker_busy=busy,
+        events=events, queue_wait=queue_wait,
+        preemptions=preemptions)

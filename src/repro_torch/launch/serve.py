@@ -35,9 +35,15 @@ recommendation passes 4,096 x 64; three tenants, staggered arrivals, a
 deadline on the interactive tenant) on one host pool of ``--workers``
 threads under ``--arbiter`` (or all four with ``--compare``). The
 pipelines are the host DAGs, numpy on the host pool as in the reference,
-so the mode runs the same on the CPU and beside the card. ``--mode
-openloop`` (the admission front door) is the second half of ROADMAP A14
-and raises ``NotImplementedError``.
+so the mode runs the same on the CPU and beside the card.
+
+``--mode openloop`` replays a seeded heavy-tailed trace of ``--requests``
+arrivals at offered load ``--load`` on ``--workers`` virtual workers,
+FIFO against the front door (admission with a token bucket on the etl
+tenant, same-shape batching, ``--arbiter``), in virtual time on the host:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode openloop \
+        --requests 2000 --workers 8 --load 1.5
 """
 
 from __future__ import annotations
@@ -262,18 +268,53 @@ def serve_pipelines(args) -> dict:
     return runs
 
 
-def serve_openloop(args) -> None:
-    """Replay a heavy-tailed open-loop trace through the admission front
-    door: the second half of ROADMAP A14, not ported yet."""
-    raise NotImplementedError(
-        "--mode openloop needs the admission front door (TokenBucket, "
-        "AdmissionController, replay_open_loop), which is not ported yet "
-        "(ROADMAP A14, second half)")
+def serve_openloop(args) -> dict:
+    """Replay a heavy-tailed open-loop trace through the front door.
+
+    ``heavy_tailed_trace(--requests, seed=3, load=--load, n_workers=
+    --workers)`` through a FIFO baseline, then through the front door:
+    ``--arbiter``, the etl tenant's ``TokenBucket(400, 20)``,
+    ``BatchPolicy(2e-3, 8)`` and a ``FeedbackLog`` shared by admission
+    and the replay. Virtual time on the host, no device work. Prints the
+    reference's summary lines and writes ``--trace-out`` /
+    ``--metrics-out`` of the front door's replay. Returns
+    ``{"fifo baseline": OpenLoopResult, "front door": OpenLoopResult}``.
+    """
+    from ..core import (
+        AdmissionController, BatchPolicy, TokenBucket, heavy_tailed_trace,
+        replay_open_loop)
+    from ..core.online import FeedbackLog
+
+    trace = heavy_tailed_trace(args.requests, seed=3, load=args.load,
+                               n_workers=args.workers)
+    base = replay_open_loop(trace, n_workers=args.workers, arbiter="fifo")
+    fb = FeedbackLog()
+    adm = AdmissionController(
+        buckets={"etl": TokenBucket(rate=400.0, capacity=20)}, feedback=fb)
+    kwargs = ({"inner": "fair", "n_workers": args.workers,
+               "slack_s": args.slack}
+              if args.arbiter == "preemptive" else None)
+    tracer, metrics = _telemetry(args)
+    front = replay_open_loop(trace, n_workers=args.workers,
+                             arbiter=args.arbiter, arbiter_kwargs=kwargs,
+                             admission=adm,
+                             batching=BatchPolicy(2e-3, 8), feedback=fb,
+                             tracer=tracer, metrics=metrics)
+    runs = {"fifo baseline": base, "front door": front}
+    for tag, r in runs.items():
+        preempt = f" preemptions={len(r.preemptions)}" if r.preemptions else ""
+        print(f"[serve:openloop] {tag}: p50={r.latency_percentile(50) * 1e3:.2f}ms "
+              f"p99={r.latency_percentile(99) * 1e3:.2f}ms "
+              f"p99.9={r.latency_percentile(99.9) * 1e3:.2f}ms "
+              f"hit={r.deadline_hit_rate():.3f} shed={r.shed_rate:.3f} "
+              f"batches={r.n_batches}{preempt}", flush=True)
+    _dump_telemetry(args, tracer, metrics)
+    return runs
 
 
 def main(argv: list[str] | None = None):
-    """Entry point: LM serving, or multi-tenant pipeline serving. Returns
-    what the mode's function returns."""
+    """Entry point: LM serving, multi-tenant pipeline serving, or the
+    open-loop front door. Returns what the mode's function returns."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["lm", "pipelines", "openloop"], default="lm")
     ap.add_argument("--arch", default="granite-8b")
@@ -289,9 +330,11 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--config", default="gss/percore",
                     help="technique[/layout[/victim]] registry spec for "
                          "--mode pipelines (core.make_config)")
+    ap.add_argument("--load", type=float, default=1.5,
+                    help="offered-load factor for --mode openloop")
     ap.add_argument("--arbiter", default="fair",
                     choices=["fifo", "priority", "fair", "preemptive"],
-                    help="inter-job policy for --mode pipelines")
+                    help="inter-job policy for --mode pipelines/openloop")
     ap.add_argument("--slack", type=float, default=0.5,
                     help="deadline-pressure slack (s) for --arbiter preemptive")
     ap.add_argument("--workers", type=int, default=4,
@@ -300,10 +343,10 @@ def main(argv: list[str] | None = None):
                     help="pipelines mode: run all four arbiters")
     ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
                     help="write a Chrome/Perfetto trace of the run "
-                         "(--mode pipelines)")
+                         "(pipelines/openloop modes)")
     ap.add_argument("--metrics-out", default=None, metavar="METRICS.json",
                     help="write a metrics snapshot as JSON plus a .prom "
-                         "Prometheus-text sibling (--mode pipelines)")
+                         "Prometheus-text sibling (pipelines/openloop modes)")
     args = ap.parse_args(argv)
     if args.mode == "pipelines":
         return serve_pipelines(args)

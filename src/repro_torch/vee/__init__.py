@@ -27,7 +27,13 @@ from .apps import (
     run_device_dag,
 )
 from .engine import VEE, PipelineResult
-from .ml_apps import moe_device_lowering, moe_dispatch_lowering, skewed_tokens
+from .ml_apps import (
+    moe_device_lowering,
+    moe_dispatch_lowering,
+    serving_pair,
+    skewed_tokens,
+    transformer_step_lowering,
+)
 from .sparse import CSRMatrix, replicated_graph, rmat_graph
 
 __all__ = [
@@ -41,5 +47,6 @@ __all__ = [
     "linear_regression_device", "recommendation_device_lowering",
     "recommendation_device", "linear_regression_hetero",
     "recommendation_hetero", "hetero_affinity_dag",
-    "moe_dispatch_lowering", "moe_device_lowering", "skewed_tokens",
+    "transformer_step_lowering", "moe_dispatch_lowering",
+    "moe_device_lowering", "skewed_tokens", "serving_pair",
 ]

@@ -1,5 +1,5 @@
-"""MoE expert dispatch on DaphneSched (the port of ``vee/ml_apps.py``'s MoE
-lowerings).
+"""Model-zoo lowerings on DaphneSched: MoE expert dispatch, one dense LM
+step and a two-model serving pair (the port of ``vee/ml_apps.py``).
 
 ``moe_dispatch_lowering`` lowers one MoE layer's expert dispatch into an
 irregular fan-out pipeline: ``route`` (rows = tokens; per-token top-k over
@@ -20,10 +20,13 @@ the host ``experts`` stage bit for bit. The CUDA body sums in another order
 
 Host DAG ops run on the CPU, whatever device the weights lie on (they copy
 the weights to the host on first use); the walker's values lie on the
-lowering's device. ``transformer_step_lowering`` needs the model stack's
-lowering and waits (ROADMAP A11); ``serving_pair``, two such lowerings
-served through the front door, is the second half of ROADMAP A14 and
-raises ``NotImplementedError`` naming it.
+lowering's device.
+
+``transformer_step_lowering`` lowers one inference step of a dense LM
+(embed -> N x block -> head over the batch rows) whose per-row functions
+run the port's model on the lowering's device, and ``serving_pair``
+serves two such lowerings, placed across substrates on their transfer
+costs, on one ``PipelineServer`` pool.
 """
 
 from __future__ import annotations
@@ -39,16 +42,110 @@ import torch.nn.functional as F
 from ..configs import get_config
 from ..configs.base import ArchConfig
 from ..core.dag import DEP_FULL, PipelineDAG, Stage, StageDep
-from ..core.lower import Lowered, costs_from_sizes, fanout_stage
+from ..core.lower import (Lowered, chain_dag, costs_from_sizes, fanout_stage,
+                          measure_stage_costs)
 from ..kernels.dag_walk import WalkOperand, WalkStage
+from ..models import blocks
+from ..models.model import Model
 from ..models.moe import NEG_INF, init_moe
 from .apps import DeviceLowering
 
 __all__ = [
-    "skewed_tokens", "moe_dispatch_lowering", "moe_dispatch_lowering_for",
-    "moe_device_lowering", "moe_params_from_reference", "expert_tile",
-    "serving_pair",
+    "transformer_step_lowering", "skewed_tokens", "moe_dispatch_lowering",
+    "moe_dispatch_lowering_for", "moe_device_lowering",
+    "moe_params_from_reference", "expert_tile", "serving_pair",
 ]
+
+
+# ---------------------------------------------------------------------------
+# (a) transformer inference step: embed -> N x block -> head over the batch
+# ---------------------------------------------------------------------------
+
+def transformer_step_lowering(
+    arch: str = "qwen2-0.5b",
+    batch: int = 8,
+    seq: int = 12,
+    seed: int = 0,
+    params: dict | None = None,
+    tokens=None,
+    device: str | torch.device = "cuda",
+) -> Lowered:
+    """Lower one inference step of a dense LM into a streamed stage chain.
+
+    Rows are batch elements. Stage ``embed`` turns a token row into
+    ``(seq, d)`` activations, ``block{l}`` applies layer ``l``, ``head``
+    produces last-position logits ``(padded vocab,)``. Each per-row
+    function runs the model's own components on one row (batch 1, fixed
+    shapes) on ``device``; activations cross stage boundaries as float32
+    numpy rows (bf16 -> f32 -> bf16 round-trips exactly), as in the
+    reference, so the lowered step is bit-equal to the direct
+    (unscheduled) composition of the same functions on the same device.
+
+    The config is ``get_config(arch).reduced()``, dense archs only.
+    ``params`` (the reference's, through ``model_params_from_reference``)
+    and ``tokens`` (``(batch, seq)`` int32) replace the weights and prompt
+    drawn from a ``torch.Generator`` on ``device`` seeded by ``seed``.
+    """
+    cfg = get_config(arch).reduced()
+    if cfg.family != "dense":
+        raise ValueError(f"transformer_step_lowering needs a dense arch, "
+                         f"got {arch!r} ({cfg.family})")
+    device = torch.device(device)
+    model = Model(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    if params is None:
+        params = model.init_params(gen, device)
+    if tokens is None:
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                               device=device, dtype=torch.int32)
+    if isinstance(tokens, torch.Tensor):
+        tokens = tokens.cpu().numpy()
+    tokens = np.array(tokens, np.int32)
+    if tokens.shape != (batch, seq):
+        raise ValueError(f"tokens of shape {tokens.shape}, expected "
+                         f"{(batch, seq)}")
+    positions = torch.arange(seq, device=device)
+
+    def _row(x) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(x)).to(device)
+
+    def _embed1(tok):
+        x = model._embed_inputs(params, {"tokens": _row(tok)[None]})
+        return x[0].float().cpu().numpy()
+
+    def _make_block(layer):
+        lp = params["layers"][layer]
+
+        def _block1(x):
+            y, _, _ = blocks.apply_dense_layer(
+                lp, _row(x).to(torch.bfloat16)[None], cfg, positions=positions,
+                impl="full", cache=None, cache_index=None)
+            return y[0].float().cpu().numpy()
+        return _block1
+
+    def _head1(x):
+        logits = model._logits(params, _row(x).to(torch.bfloat16)[None, -1:])
+        return logits[0, 0].float().cpu().numpy()
+
+    steps = [("embed", lambda _prev, r: _embed1(tokens[r]))]
+    for layer in range(cfg.n_layers):
+        steps.append((f"block{layer}",
+                      lambda prev, _r, _bf=_make_block(layer): _bf(prev)))
+    steps.append(("head", lambda prev, _r: _head1(prev)))
+
+    dag = chain_dag(batch, steps)
+    stage_costs = {"embed": np.full(batch, 1.0), "head": np.full(batch, 2.0)}
+    for layer in range(cfg.n_layers):
+        stage_costs[f"block{layer}"] = np.full(batch, 4.0)
+
+    def finalize(values):
+        return np.asarray(values["head"])  # (batch, vocab_padded) f32
+
+    return Lowered(dag, stage_costs, finalize,
+                   meta={"model": model, "params": params, "tokens": tokens,
+                         "cfg": cfg, "arch": arch, "seq": seq,
+                         "device": device})
 
 
 def skewed_tokens(router_w: np.ndarray, n_tokens: int, skew: float = 1.2,
@@ -349,9 +446,67 @@ def moe_device_lowering(low: Lowered) -> DeviceLowering:
     return DeviceLowering(dag, stages, operands, values, cap, finalize)
 
 
-def serving_pair(archs=("qwen2-0.5b", "granite-8b"), *args, **kwargs):
-    """Serve two models' transformer-step lowerings through the front
-    door: not ported yet."""
-    raise NotImplementedError(
-        "serving_pair needs the serving front door (ROADMAP A14, second "
-        "half) and transformer_step_lowering (ROADMAP A11)")
+# ---------------------------------------------------------------------------
+# (c) two-model serving pair: Submissions + placement on real costs
+# ---------------------------------------------------------------------------
+
+def serving_pair(
+    archs: tuple[str, str] = ("qwen2-0.5b", "granite-8b"),
+    batch: int = 4,
+    seq: int = 8,
+    seed: int = 0,
+    n_workers: int = 2,
+    n_device: int = 1,
+    device_speedup: float = 4.0,
+    measured: bool = False,
+    params: dict | None = None,
+    tokens: dict | None = None,
+    device: str | torch.device = "cuda",
+):
+    """Serve two models' transformer steps through one shared pool.
+
+    Builds a ``transformer_step_lowering`` per arch on ``device`` (arch
+    ``i`` seeded ``seed + i``; ``params`` / ``tokens``, dicts by arch,
+    replace its draws), derives hetero cost models — host costs measured
+    from the real stage ops when ``measured`` (virtual otherwise), device
+    costs scaled by ``device_speedup``, and a ``TransferModel`` fed the
+    REAL activation byte sizes each edge moves (``seq * d_model * 4``
+    bytes per row; ``vocab * 4`` for the head) — solves placement per
+    model, and serves both submissions on one ``PipelineServer`` pool of
+    ``n_workers`` host workers and ``n_device`` lanes. The submissions
+    carry no lowering for the walker, so a lane runs the stage's own row
+    functions. Returns ``(results, subs, placements, lows)`` where
+    ``results[arch]`` is the finalized logits, which the caller holds
+    bit-equal to ``lows[i].run_direct()``.
+    """
+    from ..core.placement import HeteroCostModel, TransferModel, select_placement
+    from ..core.registry import make_config
+    from ..core.server import PipelineServer
+
+    lows, subs, placements = [], [], {}
+    for i, arch in enumerate(archs):
+        low = transformer_step_lowering(
+            arch, batch=batch, seq=seq, seed=seed + i,
+            params=(params or {}).get(arch), tokens=(tokens or {}).get(arch),
+            device=device)
+        cfg = low.meta["cfg"]
+        host = (measure_stage_costs(low.dag, sample=2) if measured
+                else {k: v.astype(np.float64) for k, v in low.stage_costs.items()})
+        dev_costs = {k: v / device_speedup for k, v in host.items()}
+        bytes_per_row = {name: float(seq * cfg.d_model * 4)
+                         for name in low.dag.stage_names}
+        bytes_per_row["head"] = float(cfg.vocab_size * 4)
+        costs = HeteroCostModel(host=host, device=dev_costs,
+                                transfer=TransferModel(bytes_per_row=bytes_per_row))
+        pl, _het_ms, _pure = select_placement(low.dag, costs, n_workers)
+        placements[arch] = pl
+        lows.append(low)
+        subs.append(low.submission(name=arch, tenant=arch, placement=pl,
+                                   stage_costs=host))
+
+    server = PipelineServer(make_config("gss/percore", n_workers=n_workers),
+                            arbiter="fair", n_device=n_device)
+    served = server.serve(subs)
+    results = {arch: low.value(served.jobs[arch].values)
+               for arch, low in zip(archs, lows)}
+    return results, subs, placements, lows

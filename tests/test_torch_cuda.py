@@ -1490,3 +1490,51 @@ def test_server_all_device_job_is_its_solo_hetero_run(cuda):
     for k in names:
         _close_linreg(res.jobs["placed"].values[k], solo.values[k], k)
     _beta_close(low.finalize(res.jobs["placed"].values), low.finalize(solo.values))
+
+def test_front_door_placed_job_walks_k1(cuda):
+    """A placed submission with its cuda lowering goes through the front
+    door unbatched; the server's lane walks its rows on K1, beta within the
+    smoke's 1e-2 of the walk's, while the same-shape host members beside
+    it coalesce and stay bitwise their one-worker SS runs."""
+    from repro_torch.core import (AdmissionController, BatchPolicy, FrontDoor,
+                                  PipelineExecutor, Placement, Submission, Tracer)
+
+    low = tapps.linreg_device_lowering(8192, 33, tile=64, device=cuda)
+    names = low.dag.stage_names
+    placed = Submission(dag=low.dag, name="placed", tenant="ml",
+                        placement=Placement.all_device(names),
+                        per_stage={n: ("SS", "CENTRALIZED", "SEQ") for n in names},
+                        lowering=low)
+    members = [Submission(dag=tapps.recommendation_dag(512, 32, seed=s), name=f"rec{s}",
+                          tenant="interactive", arrival_s=1e-4 * s) for s in (1, 2, 3)]
+    tracer = Tracer()
+    before = _build.DAG_WALK.launches["walk_linreg"]
+    res = FrontDoor(SchedulerConfig(technique="SS", n_workers=4),
+                    admission=AdmissionController(), batching=BatchPolicy(5e-3, 8),
+                    tracer=tracer).serve(members + [placed])
+    launches = _build.DAG_WALK.launches["walk_linreg"] - before
+    srv = res.server_result
+    assert sorted(srv.jobs) == ["batch1(rec1x3)", "placed"] and res.n_batches == 1
+    lane = {(e.job, e.stage, e.task_id) for e in srv.events
+            if e.worker >= 4 and e.job == "placed"}
+    assert lane and 1 <= launches <= len(lane)
+    assert {(s.job, s.stage, s.chunk) for s in tracer.spans()
+            if s.kind == "exec" and s.device} == lane
+    walked, _ = tapps.run_device_dag(low)
+    _beta_close(low.finalize(res.jobs["placed"].values), low.finalize(walked))
+    for m in members:
+        solo = PipelineExecutor(m.dag, SchedulerConfig(technique="SS", n_workers=1)).run()
+        for k, want in solo.values.items():
+            assert np.array_equal(np.asarray(res.jobs[m.name].values[k]),
+                                  np.asarray(want)), (m.name, k)
+
+
+def test_serving_pair_on_the_card_is_its_direct_composition(cuda):
+    """Both models' steps run their per-row functions on the card, on the
+    shared pool's threads and lanes: the logits are bitwise the direct
+    composition of the same functions on the same rows."""
+    results, subs, placements, lows = tml.serving_pair(device=cuda)
+    for arch, low in zip(results, lows):
+        assert low.meta["device"].type == "cuda"
+        assert np.isfinite(results[arch]).all()
+        assert np.array_equal(results[arch], low.run_direct()), arch

@@ -161,10 +161,12 @@ def test_serve_lm_matches_reference_loop(prompt_len, capsys):
 def test_serve_main_on_the_cpu(capsys):
     tserve.main(["--smoke", "--device", "cpu", "--requests", "3", "--gen-len", "2"])
     assert "[serve] 3 requests x 2 tokens" in capsys.readouterr().out
-    # --mode pipelines is ported (tests/test_torch_server.py); the open-loop
-    # front door is the second half of A14
-    with pytest.raises(NotImplementedError, match="A14"):
-        tserve.main(["--mode", "openloop", "--device", "cpu"])
+    # --mode pipelines and openloop run on the host (tests/test_torch_server.py,
+    # tests/test_torch_admission.py): a short open-loop replay
+    runs = tserve.main(["--mode", "openloop", "--device", "cpu", "--requests", "120"])
+    assert list(runs) == ["fifo baseline", "front door"]
+    assert runs["front door"].n_jobs == 120
+    assert "[serve:openloop] front door: p50=" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------

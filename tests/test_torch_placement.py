@@ -196,9 +196,18 @@ def test_select_placement_bitwise(which):
         assert {tp[n].substrate for n in td.stage_names} == {tpl.HOST, tpl.DEVICE}
 
 
-def test_replay_online_hetero_refuses():
-    with pytest.raises(NotImplementedError, match="A14"):
-        tpl.replay_online_hetero(None, None, None, 1)
+def test_replay_online_hetero_on_the_affinity_dag():
+    """The substrate bandit's replay over the mixed-affinity DAG and its own
+    cost model: the same rounds as the reference's, to the bit."""
+    out = []
+    for apps, online, pl in ((tapps, tonline, tpl), (japps, jonline, jpl)):
+        dag, costs = apps.hetero_affinity_dag(512)
+        sched = online.OnlineScheduler(arms=online.default_hetero_arms(),
+                                       resize=False, seed=3)
+        hist = pl.replay_online_hetero(dag, costs, sched, rounds=24, n_workers=8)
+        out.append(([tuple(vars(r).values()) for r in hist],
+                    sched.best_combos(list(dag.stage_names))))
+    assert out[0] == out[1]
 
 
 def test_default_hetero_arms_equal_reference():

@@ -27,8 +27,6 @@ from repro.core import registry as jreg
 from repro.core import server as jsrv
 from repro.core import submit as jsub
 from repro.launch import serve as jserve
-from repro_torch.core import admission as tadm
-from repro_torch.core import autotune as ttune
 from repro_torch.core import dag as tdag
 from repro_torch.core import executor as texec
 from repro_torch.core import hetero as thet
@@ -36,12 +34,10 @@ from repro_torch.core import placement as tpl
 from repro_torch.core import preempt as tpre
 from repro_torch.core import registry as treg
 from repro_torch.core import server as tsrv
-from repro_torch.core import simulator as tsim
 from repro_torch.core import submit as tsub
 from repro_torch.core import telemetry as ttel
 from repro_torch.launch import serve as tserve
 from repro_torch.vee import apps as tapps
-from repro_torch.vee import ml_apps as tml
 
 # float sums of the mixed set's host DAGs (float64 numpy) folded in
 # another order, of the stage's largest |entry|
@@ -428,28 +424,3 @@ def test_serve_one_arbiter_untraced(capsys):
     assert list(runs) == ["priority"]
     assert runs["priority"][2] is None and runs["priority"][3] is None
     assert "critical path" not in capsys.readouterr().out
-
-
-# ------------------------------------------ the second half of A14 refuses
-
-REFUSALS = [
-    lambda: tserve.main(["--mode", "openloop", "--workers", "2"]),
-    lambda: tadm.TokenBucket(rate=1.0, capacity=2),
-    lambda: tadm.AdmissionController(),
-    lambda: tadm.AutoscalePolicy(),
-    lambda: tadm.replay_open_loop([]),
-    lambda: tadm.heavy_tailed_trace(8),
-    lambda: tadm.FrontDoor(None),
-    lambda: tsim.simulate_server([]),
-    lambda: tpl.replay_online_hetero(None, None, None, 1),
-    lambda: ttune.select_offline_hetero(None, None),
-    lambda: ttune.tune_online_hetero(None, None),
-    lambda: ttune.select_offline_server([]),
-    lambda: tml.serving_pair(),
-]
-
-
-@pytest.mark.parametrize("k", range(len(REFUSALS)))
-def test_second_half_of_a14_refuses(k):
-    with pytest.raises(NotImplementedError, match="A14"):
-        REFUSALS[k]()

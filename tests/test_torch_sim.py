@@ -264,9 +264,28 @@ def test_stats_from_events_matches_reference_on_one_timeline():
     assert raw == [(e.stage, e.t_end - e.t_start, e.wait_s) for e in events]
 
 
-def test_simulate_server_refuses():
-    with pytest.raises(NotImplementedError, match="A14"):
-        tsim.simulate_server([])
+def test_simulate_server_on_submissions_bitwise():
+    """Submissions in (the front door's surface) and the reference's
+    per-job replay out, every simulated chunk included."""
+    from repro.core import submit as jsub
+    from repro_torch.core import submit as tsub
+
+    out = []
+    for dag_mod, sub_mod, sim in ((tdag, tsub, tsim), (jdag, jsub, jsim)):
+        subs = []
+        for k, spec in enumerate((CC_LIKE, LINREG_LIKE)):
+            dag = dag_mod.PipelineDAG([
+                dag_mod.Stage(name, 96, _noop, combine=comb,
+                              deps=tuple(dag_mod.StageDep(p, kd) for p, kd in deps))
+                for name, comb, deps in spec])
+            subs.append(sub_mod.Submission(
+                dag=dag, name=f"j{k}", tenant=f"t{k}", arrival_s=1e-4 * k,
+                stage_costs=_stage_costs(dag.stage_names, 96, seed=k)))
+        res = sim.simulate_server(subs, n_workers=3, arbiter="fair", seed=1)
+        out.append((res.makespan, res.job_finish, res.tenant_service,
+                    res.per_worker_busy, [tuple(vars(e).values()) for e in res.events]))
+    assert out[0] == out[1]
+    assert set(out[0][1]) == {"j0", "j1"}
 
 
 # ------------------------------------------------------- offline searches
@@ -310,14 +329,6 @@ def test_select_offline_device_dag_bitwise(shards):
     assign, best, uniform = got
     assert set(assign) == {"prop", "chk"}
     assert best <= min(uniform.values()) + 1e-12
-
-
-def test_refusals_name_their_item():
-    for fn, args in ((ttune.select_offline_hetero, (None, None)),
-                     (ttune.tune_online_hetero, (None, None)),
-                     (ttune.select_offline_server, ([],))):
-        with pytest.raises(NotImplementedError, match="A14"):
-            fn(*args)
 
 
 # --------------------------------------------------- online, virtual time
