@@ -51,9 +51,15 @@ super-table walker kernel and the DLS-scheduled CC step — at real sizes:
   parameters, 27.0 GB fp32), each at full size with Granite's traffic,
   their prefills through K6 (rwkv6_scan) and K5 (ssm_scan) and K4 at
   dh 112;
-* K4 at DeepSeek-V2-Lite's MLA widths (q and k 192, v 128, 16 heads) over
-  4 x 2,048 tokens of bf16 randn, through ``chunked_attention`` (no model
-  path sends a value width unlike the key width yet).
+* LM serving of Qwen1.5-MoE-A2.7B (24 layers of MHA, 16 heads x 128, and
+  an MoE block of 60 routed experts, top-4, d_ff_expert 1,408, plus 4
+  shared; vocab 151,936; 14.32 B parameters, 57.27 GB fp32) and of
+  DeepSeek-V2-Lite (27 layers of MLA, 16 heads, q and k 192, v 128, kv
+  rank 512; layer 0 a dense FFN of 10,944, layers 1-26 MoE of 64 routed
+  experts, top-6, plus 2 shared; vocab 102,400; 15.71 B parameters, 62.83
+  GB fp32), each at full size with Granite's traffic, after Zamba2's with
+  everything before freed, their prefill attention through K4 at (128,
+  128) and at MLA's (192, 128).
 
 Phases, each printed as one JSON line with its seconds: environment, build
 of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
@@ -93,18 +99,25 @@ launches and no other; ``--arch zamba2-7b``: exactly 81 x 6 = 486 K5 and
 13 x 6 = 78 K4 launches at dh 112), each scan held to its float64 oracle
 and its plain version, output and final state, on the served call's own
 inputs and on randn (fast decay for K6), and K4 at dh 112 to its float64
-oracle. K5 and K6 run split TF32 on the tensor cores in two launches a
-call (counted once): each one's row gives the device ms of both by
-``torch.profiler`` and requires the profiler to record the two launches a
-call, requires a tensor-core instruction (HMMA) in the SASS of each of its
-kernels, and takes the least bound over chunk lengths and over two routes,
-fp32 FMA and split TF32; the serving line gives the design's own bytes,
-reckoned from the shapes. K2's row gives its device ms too. The rows of
-the kernels redesigned since their
-first port carry ``redesigned: true`` (``REDESIGNED``). Each phase
-frees its weights before the next draws its own. TF32
-is off for every check and time (``allow_tf32 = False``), so library
-calls run in full fp32. Any failed
+oracle; then the two MoE serving paths (``--arch qwen2-moe-a2.7b``:
+exactly 24 x 6 = 144 K4 launches; ``--arch deepseek-v2-lite-16b``: 27 x 6
+= 162 at (192, 128), v the view ``kv[..., 128:]`` read in place), each
+config's widths, MoE and MLA sub-configs and parameter counts checked,
+nothing launched in decode, the first batch's logits through K4 against
+K4's plain version, and K4 alone on the served call's own q, k, v and on
+randn against its float64 oracle and plain version. K5 and K6 run split
+TF32 on the tensor cores in two launches a call (counted once): each
+one's row gives the device ms of both by ``torch.profiler`` and requires
+the profiler to record the two launches a call, requires a tensor-core
+instruction (HMMA) in the SASS of each of its kernels, and takes the
+least bound over chunk lengths and over two routes, fp32 FMA and split
+TF32; the serving line gives the design's own bytes, reckoned from the
+shapes. K2's and K4's rows give their device ms too. The rows of the
+kernels redesigned since their first port carry ``redesigned: true``
+(``REDESIGNED``). Each phase frees its weights before the next draws its
+own. TF32 is off for every check and time (``allow_tf32 = False``), so
+library calls run in full fp32, and so are cuBLAS's reduced-precision
+bf16 reductions: a bf16 product sums in fp32 and rounds once. Any failed
 check exits non-zero. Without a CUDA device, or without the
 repository around it, the script fails and prints no result.
 """
@@ -218,6 +231,16 @@ LOGIT_TOL = 0.10
 RWKV_SERVE = dict(SERVE, arch="rwkv6-3b")
 ZAMBA_SERVE = dict(SERVE, arch="zamba2-7b")
 RWKV_LAYERS, ZAMBA_MAMBA_LAYERS, ZAMBA_SUPER_BLOCKS = 32, 81, 13
+# LM serving of the two MoE families, at full size, with the same traffic:
+# Qwen1.5-MoE-A2.7B (24 layers: one K4 launch each, dh 128) and
+# DeepSeek-V2-Lite (27 layers of MLA: one K4 launch each at (192, 128)).
+# Their (all, active) parameter counts are the reference's count_params /
+# count_active_params.
+QWEN_MOE_SERVE = dict(SERVE, arch="qwen2-moe-a2.7b")
+DEEPSEEK_SERVE = dict(SERVE, arch="deepseek-v2-lite-16b")
+QWEN_MOE_LAYERS, DEEPSEEK_LAYERS = 24, 27
+QWEN_MOE_PARAMS = (14_316_259_328, 2_689_648_640)
+DEEPSEEK_PARAMS = (15_706_484_224, 2_661_150_208)
 # K5 and K6 against a float64 oracle of the same recurrence, per entry.
 # Let M be the entry's sum of |terms| (the oracle run on |inputs|: every
 # gate and decay is positive) and c the largest |chunk-end cumsum| of the
@@ -236,6 +259,9 @@ SCAN_ROUNDINGS = 3
 # Launches of a small kernel that open each profiler session of
 # `kernel_device_ms`, in the places whose records the profiler drops
 PROFILE_FILLER = 1000
+# K4's kernels in the profiler's records (flash_wgmma for bf16, flash_fwd
+# for fp32)
+K4_NAMES = ("flash_",)
 # H100 SXM special-function units: 16 results (expf's ex2) a clock per SM,
 # 132 SMs at 1.98 GHz (the clock that gives PEAK_FP32)
 PEAK_SFU = 132 * 16 * 1.98e9
@@ -270,6 +296,103 @@ MIGRATIONS = (
     ("recommendation", "host_to_device", 256),
     ("recommendation", "device_to_host", 2 * REC_UNITS - 256),
 )
+
+
+# MoE routing between two runs of one model whose arithmetic differs by
+# rounding (K4 against its plain version on the card; the port against the
+# reference on the CPU, tests/test_torch_moe_layer.py). Where two router
+# logits nearly tie, the runs can pick different experts at a position,
+# whose output then differs by a whole expert, and the difference grows
+# through the later layers. ``routing_flips`` holds every logit of one run
+# within what the two router inputs' difference explains: |dx| @ |W|, plus
+# one bf16 ulp of each run's logit (its rounding), plus 2 d eps32 |x| @ |W|
+# (the two runs' fp32 sums over d terms; the smoke turns off cuBLAS's
+# reduced-precision bf16 reductions, so a product sums in fp32 and rounds
+# once). A position whose expert set differs is a flip on a near tie when
+# the other run's k-th and (k+1)-th logits lie within TIE_ULPS bf16 ulps
+# of the larger, or within those two experts' bounds; a position whose set
+# agrees and only its capacity drop differs follows from a flip before it
+# in the (T*k) capacity count. Anything else fails.
+TIE_ULPS = 2
+
+
+def bf16_ulp(t):
+    """The spacing of bf16 values at magnitude |t| (8 significant bits)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def kept_slots(idx, cap: int):
+    """The capacity rule on ``idx (T, k)``: a slot is kept when fewer than
+    ``cap`` slots of its expert come before it in t-major order."""
+    import torch
+    import torch.nn.functional as F
+
+    flat = idx.reshape(-1).long()
+    pos = torch.cumsum(F.one_hot(flat), dim=0).gather(1, flat[:, None])[:, 0] - 1
+    return (pos < cap).reshape(idx.shape)
+
+
+def routing_flips(ref: tuple, got: tuple, router, moe) -> dict:
+    """One MoE call's routing in two runs: ``ref`` ``(x, logits, idx)``
+    (its router input, float32 logits and expert indices), ``got``
+    ``(x, idx)``; ``router`` the call's weights. Returns the positions
+    (flattened ``b * S + s``) of near-tie flips and of capacity-only
+    differences, the worst share of its bound a logit moved by, and
+    ``unexplained``, the positions no rounding explains (empty when all
+    is well)."""
+    import torch
+
+    ref_x, ref_logits, ref_idx = ref
+    got_x, got_idx = got
+    ref_idx, got_idx = ref_idx.long(), got_idx.long()
+    w = router.to(torch.bfloat16)
+    w_abs = w.float().abs()
+    got_logits = (got_x.to(torch.bfloat16) @ w).float()
+    bound = ((got_x.float() - ref_x.float()).abs() @ w_abs
+             + bf16_ulp(got_logits) + bf16_ulp(ref_logits)
+             + 2 * w.shape[0] * EPS32 * (ref_x.float().abs() @ w_abs))
+    share = float(((got_logits - ref_logits).abs() / bound).max())
+    t, k = ref_idx.shape
+    cap = max(1, math.ceil(k * t * moe.capacity_factor / (moe.n_routed_padded or moe.n_routed)))
+    sets_differ = (ref_idx.sort(1).values != got_idx.sort(1).values).any(1)
+    ref_kept = torch.where(kept_slots(ref_idx, cap), ref_idx, -1).sort(1).values
+    got_kept = torch.where(kept_slots(got_idx, cap), got_idx, -1).sort(1).values
+    capacity = (ref_kept != got_kept).any(1) & ~sets_differ
+    order = torch.sort(ref_logits, dim=1, descending=True, stable=True).indices
+    a = ref_logits.gather(1, order[:, k - 1:k])[:, 0]
+    b = ref_logits.gather(1, order[:, k:k + 1])[:, 0]
+    pair = bound.gather(1, order[:, k - 1:k])[:, 0] + bound.gather(1, order[:, k:k + 1])[:, 0]
+    explained = ((a - b) / bf16_ulp(torch.maximum(a.abs(), b.abs())) <= TIE_ULPS) \
+        | (a - b <= pair)
+    near_tie = torch.nonzero(sets_differ).flatten()
+    cap_pos = torch.nonzero(capacity).flatten()
+    early = cap_pos[cap_pos < near_tie.min()] if near_tie.numel() else cap_pos
+    bad = (sets_differ & ~explained) | ((got_logits - ref_logits).abs() > bound).any(1)
+    unexplained = sorted(set(torch.nonzero(bad).flatten().tolist()) | set(early.tolist()))
+    return dict(near_tie=near_tie.tolist(), capacity=cap_pos.tolist(), worst_share=share,
+                unexplained=unexplained)
+
+
+@contextlib.contextmanager
+def route_log():
+    """Record each ``models/moe.py:_route`` call of the port: its router
+    input, expert indices and router weights, in call order."""
+    from unittest import mock
+
+    from repro_torch.models import moe as moe_module
+
+    calls = []
+    route = moe_module._route
+
+    def spy(router_w, x_flat, moe):
+        out = route(router_w, x_flat, moe)
+        calls.append((x_flat, out[0], router_w))
+        return out
+
+    with mock.patch.object(moe_module, "_route", spy):
+        yield calls
 
 
 def emit(phase: str, **fields) -> None:
@@ -1692,80 +1815,89 @@ def k4_check(dev, cases: dict, tile_k: int) -> dict:
     return checks
 
 
-def k4_mla_phase(dev) -> dict:
-    """K4 at DeepSeek-V2-Lite's MLA widths (q and k 192 = nope 128 + rope
-    64, v 128; 16 heads), 4 x 2,048 tokens of bf16 randn (seed 4), causal,
-    driven through ``chunked_attention`` as a model would call it, against
-    its float64 oracle and plain version. No model path sends dv != dh yet
-    (MLA waits for ROADMAP A11.2). Returns K4's (192, 128) row."""
+def logits_vs_plain_k4(dev, res, serve: dict, logits_k) -> tuple:
+    """The first batch's last-position logits through K4 (``logits_k``,
+    from ``serve_checked``) against the same weights and prompts through
+    K4's plain version: fails beyond LOGIT_TOL of the largest |logit|.
+
+    In an MoE model the two attentions' fp32 roundings flip bf16 roundings
+    downstream, and where a router's logits nearly tie, an expert: at full
+    width such flips reach a few percent of the positions a layer and
+    compound over the layers (PERF.md §6), a discrete difference
+    that is not K4's. So there the K4 prefill runs again routed as the
+    plain one routed (its own router's probabilities at the plain run's
+    experts), and its logits are the ones held to LOGIT_TOL; the unforced
+    K4 prefill's routing must differ from the plain one's only where
+    rounding explains it (``routing_flips``), and its logits' error and
+    flips are reported. Returns the error, the scale, the greedy tokens'
+    agreement and the routing's numbers (None for a dense model)."""
+    from unittest import mock
+
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-    from repro_torch.models.attention import chunked_attention, pick_block
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import attention as attention_module
+    from repro_torch.models import moe as moe_module
 
-    cfg = get_config("deepseek-v2-lite-16b")
-    dh, dv = cfg.mla.nope_head_dim + cfg.mla.rope_head_dim, cfg.mla.v_head_dim
-    b, h, sq = SERVE["slots"], cfg.n_heads, SERVE["prompt_len"]
-    require((dh, dv, h) == (192, 128, 16), f"MLA widths ({dh}, {dv}), {h} heads are "
-                                           "not DeepSeek-V2-Lite's")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(4)
-    q, k = (torch.randn((b, h, sq, dh), generator=gen, device=dev).bfloat16()
-            for _ in range(2))
-    v = torch.randn((b, h, sq, dv), generator=gen, device=dev).bfloat16()
-    tile_k = pick_block(sq, cfg.attn_chunk_kv)
-    for kern in _build.KERNELS:
-        kern.launches.clear()
-    out = chunked_attention(q, k, v, causal=True, q_block=pick_block(sq, cfg.attn_chunk_q),
-                            kv_block=tile_k)
-    torch.cuda.synchronize()
-    launches = launch_counts(_build.KERNELS)
-    require(launches == {"flash_attention": 1} and out.shape == (b, h, sq, dv)
-            and bool(torch.isfinite(out).all()),
-            f"chunked_attention at (192, 128): launches {launches}, out {tuple(out.shape)}")
-    checks = k4_check(dev, {"randn": (q, k, v)}, tile_k)
-    kernel = lambda: flash_attention(q, k, v, causal=True, tile_k=tile_k)  # noqa: E731
-    plain = lambda: flash_attention_plain(q, k, v, causal=True, tile_k=tile_k)  # noqa: E731
-    library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
-    try:
-        library()
-        library_ms, library_call = timed(library, 10), \
-            "F.scaled_dot_product_attention(q, k, v, is_causal=True), v 128 wide"
-    except RuntimeError as e:  # the yardstick only: the port never calls it
-        library_ms, library_call = None, f"none: SDPA refused dv != dh on the card ({e})"
-    pairs = sq * (sq + 1) // 2
-    ms, plain_ms = timed(kernel, 10), timed(plain, 3)
-    emit("k4_mla", dh=dh, dv=dv, heads=h, batch=b, tokens=sq, launches=launches,
-         k4_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in checks.items()},
-         k4_vs_plain={w_: [c["err_p"], c["share_p"]] for w_, c in checks.items()})
-    return dict(
-        name="flash_attention[dh 192, dv 128, MLA]", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:63",
-        launches=launches["flash_attention"],
-        max_abs_err=max(c["err_p"] for c in checks.values()),
-        max_abs_err_vs_float64=max(c["err_o"] for c in checks.values()),
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_call=library_call,
-        shapes=f"q, k ({b}, {h}, {sq}, {dh}), v ({b}, {h}, {sq}, {dv}) bf16 randn, causal; "
-               "launches: one chunked_attention call (no model path sends dv != dh yet)",
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            2 * (q.numel() + k.numel() + v.numel() + b * h * sq * dv),
-            2 * b * h * pairs * (dh + dv), PEAK_BF16))))
+    model, params, cfg = res.model, res.params, res.model.cfg
+    rows = res.requests[0]
+    toks = torch.from_numpy(res.prompts[rows]).to(dev)
+    s_max = serve["prompt_len"] + serve["gen_len"]
+
+    def prefill():
+        return model.prefill(params, {"tokens": toks},
+                             model.init_cache(len(rows), s_max, device=dev))[0]
+
+    with route_log() as plain_calls, \
+            mock.patch.object(attention_module, "flash_attention", flash_attention_plain):
+        logits_p = prefill()
+    routing = None
+    if cfg.moe is not None:
+        by_layer, worst = [], 0.0
+        with route_log() as k4_calls:
+            unforced = prefill()
+        for (px, pidx, w), (kx, kidx, _) in zip(plain_calls, k4_calls, strict=True):
+            ref_logits = (px.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
+            flips = routing_flips((px, ref_logits, pidx), (kx, kidx), w, cfg.moe)
+            require(not flips["unexplained"],
+                    f"serve_lm {serve['arch']} layer {len(by_layer)}: K4 and its plain "
+                    f"version route otherwise beyond rounding at {flips['unexplained'][:8]}")
+            by_layer.append(len(flips["near_tie"]) + len(flips["capacity"]))
+            worst = max(worst, flips["worst_share"])
+        del k4_calls
+        plain_idx = iter([idx for _, idx, _ in plain_calls])
+        route = moe_module._route
+
+        def routed_as_plain(router_w, x_flat, moe):
+            _, _, probs = route(router_w, x_flat, moe)
+            idx = next(plain_idx)
+            w_ = probs.gather(1, idx)
+            return idx, w_ / torch.clamp(w_.sum(-1, keepdim=True), min=1e-9), probs
+
+        with mock.patch.object(moe_module, "_route", routed_as_plain):
+            logits_k = prefill()
+        require(next(plain_idx, None) is None, "the forced K4 prefill routed fewer layers")
+        u_err = max_err(unforced[:, -1].float(), logits_p[:, -1].float())
+        routing = dict(positions_routed_otherwise_by_layer=by_layer,
+                       positions=len(rows) * serve["prompt_len"],
+                       logits_worst_share_of_bound=worst, unforced_logits_max_abs_err=u_err)
+    del plain_calls
+    lk, lp = logits_k[:, -1].float(), logits_p[:, -1].float()
+    logit_scale = float(lp.abs().max())
+    logit_err = max_err(lk, lp)
+    require(logit_err <= LOGIT_TOL * logit_scale,
+            f"serve_lm {serve['arch']} first-batch logits through K4 vs plain: max abs "
+            f"err {logit_err:.4g} > {LOGIT_TOL} x {logit_scale:.4g}")
+    greedy = float((lk[:, :cfg.vocab_size].argmax(-1)
+                    == lp[:, :cfg.vocab_size].argmax(-1)).float().mean())
+    return logit_err, logit_scale, greedy, routing
 
 
 def serve_phase(dev) -> dict:
     """Granite-8B LM serving at full size through ``serve_lm``: K4 on every
     prefill layer and nowhere else. Returns K4's row."""
-    from unittest import mock
-
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
     from repro_torch.models import attention as attention_module
 
     res, numbers, kept, logits_k = serve_checked(
@@ -1773,79 +1905,33 @@ def serve_phase(dev) -> dict:
                          d_ff=14336, vocab_size=49152),
         {"flash_attention": GRANITE_LAYERS * SERVE_BATCHES},
         {attention_module: "flash_attention"})
-    model, params, cfg = res.model, res.params, res.model.cfg
-    # the first batch's logits through K4 against K4's plain version
-    rows = res.requests[0]
-    toks = torch.from_numpy(res.prompts[rows]).to(dev)
-    with mock.patch.object(attention_module, "flash_attention", flash_attention_plain):
-        logits_p, _ = model.prefill(params, {"tokens": toks}, model.init_cache(
-            len(rows), SERVE["prompt_len"] + SERVE["gen_len"], device=dev))
-    lk, lp = logits_k[:, -1].float(), logits_p[:, -1].float()
-    logit_scale = float(lp.abs().max())
-    logit_err = max_err(lk, lp)
-    require(logit_err <= LOGIT_TOL * logit_scale,
-            f"serve_lm first-batch logits through K4 vs plain: max abs err "
-            f"{logit_err:.4g} > {LOGIT_TOL} x {logit_scale:.4g}")
-    greedy = float((lk[:, :cfg.vocab_size].argmax(-1)
-                    == lp[:, :cfg.vocab_size].argmax(-1)).float().mean())
-    served_call = dict(zip(("q", "k", "v"), kept["flash_attention"][0][:3]),
-                       args=kept["flash_attention"][0][3:],
-                       kwargs=kept["flash_attention"][1])
-
+    cfg = res.model.cfg
+    logit_err, logit_scale, greedy, _ = logits_vs_plain_k4(dev, res, SERVE, logits_k)
+    del res
     # K4 alone at the serving shape: on the served call's own bf16 inputs
     # (the last layer of the first batch's prefill: q and k leave RoPE
-    # contiguous, v is _split_heads's transposed view), then on contiguous
-    # randn tensors
+    # contiguous, v is _split_heads's transposed view), then on randn
+    (q, k, v), kw = kept["flash_attention"]
     b, h, kvh, sq, dh = SERVE["slots"], cfg.n_heads, cfg.n_kv_heads, SERVE["prompt_len"], \
         cfg.head_dim
-    q, k, v = served_call["q"], served_call["k"], served_call["v"]
     require(q.shape == (b, h, sq, dh) and k.shape == v.shape == (b, kvh, sq, dh)
-            and q.dtype == k.dtype == v.dtype == torch.bfloat16
-            and not v.is_contiguous()
-            and served_call["args"] == () and served_call["kwargs"]
-            == dict(causal=True, tile_k=cfg.attn_chunk_kv),
+            and q.dtype == k.dtype == v.dtype == torch.bfloat16 and not v.is_contiguous()
+            and kw == dict(causal=True, tile_k=cfg.attn_chunk_kv),
             f"served K4 call: q {tuple(q.shape)} {q.dtype} strides {q.stride()}, "
-            f"k {tuple(k.shape)} strides {k.stride()}, {served_call['args']} "
-            f"{served_call['kwargs']}")
-    served_strides = [list(t.stride()) for t in (q, k, v)]
-    k4_checks = k4_check(dev, {"served": (q, k, v), "randn": k4_randn(dev, q, k, v)},
-                         cfg.attn_chunk_kv)
-    kernel = lambda: flash_attention(  # noqa: E731
-        q, k, v, causal=True, tile_k=cfg.attn_chunk_kv)
-    plain = lambda: flash_attention_plain(  # noqa: E731
-        q, k, v, causal=True, tile_k=cfg.attn_chunk_kv)
-
-    def library():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-
-    k4_ms, plain_ms, library_ms = timed(kernel, 10), timed(plain, 3), timed(library, 10)
+            f"k {tuple(k.shape)} strides {k.stride()}, {kw}")
+    row, checks = k4_served_row(dev, "flash_attention", (q, k, v), kw,
+                                numbers["launches"]["flash_attention"],
+                                "the last layer's q, k, v of the first batch's prefill")
     forwards = SERVE_BATCHES * SERVE["gen_len"]
-    pairs = sq * (sq + 1) // 2
-    k4_flops = 4 * b * h * dh * pairs
-    k4_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    launches = numbers["launches"]
-    emit("serve_lm", **numbers, k4_seconds=launches["flash_attention"] * k4_ms / 1e3,
+    emit("serve_lm", **numbers, k4_seconds=row["launches"] * row["ms"] / 1e3,
          forwards=forwards,
          weight_cast_seconds=forwards * numbers["weight_cast_ms_per_forward"] / 1e3,
          logits_vs_plain=[logit_err, logit_err / (LOGIT_TOL * logit_scale)],
          logit_scale=logit_scale, greedy_agreement=greedy,
          k4_tol="2^-8 (|o| + sum w|v|) + 2^-16 sum w|v| vs float64; x2 vs plain",
-         k4_inputs={"served": f"the last layer's q, k, v of the first batch's prefill, "
-                              f"strides {served_strides}", "randn": "contiguous"},
-         k4_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in k4_checks.items()},
-         k4_vs_plain={w_: [c["err_p"], c["share_p"]] for w_, c in k4_checks.items()})
-    return dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:63",
-        launches=launches["flash_attention"],
-        max_abs_err=max(c["err_p"] for c in k4_checks.values()),
-        max_abs_err_vs_float64=max(c["err_o"] for c in k4_checks.values()),
-        ms=k4_ms, plain_ms=plain_ms, library_ms=library_ms,
-        library_call="F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)",
-        shapes=f"q ({b}, {h}, {sq}, {dh}), k and v ({b}, {kvh}, {sq}, {dh}) bf16, causal, "
-               "the served call's inputs (v a transposed view)",
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(k4_bytes, k4_flops, PEAK_BF16))))
+         k4_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in checks.items()},
+         k4_vs_plain={w_: [c["err_p"], c["share_p"]] for w_, c in checks.items()})
+    return row
 
 
 def scan_limits(abs_oracle, cmaxes, q: int) -> tuple:
@@ -2026,10 +2112,24 @@ def serve_checked(dev, serve: dict, widths: dict, want_launches: dict, patches: 
     decode_busy = decode_profile(model, params, nxt, cache, serve["prompt_len"] + 1,
                                  res.decode_seconds / decode_steps * 1e3)
     del cache
-    # the per-use casts of one forward: every 2-D weight but the embedding table
+    # the per-use casts of one forward: every 2-D weight but the embedding
+    # table (``dense``, the router, MLA's wkv_b) and the 3-D routed experts
+    # (``moe._dispatch_compute_combine``), one tensor at a time as the
+    # forward casts them, so at most one cast copy is alive
     weights = [t for key, part in params.items() if key != "embed"
-               for t in _leaves(part) if t.dim() == 2]
-    cast_ms = timed(lambda: [w_.to(torch.bfloat16) for w_ in weights], 3)
+               for t in _leaves(part) if t.dim() in (2, 3)]
+
+    def cast_ms(dim: int) -> float:
+        group = [w_ for w_ in weights if w_.dim() == dim]
+
+        def cast():
+            for w_ in group:
+                w_.to(torch.bfloat16)
+
+        return timed(cast, 3) if group else 0.0
+
+    casts = {"experts": cast_ms(3), "rest": cast_ms(2)}
+    del weights
     tokens = serve["requests"] * serve["gen_len"]
     numbers = dict(arch=serve["arch"], requests=serve["requests"], slots=serve["slots"],
                    prompt_len=serve["prompt_len"], gen_len=serve["gen_len"],
@@ -2039,7 +2139,8 @@ def serve_checked(dev, serve: dict, widths: dict, want_launches: dict, patches: 
                    prefill_seconds=res.prefill_seconds, decode_seconds=res.decode_seconds,
                    tokens_per_second=tokens / res.seconds, peak_memory_gb=peak_gb,
                    first_batch_repeats_bitwise=repeat_equal,
-                   weight_cast_ms_per_forward=cast_ms, decode_step_profile=decode_busy)
+                   weight_cast_ms_per_forward=casts["experts"] + casts["rest"],
+                   weight_cast_ms_per_forward_split=casts, decode_step_profile=decode_busy)
     return res, numbers, kept, logits
 
 
@@ -2149,7 +2250,6 @@ def zamba2_phase(dev) -> list[dict]:
     import torch.nn.functional as F
 
     from repro_torch.configs.base import SSMConfig
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.ssm_scan import ssm_scan_plain, ssm_scan_state
     from repro_torch.models import attention as attention_module
     from repro_torch.models import ssm as ssm_module
@@ -2228,16 +2328,14 @@ def zamba2_phase(dev) -> list[dict]:
     require(q.shape == k.shape == v.shape == (bt, ha, s, 112) and q.dtype == torch.bfloat16
             and kw4 == dict(causal=True, tile_k=tile_k),
             f"served K4 call: q {tuple(q.shape)} {q.dtype}, {kw4}")
-    k4 = k4_check(dev, {"served": (q, k, v), "randn": k4_randn(dev, q, k, v)}, tile_k)
-    k4_ms = timed(lambda: flash_attention(q, k, v, causal=True, tile_k=tile_k), 10)
-    k4_plain_ms = timed(lambda: flash_attention_plain(q, k, v, causal=True, tile_k=tile_k), 3)
-    k4_library_ms = timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 10)
-    k4_pairs = s * (s + 1) // 2
+    k4_row, k4 = k4_served_row(dev, "flash_attention[dh 112, Zamba2]", (q, k, v), kw4,
+                               numbers["launches"]["flash_attention"],
+                               "the last shared-attention call of the first batch's prefill")
     k5_launches = numbers["launches"]["ssm_scan"]
-    k4_launches = numbers["launches"]["flash_attention"]
+    k4_seconds = k4_row["launches"] * k4_row["ms"] / 1e3
     emit("serve_zamba2", **numbers, k5_seconds=k5_launches * k5_ms / 1e3,
-         k4_seconds=k4_launches * k4_ms / 1e3,
-         kernel_share_of_prefill=(k5_launches * k5_ms + k4_launches * k4_ms) / 1e3
+         k4_seconds=k4_seconds,
+         kernel_share_of_prefill=(k5_launches * k5_ms / 1e3 + k4_seconds)
          / numbers["prefill_seconds"],
          k5_tol="eps32 sqrt(3 Q) (1 + max|chunk cumsum|) sum|terms| vs float64; x2 vs "
                 "plain; the scan on bf16-rounded dt must pass it",
@@ -2261,17 +2359,150 @@ def zamba2_phase(dev) -> list[dict]:
         shapes=f"x ({bt}, {s}, {h}, {dh}) bf16 (a strided view of the conv output), "
                f"B, C ({bt}, {s}, {n}) bf16 views, dt f32, chunk {chunk}; y and final "
                "state f32",
-        **bound), dict(
-        name="flash_attention[dh 112, Zamba2]", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:63",
-        launches=k4_launches, max_abs_err=max(c["err_p"] for c in k4.values()),
-        max_abs_err_vs_float64=max(c["err_o"] for c in k4.values()),
-        ms=k4_ms, plain_ms=k4_plain_ms, library_ms=k4_library_ms,
-        library_call="F.scaled_dot_product_attention(q, k, v, is_causal=True)",
-        shapes=f"q, k, v ({bt}, {ha}, {s}, 112) bf16, causal, the served call's inputs",
+        **bound), k4_row]
+
+
+def moe_serve_checked(dev, serve: dict, widths: dict, layers: int, counts: tuple):
+    """``serve_checked`` for an MoE family at full size: K4 on every
+    prefill layer (one launch each), nowhere else; the config's widths and
+    MoE / MLA sub-configs, its (all, active) parameter counts, and the
+    first batch's logits through K4 against K4's plain version. Returns
+    the serve line's numbers and the last K4 call of the repeated
+    prefill ((q, k, v), kwargs)."""
+    from repro_torch.models import attention as attention_module
+    from repro_torch.models.model import count_active_params, count_params
+
+    res, numbers, kept, logits_k = serve_checked(
+        dev, serve, widths, {"flash_attention": layers * SERVE_BATCHES},
+        {attention_module: "flash_attention"})
+    cfg = res.model.cfg
+    got = (count_params(cfg), count_active_params(cfg))
+    require(got == counts, f"serve_lm {serve['arch']}: (all, active) params {got}, want {counts}")
+    logit_err, logit_scale, greedy, routing = logits_vs_plain_k4(dev, res, serve, logits_k)
+    del res
+    numbers.update(active_params=got[1],
+                   logits_vs_plain=[logit_err, logit_err / (LOGIT_TOL * logit_scale)],
+                   logit_scale=logit_scale, greedy_agreement=greedy,
+                   routing_k4_vs_plain=routing)
+    (q, k, v), kw = kept["flash_attention"]
+    return numbers, (q, k, v), kw
+
+
+def k4_served_row(dev, name: str, qkv: tuple, kw: dict, launches: int, what: str) -> tuple:
+    """K4 alone on a served call's own ``qkv`` (``kw``: its causal flag and
+    kv tile) and on contiguous randn tensors of the same shapes, against
+    its float64 oracle and plain version; then its ms, device ms, plain
+    ms and SDPA's ms (None where SDPA refuses the shapes on the card).
+    Returns the kernels line's row and the checks."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = qkv
+    b, h, sq, dh = q.shape
+    kvh, dv = k.shape[1], v.shape[-1]
+    tile_k = kw["tile_k"]
+    checks = k4_check(dev, {"served": (q, k, v), "randn": k4_randn(dev, q, k, v)}, tile_k)
+    kernel = lambda: flash_attention(q, k, v, causal=True, tile_k=tile_k)  # noqa: E731
+    plain = lambda: flash_attention_plain(q, k, v, causal=True, tile_k=tile_k)  # noqa: E731
+    gqa = dict(enable_gqa=True) if kvh != h else {}
+    call = (f"F.scaled_dot_product_attention(q, k, v, is_causal=True"
+            f"{', enable_gqa=True' if gqa else ''})" + (f", v {dv} wide" if dv != dh else ""))
+    try:
+        library_ms = timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                  **gqa), 10)
+    except RuntimeError as e:  # the yardstick only: the port never calls it
+        library_ms, call = None, f"none: SDPA refused these shapes on the card ({e})"
+    pairs = sq * (sq + 1) // 2
+    row = dict(
+        name=name, route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:63", launches=launches,
+        max_abs_err=max(c["err_p"] for c in checks.values()),
+        max_abs_err_vs_float64=max(c["err_o"] for c in checks.values()),
+        ms=timed(kernel, 10), **kernel_device_ms(kernel, K4_NAMES), plain_ms=timed(plain, 3),
+        library_ms=library_ms, library_call=call,
+        shapes=f"q ({b}, {h}, {sq}, {dh}), k ({b}, {kvh}, {sq}, {dh}), v ({b}, {kvh}, {sq}, "
+               f"{dv}) bf16, causal, {what}; strides q {list(q.stride())}, k "
+               f"{list(k.stride())}, v {list(v.stride())}",
         **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            2 * 4 * q.numel(), 4 * bt * ha * 112 * k4_pairs, PEAK_BF16))))]
+            2 * (q.numel() + k.numel() + v.numel() + b * h * sq * dv),
+            2 * b * h * pairs * (dh + dv), PEAK_BF16))))
+    return row, checks
+
+
+def serve_qwen2_moe_phase(dev) -> dict:
+    """Qwen1.5-MoE-A2.7B LM serving at full size through ``serve_lm``: K4
+    (dh 128, 16 heads over 16 kv heads) on every prefill layer and nowhere
+    else. Returns K4's row at this shape."""
+    import torch
+
+    from repro_torch.configs.base import MoEConfig
+
+    numbers, qkv, kw = moe_serve_checked(
+        dev, QWEN_MOE_SERVE,
+        dict(n_layers=24, d_model=2048, n_heads=16, n_kv_heads=16, head_dim=128, d_ff=5632,
+             vocab_size=151936, qkv_bias=True,
+             moe=MoEConfig(n_routed=60, n_shared=4, top_k=4, d_ff_expert=1408)),
+        QWEN_MOE_LAYERS, QWEN_MOE_PARAMS)
+    q, k, v = qkv
+    b, sq = SERVE["slots"], SERVE["prompt_len"]
+    require(q.shape == k.shape == v.shape == (b, 16, sq, 128) and q.dtype == torch.bfloat16
+            and kw == dict(causal=True, tile_k=1024),
+            f"served K4 call: q {tuple(q.shape)} {q.dtype}, {kw}")
+    row, checks = k4_served_row(
+        dev, "flash_attention[dh 128, MHA, Qwen1.5-MoE]", qkv, kw,
+        numbers["launches"]["flash_attention"],
+        "the last layer's q, k, v of the first batch's prefill")
+    emit("serve_qwen2_moe", **numbers,
+         k4_seconds=row["launches"] * row["ms"] / 1e3,
+         kernel_share_of_prefill=row["launches"] * row["ms"] / 1e3 / numbers["prefill_seconds"],
+         k4_tol="2^-8 (|o| + sum w|v|) + 2^-16 sum w|v| vs float64; x2 vs plain",
+         k4_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in checks.items()},
+         k4_vs_plain={w_: [c["err_p"], c["share_p"]] for w_, c in checks.items()})
+    return row
+
+
+def serve_deepseek_v2_lite_phase(dev) -> dict:
+    """DeepSeek-V2-Lite LM serving at full size through ``serve_lm``: K4 at
+    MLA's widths (q and k 192 = nope 128 + rope 64, v 128; 16 heads) on
+    every prefill layer and nowhere else, v the view ``kv[..., 128:]`` of
+    the reconstructed kv, read in place. Returns K4's (192, 128) row: the
+    served call's own q, k, v, then randn (seed 1), against its float64
+    oracle and plain version."""
+    import torch
+
+    from repro_torch.configs.base import MLAConfig, MoEConfig
+    from repro_torch.kernels.flash_attention import kernel_reads_in_place
+
+    numbers, qkv, kw = moe_serve_checked(
+        dev, DEEPSEEK_SERVE,
+        dict(n_layers=27, d_model=2048, n_heads=16, n_kv_heads=16, d_ff=10944,
+             vocab_size=102400, first_layer_dense=True,
+             mla=MLAConfig(kv_lora_rank=512, q_lora_rank=0, rope_head_dim=64,
+                           nope_head_dim=128, v_head_dim=128),
+             moe=MoEConfig(n_routed=64, n_shared=2, top_k=6, d_ff_expert=1408)),
+        DEEPSEEK_LAYERS, DEEPSEEK_PARAMS)
+    q, k, v = qkv
+    b, sq = SERVE["slots"], SERVE["prompt_len"]
+    require(q.shape == k.shape == (b, 16, sq, 192) and v.shape == (b, 16, sq, 128)
+            and q.dtype == v.dtype == torch.bfloat16 and not v.is_contiguous()
+            and v.storage_offset() % 256 == 128 and kernel_reads_in_place(v)
+            and kw == dict(causal=True, tile_k=1024),
+            f"served K4 call at MLA's widths: q {tuple(q.shape)}, v {tuple(v.shape)} strides "
+            f"{v.stride()} offset {v.storage_offset()}, {kw}")
+    row, checks = k4_served_row(
+        dev, "flash_attention[dh 192, dv 128, MLA]", qkv, kw,
+        numbers["launches"]["flash_attention"],
+        "the last layer's q, k, v of the first batch's prefill (v the view kv[..., 128:])")
+    emit("k4_mla", dh=192, dv=128, heads=16, batch=b, tokens=sq,
+         launches=numbers["launches"],
+         k4_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in checks.items()},
+         k4_vs_plain={w_: [c["err_p"], c["share_p"]] for w_, c in checks.items()})
+    emit("serve_deepseek_v2_lite", **numbers,
+         k4_seconds=row["launches"] * row["ms"] / 1e3,
+         kernel_share_of_prefill=row["launches"] * row["ms"] / 1e3 / numbers["prefill_seconds"],
+         k4_tol="2^-8 (|o| + sum w|v|) + 2^-16 sum w|v| vs float64; x2 vs plain")
+    return row
 
 
 def main() -> None:
@@ -2286,6 +2517,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
 
     from repro_torch.core import PreemptiveRunner, SchedulerConfig
@@ -2715,12 +2947,17 @@ def main() -> None:
     lin_costs = server_telemetry_phase(dev, lin, lin_rows, lin_stamps,
                                        stage_device_ms["linreg"], beta, (feat_lim, icpt_lim))
     front_door_phase(dev, lin, beta, (feat_lim, icpt_lim), lin_costs)
-    kernels.append(k4_mla_phase(dev))
     kernels.append(serve_phase(dev))
     gc.collect()
     kernels.append(rwkv6_phase(dev))
     gc.collect()
     kernels.extend(zamba2_phase(dev))
+    # the MoE families' fp32 weights take 57.27 and 62.83 GB of the card's
+    # 80: everything before is freed, and each model before the next
+    for phase in (serve_qwen2_moe_phase, serve_deepseek_v2_lite_phase):
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.append(phase(dev))
 
     for row in kernels:
         row["redesigned"] = row["name"] in REDESIGNED

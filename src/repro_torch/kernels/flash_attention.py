@@ -34,7 +34,8 @@ import torch
 
 from ._build import FLASH_ATTENTION, ptr, stream
 
-__all__ = ["NEG_INF", "HEAD_DIMS", "WIDTHS", "flash_attention", "flash_attention_plain"]
+__all__ = ["NEG_INF", "HEAD_DIMS", "WIDTHS", "flash_attention", "flash_attention_plain",
+           "kernel_reads_in_place"]
 
 NEG_INF = -1e30
 #: (dh, dv) pairs the CUDA kernel is compiled for: every dense config's
@@ -97,6 +98,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, sq, dv).to(q.dtype)
 
 
+def kernel_reads_in_place(t: torch.Tensor) -> bool:
+    """Whether the kernel reads the 4-D ``t`` where it lies, without a copy:
+    a contiguous last axis, the other strides a multiple of 16 bytes and
+    16-byte aligned data (MLA's v, the view ``kv[..., dn:]``, qualifies)."""
+    vec = 16 // t.element_size()
+    return (t.stride(3) == 1 and not any(st % vec for st in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, tile_k: int = 512) -> torch.Tensor:
     """Attention forward: q ``(B, H, Sq, dh)``, k ``(B, KV, Skv, dh)`` and
@@ -120,15 +130,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (dh, dv) not in WIDTHS:
         raise ValueError(f"flash_attention kernel takes dh in {HEAD_DIMS} with "
                          f"(dh, dv) one of {WIDTHS}, got ({dh}, {dv})")
-    vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
-        if t.stride(3) != 1 or any(st % vec for st in t.stride()[:3]) \
-                or t.data_ptr() % 16:
+        if not kernel_reads_in_place(t):
             raise ValueError(f"flash_attention kernel: {name} needs a contiguous "
-                             f"last axis, strides a multiple of {vec} elements "
-                             f"and 16-byte aligned data, got strides {t.stride()}")
+                             f"last axis, strides a multiple of "
+                             f"{16 // t.element_size()} elements and 16-byte "
+                             f"aligned data, got strides {t.stride()}")
     out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
     ll = ctypes.c_longlong
     FLASH_ATTENTION.launch(

@@ -5,7 +5,8 @@ chunks, and multi-tenant IDA pipeline serving through the PipelineServer
     # on the card, Granite-8B at full size
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --requests 8 --slots 4 --prompt-len 2048 --gen-len 16 --technique GSS
-    # RWKV6-3B or Zamba2-7B the same way: --arch rwkv6-3b / zamba2-7b
+    # RWKV6-3B, Zamba2-7B, Qwen1.5-MoE-A2.7B or DeepSeek-V2-Lite the same
+    # way: --arch rwkv6-3b / zamba2-7b / qwen2-moe-a2.7b / deepseek-v2-lite-16b
     # on the CPU, the reduced config
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
@@ -23,11 +24,13 @@ t``). The weights are fp32, drawn on ``--device`` from a
 ``torch.Generator`` seeded 0 (the reference's ``jax.random`` key 0 gives
 other numbers). The cache (KV for the dense family; token shifts and the
 WKV state for RWKV6; conv rows, SSM state and the shared attention's KV
-for Zamba2) is updated in place where the reference donates it to a
-functional update. On a CUDA device a prompt over 1,024 tokens prefills
-its attention through K4 (``models/attention.py:chunked_attention``), an
-RWKV6 prompt its WKV through K6 and a Zamba2 prompt its SSD scan through
-K5.
+for Zamba2; the latent ``ckv`` and ``kpe`` for MLA) is updated in place
+where the reference donates it to a functional update. On a CUDA device a
+prompt over 1,024 tokens prefills its attention through K4
+(``models/attention.py:chunked_attention``; MLA's at q and k 192 wide, v
+128), an RWKV6 prompt its WKV through K6 and a Zamba2 prompt its SSD scan
+through K5; the MoE layers' experts are ``torch.einsum`` products, as the
+reference computes them.
 
 ``--mode pipelines`` serves the reference's mixed four-job submission set
 (a CC iteration over a scale-11 RMAT graph, linreg 20,000 x 21, two

@@ -1,5 +1,6 @@
-"""The model stack: layers, GQA attention (with K4), dense decoder layers,
-the dense-family ``Model`` and the MoE routing and capacity semantics."""
+"""The model stack: layers, GQA attention and MLA (with K4), the MoE block,
+the decoder layers and ``Model`` for the dense, MoE, MLA, RWKV6 and Zamba2
+families."""
 
 from .model import (Model, count_active_params, count_params,
                     model_params_from_reference, param_shapes)

@@ -1,5 +1,6 @@
 """GQA attention: full, chunked (K4), banded (K4) and decode, with the KV
-cache (the port's copy of the GQA part of ``models/attention.py``).
+cache, and MLA (the port's copy of the GQA and MLA parts of
+``models/attention.py``).
 
 Prefill implementations, chosen per call by ``Model._impl``:
 
@@ -20,8 +21,16 @@ The KV cache is updated in place: ``cache_insert`` writes into the cache
 tensor and returns it, where the reference returns a new array (a donated
 functional update under ``jit``); the values are the same.
 
-Still to port: MLA (ROADMAP A11.2), cross attention (Whisper, A11.5) and
-the sequence-sharded attention (the mesh layer).
+MLA (DeepSeek-V2's multi-head latent attention) caches the compressed KV
+``{'ckv': (B, S_max, r), 'kpe': (B, 1, S_max, dr)}``. Its prefill
+reconstructs K and V from the latent and takes the same three impls, so a
+long prompt's attention is K4 at q and k ``dn + dr`` wide and v ``dv``
+wide (192 and 128 in DeepSeek-V2-Lite; v is a view into the reconstructed
+``kv``, which K4 reads in place). Its decode is the absorbed form, scores
+against the latent cache, in plain PyTorch as the reference's.
+
+Still to port: cross attention (Whisper, ROADMAP A11.5) and the
+sequence-sharded attention (the mesh layer, A17).
 """
 
 from __future__ import annotations
@@ -32,12 +41,12 @@ from typing import Any
 import torch
 
 from ..kernels.flash_attention import flash_attention
-from .layers import Params, apply_rope, dense, he_init
+from .layers import Params, apply_rope, dense, he_init, rms_norm
 
 __all__ = ["NEG_INF", "cache_insert", "pick_block", "init_attention",
            "qkv_project", "full_attention", "chunked_attention",
            "banded_attention", "decode_attention", "attention_fn",
-           "gqa_attention"]
+           "gqa_attention", "init_mla", "mla_attention"]
 
 NEG_INF = -1e30
 
@@ -244,4 +253,82 @@ def gqa_attention(params: Params, x: torch.Tensor, cfg: Any, *,
         if cache is not None:
             cache_insert(cache["k"], k, 0, axis=2)
             cache_insert(cache["v"], v, 0, axis=2)
+    return dense(_merge_heads(o), params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(generator: torch.Generator, d_model: int, n_heads: int, mla,
+             device=None, dtype=torch.float32) -> Params:
+    """``wq (d, H*(dn+dr))``, ``wkv_a (d, r+dr)``, ``kv_norm (r)``,
+    ``wkv_b (r, H*(dn+dv))`` and ``wo (H*dv, d)``, He-scaled (V2-Lite has
+    no Q LoRA)."""
+    dn, dr, dv, r = (mla.nope_head_dim, mla.rope_head_dim, mla.v_head_dim,
+                     mla.kv_lora_rank)
+    wq = he_init(generator, (d_model, n_heads * (dn + dr)), d_model, device, dtype)
+    return {
+        "wq": wq,
+        "wkv_a": he_init(generator, (d_model, r + dr), d_model, device, dtype),
+        "kv_norm": torch.ones((r,), dtype=dtype, device=wq.device),
+        "wkv_b": he_init(generator, (r, n_heads * (dn + dv)), r, device, dtype),
+        "wo": he_init(generator, (n_heads * dv, d_model), n_heads * dv, device, dtype),
+    }
+
+
+def mla_attention(params: Params, x: torch.Tensor, cfg: Any, *, positions,
+                  impl: str = "chunked", cache: Params | None = None,
+                  cache_index=None):
+    """Returns ``(y, cache)``; ``cache`` is ``{'ckv': (B, S_max, r), 'kpe':
+    (B, 1, S_max, dr)}``, updated in place as the GQA cache is.
+
+    Prefill reconstructs K and V from the latent (k's rope part broadcast
+    over the heads) and attends with ``impl``; chunked and banded take the
+    config's blocks as given, as the reference does. Decode (one token and
+    a ``cache_index``) uses the absorbed form: ``q_nope W_uk`` against the
+    latent cache plus the rope part, masked past ``cache_index + 1``, then
+    the context times ``W_uv``.
+    """
+    mla, h = cfg.mla, cfg.n_heads
+    dn, dr, dv, r = (mla.nope_head_dim, mla.rope_head_dim, mla.v_head_dim,
+                     mla.kv_lora_rank)
+    b, sq, _ = x.shape
+
+    q = dense(x, params["wq"]).reshape(b, sq, h, dn + dr).transpose(1, 2)
+    q_nope, q_pe = q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+    kv_a = dense(x, params["wkv_a"])                                  # (B,S,r+dr)
+    ckv = rms_norm(kv_a[..., :r], params["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(kv_a[..., None, :, r:], positions, cfg.rope_theta)  # (B,1,S,dr)
+    wkv_b = params["wkv_b"].reshape(r, h, dn + dv).to(x.dtype)
+
+    if cache is not None and cache_index is not None and sq == 1:
+        ckv_c = cache_insert(cache["ckv"], ckv, cache_index, axis=1)
+        kpe_c = cache_insert(cache["kpe"], k_pe, cache_index, axis=2)
+        q_lat = torch.einsum("bhqd,rhd->bhqr", q_nope, wkv_b[..., :dn])
+        s_lat = torch.einsum("bhqr,bsr->bhqs", q_lat, ckv_c)
+        s_pe = torch.einsum("bhqd,bzsd->bhqs", q_pe, kpe_c)
+        s = (s_lat + s_pe).float() / math.sqrt(dn + dr)
+        mask = torch.arange(ckv_c.shape[1], device=x.device)[None, None, None, :] \
+            < cache_index + 1
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        w = torch.softmax(s, dim=-1).to(x.dtype)
+        ctx_lat = torch.einsum("bhqs,bsr->bhqr", w, ckv_c)             # (B,H,1,r)
+        o = torch.einsum("bhqr,rhd->bhqd", ctx_lat, wkv_b[..., dn:]).to(x.dtype)
+    else:
+        kv = torch.einsum("bsr,rhd->bhsd", ckv, wkv_b)                 # (B,H,S,dn+dv)
+        v = kv[..., dn:]
+        k = torch.cat([kv[..., :dn], k_pe.expand(b, h, sq, dr)], dim=-1)
+        qf = torch.cat([q_nope, q_pe], dim=-1)
+        if impl == "full":
+            o = full_attention(qf, k, v, causal=True)
+        elif impl == "banded":
+            o = banded_attention(qf, k, v, q_block=cfg.attn_chunk_q)
+        else:
+            o = chunked_attention(qf, k, v, causal=True, q_block=cfg.attn_chunk_q,
+                                  kv_block=cfg.attn_chunk_kv)
+        if cache is not None:
+            cache_insert(cache["ckv"], ckv, 0, axis=1)
+            cache_insert(cache["kpe"], k_pe, 0, axis=2)
     return dense(_merge_heads(o), params["wo"]), cache

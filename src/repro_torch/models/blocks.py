@@ -1,26 +1,30 @@
-"""Decoder layers (the port's copy of the dense, Mamba2 and RWKV6 parts of
-``models/blocks.py``).
+"""Decoder layers (the port's copy of the dense, MoE, MLA, Mamba2 and RWKV6
+parts of ``models/blocks.py``).
 
 Every layer apply has the reference's uniform signature
 
     apply(params, x, cfg, *, positions, impl, cache, cache_index) -> (x, cache, aux)
 
-``aux`` is a scalar (the MoE load-balance loss; 0 for the layers here);
-the Mamba2 and RWKV6 layers take no positions and no attention impl. The
-MoE, MLA and Whisper layers wait for ROADMAP A11.1, A11.2 and A11.5.
+``aux`` is a scalar: the MoE load-balance loss (times its weight) in the
+MoE and MLA-with-MoE layers, 0 elsewhere; the Mamba2 and RWKV6 layers
+take no positions and no attention impl. The Whisper layers wait for
+ROADMAP A11.5.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .attention import gqa_attention, init_attention
+from .attention import gqa_attention, init_attention, init_mla, mla_attention
 from .layers import Params, init_mlp, layer_norm, mlp, rms_norm
+from .moe import init_moe, moe_block
 from .rwkv import init_rwkv6, rwkv6_channel_mix, rwkv6_time_mix
 from .ssm import init_mamba2, mamba2_block
 
-__all__ = ["ZERO", "init_dense_layer", "apply_dense_layer", "init_mamba_layer",
-           "apply_mamba_layer", "init_rwkv_layer", "apply_rwkv_layer"]
+__all__ = ["ZERO", "init_dense_layer", "apply_dense_layer", "init_moe_layer",
+           "apply_moe_layer", "init_mla_layer", "apply_mla_layer",
+           "init_mamba_layer", "apply_mamba_layer", "init_rwkv_layer",
+           "apply_rwkv_layer"]
 
 #: the aux loss of a layer that has none
 ZERO = 0.0
@@ -50,6 +54,74 @@ def apply_dense_layer(params: Params, x: torch.Tensor, cfg, *, positions,
     x = x + h
     x = x + mlp(params["mlp"], rms_norm(x, params["ln2"], cfg.norm_eps))
     return x, cache, ZERO
+
+
+# ---------------------------------------------------------------------------
+# GQA + MoE layer (Qwen1.5-MoE)
+# ---------------------------------------------------------------------------
+
+def init_moe_layer(generator: torch.Generator, cfg, device=None,
+                   dtype=torch.float32) -> Params:
+    """One MoE layer: norms, GQA attention and the routed + shared experts."""
+    device = generator.device if device is None else torch.device(device)
+    return {
+        "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "attn": init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, bias=cfg.qkv_bias, device=device,
+                               dtype=dtype),
+        "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "moe": init_moe(generator, cfg.d_model, cfg.moe, device=device, dtype=dtype),
+    }
+
+
+def apply_moe_layer(params: Params, x: torch.Tensor, cfg, *, positions,
+                    impl: str, cache, cache_index):
+    """Pre-norm attention, then ``moe_block`` on the pre-normed residual;
+    the block's aux loss is the layer's."""
+    h, cache = gqa_attention(params["attn"], rms_norm(x, params["ln1"], cfg.norm_eps),
+                             cfg, positions=positions, impl=impl, cache=cache,
+                             cache_index=cache_index)
+    x = x + h
+    h, aux = moe_block(params["moe"], rms_norm(x, params["ln2"], cfg.norm_eps), cfg)
+    return x + h, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# MLA + MoE layer (DeepSeek-V2-Lite; layer 0 has a dense FFN)
+# ---------------------------------------------------------------------------
+
+def init_mla_layer(generator: torch.Generator, cfg, dense_ffn: bool, device=None,
+                   dtype=torch.float32) -> Params:
+    """One MLA layer: norms, MLA, and the dense gated MLP (``dense_ffn``)
+    or the MoE block."""
+    device = generator.device if device is None else torch.device(device)
+    p = {
+        "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "attn": init_mla(generator, cfg.d_model, cfg.n_heads, cfg.mla, device=device,
+                         dtype=dtype),
+        "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+    }
+    if dense_ffn:
+        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, gated=True,
+                            device=device, dtype=dtype)
+    else:
+        p["moe"] = init_moe(generator, cfg.d_model, cfg.moe, device=device, dtype=dtype)
+    return p
+
+
+def apply_mla_layer(params: Params, x: torch.Tensor, cfg, *, positions,
+                    impl: str, cache, cache_index):
+    """Pre-norm MLA, then the MoE block or the dense MLP."""
+    h, cache = mla_attention(params["attn"], rms_norm(x, params["ln1"], cfg.norm_eps),
+                             cfg, positions=positions, impl=impl, cache=cache,
+                             cache_index=cache_index)
+    x = x + h
+    h2 = rms_norm(x, params["ln2"], cfg.norm_eps)
+    if "moe" in params:
+        h, aux = moe_block(params["moe"], h2, cfg)
+    else:
+        h, aux = mlp(params["mlp"], h2), ZERO
+    return x + h, cache, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,23 +1,25 @@
-"""Model assembly for the dense decoder, RWKV6 and Zamba2 families (the
-port's copy of those paths of ``models/model.py``): init, caches, prefill
-and decode.
+"""Model assembly for the dense decoder, MoE (Qwen1.5-MoE), MLA
+(DeepSeek-V2-Lite), RWKV6 and Zamba2 families (the port's copy of those
+paths of ``models/model.py``): init, caches, prefill and decode.
 
 The reference stacks the layers on a leading axis and runs them with
 ``lax.scan``; the port keeps one params dict per layer and runs them in a
 Python loop (Zamba2's ``mamba_main`` is a list of super-blocks, each a list
 of ``attn_every`` Mamba2 layers, then ``mamba_tail``; the shared attention
-block is one dense layer). The caches keep the reference's stacked layouts
-— dense ``{'k', 'v'}`` of ``(L, B, KV, S_max, dh)``; RWKV6 ``{'shift_tm',
-'shift_cm', 'state'}`` with a leading L; Zamba2 ``{'mamba_main': {'conv',
-'state'}}`` with leading ``(n_sb, attn_every)``, ``'attn'`` (one KV cache
-per super-block) and ``'mamba_tail'`` — and each layer writes its slice in
+block is one dense layer; DeepSeek's dense first layer is ``layer0``, one
+dict beside the list of its MoE ``layers``). The caches keep the
+reference's stacked layouts — dense and MoE ``{'k', 'v'}`` of ``(L, B, KV,
+S_max, dh)``; MLA ``{'ckv': (L, B, S_max, r), 'kpe': (L, B, 1, S_max,
+dr)}`` (``layer0`` on slice 0); RWKV6 ``{'shift_tm', 'shift_cm',
+'state'}`` with a leading L; Zamba2 ``{'mamba_main': {'conv', 'state'}}``
+with leading ``(n_sb, attn_every)``, ``'attn'`` (one KV cache per
+super-block) and ``'mamba_tail'`` — and each layer writes its slice in
 place. ``model_params_from_reference`` turns the reference's params (numpy
 arrays, layers stacked) into the port's.
 
 Other families raise ``NotImplementedError`` naming their ROADMAP item:
-MoE layers (A11.1), MLA (A11.2), Whisper's encoder-decoder (A11.5) and the
-InternVL2 vision frontend (A11.6). Training (``train_loss``,
-``cross_entropy``) waits for A12.
+Whisper's encoder-decoder (A11.5) and the InternVL2 vision frontend
+(A11.6). Training (``train_loss``, ``cross_entropy``) waits for A12.
 """
 
 from __future__ import annotations
@@ -44,15 +46,11 @@ NEG_INF = -1e30
 
 def unported_part(cfg) -> str | None:
     """What of ``cfg``'s architecture the port lacks (with its ROADMAP
-    item), or None for the dense, RWKV6 and Zamba2 families."""
+    item), or None for the dense, MoE, MLA, RWKV6 and Zamba2 families."""
     if cfg.rwkv is not None or cfg.ssm is not None:
         return None
     if cfg.encdec is not None:
         return "Whisper's encoder-decoder (ROADMAP A11.5)"
-    if cfg.mla is not None:
-        return "MLA attention (ROADMAP A11.2)"
-    if cfg.moe is not None:
-        return "the MoE layer, moe_block (ROADMAP A11.1)"
     if cfg.frontend:
         return f"the {cfg.frontend} frontend (ROADMAP A11.6)"
     return None
@@ -69,8 +67,8 @@ def mask_vocab_padding(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
 
 @dataclass
 class Model:
-    """Config-driven LM (dense GQA, RWKV6, Zamba2): init / prefill /
-    decode_step."""
+    """Config-driven LM (dense GQA, MoE, MLA, RWKV6, Zamba2): init /
+    prefill / decode_step."""
 
     cfg: Any
 
@@ -78,8 +76,8 @@ class Model:
         missing = unported_part(self.cfg)
         if missing is not None:
             raise NotImplementedError(
-                f"{self.cfg.name}: the port has the dense, RWKV6 and Zamba2 "
-                f"families; "
+                f"{self.cfg.name}: the port has the dense, MoE, MLA, RWKV6 and "
+                f"Zamba2 families; "
                 f"{missing} is not ported")
 
     # ---- init ------------------------------------------------------------------
@@ -108,6 +106,15 @@ class Model:
                 params["mamba_tail"] = [blocks.init_mamba_layer(generator, cfg, device)
                                         for _ in range(tail)]
             params["shared_attn"] = blocks.init_dense_layer(generator, cfg, device)
+        elif cfg.mla is not None:
+            n_moe = cfg.n_layers - 1 if cfg.first_layer_dense else cfg.n_layers
+            if cfg.first_layer_dense:
+                params["layer0"] = blocks.init_mla_layer(generator, cfg, True, device)
+            params["layers"] = [blocks.init_mla_layer(generator, cfg, False, device)
+                                for _ in range(n_moe)]
+        elif cfg.moe is not None:
+            params["layers"] = [blocks.init_moe_layer(generator, cfg, device)
+                                for _ in range(cfg.n_layers)]
         else:
             params["layers"] = [blocks.init_dense_layer(generator, cfg, device)
                                 for _ in range(cfg.n_layers)]
@@ -143,6 +150,12 @@ class Model:
             if tail:
                 cache["mamba_tail"] = stacked(one, tail)
             return cache
+        if cfg.mla is not None:
+            r, dr = cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim
+            shapes = {"ckv": (cfg.n_layers, batch, s_max, r),
+                      "kpe": (cfg.n_layers, batch, 1, s_max, dr)}
+            return {k: torch.zeros(s, dtype=dtype, device=device)
+                    for k, s in shapes.items()}
         return kv_cache(cfg.n_layers)
 
     # ---- trunk -----------------------------------------------------------------
@@ -187,11 +200,18 @@ class Model:
                                      (i,), cache_index)
                 aux = aux + a
             return x, cache, aux
-        for i, lp in enumerate(params["layers"]):
-            c = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
-            x, _, a = blocks.apply_dense_layer(lp, x, cfg, positions=positions,
-                                               impl=impl, cache=c,
-                                               cache_index=cache_index)
+        if cfg.mla is not None:
+            apply = blocks.apply_mla_layer
+        elif cfg.moe is not None:
+            apply = blocks.apply_moe_layer
+        else:
+            apply = blocks.apply_dense_layer
+        # DeepSeek's dense layer0 on cache slice 0, the MoE layers on 1:
+        stack = ([params["layer0"]] if "layer0" in params else []) + params["layers"]
+        for i, lp in enumerate(stack):
+            c = None if cache is None else {k: t[i] for k, t in cache.items()}
+            x, _, a = apply(lp, x, cfg, positions=positions, impl=impl, cache=c,
+                            cache_index=cache_index)
             aux = aux + a
         return x, cache, aux
 
@@ -261,9 +281,33 @@ def count_params(cfg) -> int:
 
 
 def count_active_params(cfg) -> int:
-    """Active params per token: all of them in the dense, RWKV6 and Zamba2
-    families (the MoE scaling of routed experts comes with ROADMAP A11.1)."""
-    return count_params(cfg)
+    """Active params per token: routed experts scaled by ``top_k / E``.
+
+    The reference scales each leaf of its stacked tree and truncates it to
+    an int; a port leaf path over the per-layer list (``layers`` and the
+    like) is that stacked leaf, so each path's total is scaled and
+    truncated once, as the reference does.
+    """
+    totals: dict[tuple, int] = {}
+
+    def walk(tree, path: tuple) -> None:
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+        elif isinstance(tree, list):
+            for v in tree:
+                walk(v, path)
+        else:
+            totals[path] = totals.get(path, 0) + int(math.prod(tree.shape))
+
+    walk(param_shapes(cfg), ())
+    total = 0
+    for path, n in totals.items():
+        if "experts" in path and cfg.moe is not None:
+            e = cfg.moe.n_routed_padded or cfg.moe.n_routed
+            n = int(n * cfg.moe.top_k / e)
+        total += n
+    return total
 
 
 def model_params_from_reference(tree, device: str | torch.device = "cuda") -> Params:
@@ -271,8 +315,8 @@ def model_params_from_reference(tree, device: str | torch.device = "cuda") -> Pa
     port's params on ``device``: the same names and layouts, with the
     stacked ``layers`` and ``mamba_tail`` split into one dict per layer and
     ``mamba_main`` (stacked ``(n_sb, attn_every, ...)``) into a list of
-    super-blocks of such lists. Arrays are copied (JAX hands out read-only
-    buffers)."""
+    super-blocks of such lists; DeepSeek's ``layer0`` stays one dict.
+    Arrays are copied (JAX hands out read-only buffers)."""
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}

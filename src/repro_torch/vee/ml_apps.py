@@ -47,7 +47,7 @@ from ..core.lower import (Lowered, chain_dag, costs_from_sizes, fanout_stage,
 from ..kernels.dag_walk import WalkOperand, WalkStage
 from ..models import blocks
 from ..models.model import Model
-from ..models.moe import NEG_INF, init_moe
+from ..models.moe import NEG_INF, init_moe, top_k
 from .apps import DeviceLowering
 
 __all__ = [
@@ -305,7 +305,7 @@ def moe_dispatch_lowering_for(
         if e > routed:
             logits = torch.where(padding, torch.full_like(logits, NEG_INF), logits)
         p = torch.softmax(logits, dim=0)
-        w, idx = torch.topk(p, k)
+        w, idx = top_k(p, k)
         w = w / torch.clamp(w.sum(), min=1e-9)
         return torch.cat([idx.to(torch.float32), w])
 

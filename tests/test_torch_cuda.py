@@ -1538,3 +1538,61 @@ def test_serving_pair_on_the_card_is_its_direct_composition(cuda):
         assert low.meta["device"].type == "cuda"
         assert np.isfinite(results[arch]).all()
         assert np.array_equal(results[arch], low.run_direct()), arch
+
+
+# ---------------------------------------------------------------- MoE and MLA
+
+def test_route_on_the_card_is_the_cpus_on_ties(cuda):
+    """The router's top k on the card, on bf16 inputs whose logits are
+    exact in any summation order (quarter-integer router, integer tokens)
+    and tie often: the expert indices are bitwise the CPU's, the lower
+    index first among equal probabilities on both."""
+    from repro_torch.models import moe as tmoe
+
+    moe = get_config("qwen2-moe-a2.7b").reduced().moe
+    rng = np.random.default_rng(1)
+    router = torch.from_numpy(rng.integers(-1, 2, (64, moe.n_routed)).astype(np.float32) * 0.25)
+    x = torch.from_numpy(rng.integers(-2, 3, (2 * 1088, 64)).astype(np.float32)).bfloat16()
+    idx, w, probs = tmoe._route(router, x, moe)
+    idx_g, w_g, probs_g = tmoe._route(router.to(cuda), x.to(cuda), moe)
+    assert torch.equal(idx_g.cpu(), idx)
+    torch.testing.assert_close(w_g.cpu(), w, rtol=0, atol=1e-6)
+    tied = (probs[:, :, None] == probs[:, None, :]).sum((1, 2)) > moe.n_routed
+    assert int(tied.sum()) > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
+def test_moe_model_prefill_on_card_through_k4(cuda, arch):
+    """A reduced Qwen1.5-MoE / DeepSeek-V2-Lite prefill of 1,088 tokens on
+    the card (the chunked impl: one K4 launch a layer; DeepSeek's MLA at
+    its full head widths, q and k 192, v 128, the widths K4 is compiled
+    for), against the same prefill on the card through K4's plain version:
+    last-position logits within the smoke's LOGIT_TOL, 10% of the largest
+    (the two attentions round differently in fp32, which can flip a bf16
+    rounding and, on a near tie, an expert downstream)."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import Model
+    from repro_torch.models import attention as tattention
+
+    cfg = get_config(arch).reduced()
+    if cfg.mla is not None:
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, nope_head_dim=128, rope_head_dim=64, v_head_dim=128))
+    model = Model(cfg)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = model.init_params(gen)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 1088))).to(cuda)
+    before = _build.FLASH_ATTENTION.launches["flash_attention"]
+    lg, cache = model.prefill(params, {"tokens": toks}, model.init_cache(2, 1092, device=cuda))
+    torch.cuda.synchronize()
+    assert _build.FLASH_ATTENTION.launches["flash_attention"] == before + cfg.n_layers
+    with mock.patch.object(tattention, "flash_attention", flash_attention_plain):
+        lp, _ = model.prefill(params, {"tokens": toks}, model.init_cache(2, 1092, device=cuda))
+    assert _build.FLASH_ATTENTION.launches["flash_attention"] == before + cfg.n_layers
+    assert bool(torch.isfinite(lg).all())
+    scale = float(lp.float().abs().max())
+    assert float((lg.float() - lp.float()).abs().max()) <= 0.10 * scale

@@ -174,23 +174,30 @@ def test_serve_main_on_the_cpu(capsys):
 # ---------------------------------------------------------------------------
 
 RECURRENT = {"rwkv6-3b": 3_073_477_120, "zamba2-7b": 6_751_130_832}
+#: (all, active) parameters: routed experts count top_k / E of theirs
+MOE = {"qwen2-moe-a2.7b": (14_316_259_328, 2_689_648_640),
+       "deepseek-v2-lite-16b": (15_706_484_224, 2_661_150_208)}
 
 
-@pytest.mark.parametrize("arch", DENSE + sorted(RECURRENT))
+@pytest.mark.parametrize("arch", DENSE + sorted(RECURRENT) + sorted(MOE))
 def test_param_counts_match_reference(arch):
     cfg, jcfg = get_config(arch), jget_config(arch)
     assert count_params(cfg) == jmodel.count_params(jcfg) == cfg.param_count()
     assert count_active_params(cfg) == jmodel.count_active_params(jcfg)
     assert count_params(cfg.reduced()) == jmodel.count_params(jcfg.reduced())
+    assert count_active_params(cfg.reduced()) == jmodel.count_active_params(jcfg.reduced())
     if arch in RECURRENT:  # the reference's counts, as the configs cite them
         assert count_params(cfg) == count_active_params(cfg) == RECURRENT[arch]
+    if arch in MOE:
+        assert (count_params(cfg), count_active_params(cfg)) == MOE[arch]
 
 
-@pytest.mark.parametrize("arch", sorted(set(list_configs()) - set(DENSE) - set(RECURRENT)))
+@pytest.mark.parametrize("arch", sorted(set(list_configs()) - set(DENSE) - set(RECURRENT)
+                                        - set(MOE)))
 def test_other_families_raise_naming_their_item(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A11\.[1-6]"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A11\.[56]"):
         Model(get_config(arch))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A11\.[1-6]"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A11\.[56]"):
         get_config(arch).param_count()
 
 
@@ -223,7 +230,7 @@ _GUARD = textwrap.dedent("""
                                    tile_c=128, n_shards=2)
     assert out["propagate"].shape == (256,)
     assert attention(*[torch.ones(1, 2, 8, 16)] * 3).shape == (1, 2, 8, 16)
-    for arch in ("rwkv6-3b", "zamba2-7b"):
+    for arch in ("rwkv6-3b", "zamba2-7b", "qwen2-moe-a2.7b", "deepseek-v2-lite-16b"):
         res = serve_lm(argparse.Namespace(arch=arch, smoke=True, requests=2, slots=2,
                                           prompt_len=16, gen_len=2, technique="GSS",
                                           device="cpu"))
@@ -235,7 +242,7 @@ _GUARD = textwrap.dedent("""
                 torch.ones(2, 16), chunk=4).shape == (1, 2, 8, 16)
     for m in ("models.attention", "models.blocks", "models.model", "launch.serve",
               "kernels.flash_attention", "kernels.ops", "vee.sparse", "models.rwkv",
-              "models.ssm", "kernels.rwkv6_scan", "kernels.ssm_scan"):
+              "models.ssm", "kernels.rwkv6_scan", "kernels.ssm_scan", "models.moe"):
         assert f"repro_torch.{m}" in sys.modules, m
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
