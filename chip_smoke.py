@@ -59,7 +59,15 @@ super-table walker kernel and the DLS-scheduled CC step — at real sizes:
   experts, top-6, plus 2 shared; vocab 102,400; 15.71 B parameters, 62.83
   GB fp32), each at full size with Granite's traffic, after Zamba2's with
   everything before freed, their prefill attention through K4 at (128,
-  128) and at MLA's (192, 128).
+  128) and at MLA's (192, 128);
+* training of Qwen2-0.5B at full width (24 layers, d_model 896, 14 heads
+  over 2 kv heads of 64, d_ff 4,864, vocab 151,936, tied embeddings;
+  494,147,456 parameters, fp32 master weights with AdamW's two moments)
+  through ``python -m repro_torch.launch.train``: 8 x 2,048 tokens a step
+  packed by the DaphneSched data pipeline, remat "full", the attention's
+  forward and gradient through K4's forward and backward kernels, 3 steps,
+  a checkpoint written, restored bitwise and resumed from, in a temporary
+  directory deleted afterwards.
 
 Phases, each printed as one JSON line with its seconds: environment, build
 of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
@@ -105,7 +113,15 @@ exactly 24 x 6 = 144 K4 launches; ``--arch deepseek-v2-lite-16b``: 27 x 6
 config's widths, MoE and MLA sub-configs and parameter counts checked,
 nothing launched in decode, the first batch's logits through K4 against
 K4's plain version, and K4 alone on the served call's own q, k, v and on
-randn against its float64 oracle and plain version. K5 and K6 run split
+randn against its float64 oracle and plain version; then training
+(``train_qwen2_0_5b``: the config's widths and parameter count; the first
+step's loss and every gradient leaf through K4 against the same step
+through K4's plain forward and backward, within TRAIN_GRAD_TOL, and the
+control with the attention output detached failing it; exactly 48 K4
+forward and 24 backward launches a step; finite losses; the checkpoint
+restored bitwise the final state; ``resumed_from`` right; K4's forward and
+backward at the training shape against their float64 oracles and plain
+versions, the backward twice bitwise and without its D term failing). K5 and K6 run split
 TF32 on the tensor cores in two launches a call (counted once): each
 one's row gives the device ms of both by ``torch.profiler`` and requires
 the profiler to record the two launches a call, requires a tensor-core
@@ -216,6 +232,13 @@ SERVE_BATCHES, GRANITE_LAYERS = 6, 36
 # |v_j|) + 2^-16 sum_j w_j |v_j|; against the plain version both sides
 # round, so twice the limit.
 K4_ULP, K4_FP32 = 2.0 ** -8, 2.0 ** -16
+# K4's gradient (the backward kernel, on the forward's output and LSE)
+# against a float64 gradient of the same inputs (`k4_grad_oracle`): the
+# kernel's fp32 part is its sums over up to group x Skv terms (eps32 sqrt(k)
+# of the sum of |terms|: 2^-16 at 7 x 2,048), the forward's LSE and expf of
+# a score whose own fp32 sum errs by eps32 sqrt(dh) of its |terms|; 2^-14 of
+# each entry's sum of |terms| holds them with a margin of 4.
+K4_BWD_FP32 = 2.0 ** -14
 # The first batch's last-position logits through K4 against the same
 # weights through K4's plain version: the two attention outputs differ in
 # fp32 rounding, which flips bf16 roundings downstream; 36 layers of bf16
@@ -240,6 +263,21 @@ QWEN_MOE_SERVE = dict(SERVE, arch="qwen2-moe-a2.7b")
 DEEPSEEK_SERVE = dict(SERVE, arch="deepseek-v2-lite-16b")
 QWEN_MOE_LAYERS, DEEPSEEK_LAYERS = 24, 27
 QWEN_MOE_PARAMS = (14_316_259_328, 2_689_648_640)
+# Training (phase `train_qwen2_0_5b`): Qwen2-0.5B at full width through
+# `launch/train.py`, 8 x 2,048 tokens a step, remat "full", 3 steps with a
+# checkpoint after the last, then one resumed step. Each step runs K4's
+# forward twice a layer (the forward and the remat recompute) and its
+# backward once.
+TRAIN = dict(arch="qwen2-0.5b", seq=2048, global_batch=8, steps=3)
+TRAIN_LAYERS, QWEN2_PARAMS = 24, 494_147_456
+# The first step's gradients through K4 against the same step through K4's
+# plain forward and backward: the two attentions round in fp32 apart, which
+# flips bf16 roundings downstream and through 24 layers of the backward;
+# each leaf within 10% of its largest |gradient| (LOGIT_TOL's share; a k
+# bias, whose exact gradient is 0, within 10% of its wk's), the loss within
+# 1e-2 of itself. The control, the attention output detached, takes every
+# gradient of q, k and v away and must fail the limit.
+TRAIN_GRAD_TOL, TRAIN_LOSS_RTOL = 0.10, 1e-2
 DEEPSEEK_PARAMS = (15_706_484_224, 2_661_150_208)
 # K5 and K6 against a float64 oracle of the same recurrence, per entry.
 # Let M be the entry's sum of |terms| (the oracle run on |inputs|: every
@@ -1815,6 +1853,65 @@ def k4_check(dev, cases: dict, tile_k: int) -> dict:
     return checks
 
 
+def k4_grad_oracle(q, k, v, dout, causal: bool = True) -> dict:
+    """K4's gradient in float64 on the same inputs, and each entry's limits
+    (see K4_BWD_FP32): ``{name: (exact, limit, limit_vs_plain)}`` for dq,
+    dk and dv, one batch at a time.
+
+    The kernels round each gradient once to the inputs' type (unit
+    roundoff ``u``: 2^-8 for bfloat16, 2^-24 for float32), and D = rowsum(dO
+    * O) reads the forward's output rounded to that type, which moves dS
+    by up to ``u P rowsum(|dO| |O|)``; the fp32 sums, expf and the LSE add
+    under ``K4_BWD_FP32`` of each entry's sum of |terms| ``T``. So a dq
+    entry's limit is ``u (|dq| + scale (P Dabs) |K|) + K4_BWD_FP32 T``, dk's
+    the same with Q, and dv's ``u |dv| + K4_BWD_FP32 T``. Against the plain
+    backward on the same output and LSE only the fp32 part and the final
+    rounding differ: ``2 u |g| + 2 K4_BWD_FP32 T``."""
+    import torch
+
+    b, h, sq, dh = q.shape
+    kvh, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kvh
+    u = K4_ULP if q.dtype == torch.bfloat16 else 2.0 ** -24
+    scale = 1.0 / math.sqrt(dh)
+    mask = (torch.arange(sq, device=q.device)[:, None]
+            >= torch.arange(skv, device=q.device)[None, :]) if causal else None
+    parts = {n: ([], [], []) for n in ("dq", "dk", "dv")}
+    for i in range(b):
+        q64, do64 = q[i].double(), dout[i].double()
+        k64 = k[i].double().repeat_interleave(g, dim=0)
+        v64 = v[i].double().repeat_interleave(g, dim=0)
+        s = (q64 @ k64.transpose(1, 2)) * scale
+        if causal:
+            s = s.masked_fill(~mask, -1e30)
+        w = torch.softmax(s, dim=-1)
+        del s
+        o = w @ v64
+        dp = do64 @ v64.transpose(1, 2)
+        delta = (do64 * o).sum(-1, keepdim=True)
+        dabs = (do64.abs() * o.abs()).sum(-1, keepdim=True)
+        ds = w * (dp - delta)
+        terms = w * (dp.abs() + delta.abs())
+        del dp
+        wd = w * dabs
+        grp = lambda t: t.reshape(kvh, g, *t.shape[1:]).sum(1)  # noqa: E731
+        dq = scale * (ds @ k64)
+        dk = grp(scale * (ds.transpose(1, 2) @ q64))
+        dvv = grp(w.transpose(1, 2) @ do64)
+        t_q = scale * (terms @ k64.abs())
+        t_k = grp(scale * (terms.transpose(1, 2) @ q64.abs()))
+        t_v = grp(w.transpose(1, 2) @ do64.abs())
+        r_q = scale * (wd @ k64.abs())
+        r_k = grp(scale * (wd.transpose(1, 2) @ q64.abs()))
+        for n, exact, t, r in (("dq", dq, t_q, r_q), ("dk", dk, t_k, r_k),
+                               ("dv", dvv, t_v, 0.0)):
+            parts[n][0].append(exact)
+            parts[n][1].append(u * (exact.abs() + r) + K4_BWD_FP32 * t)
+            parts[n][2].append(2 * u * exact.abs() + 2 * K4_BWD_FP32 * t)
+        del w, o, ds, terms, wd, k64, v64
+    return {n: tuple(torch.stack(x) for x in p) for n, p in parts.items()}
+
+
 def logits_vs_plain_k4(dev, res, serve: dict, logits_k) -> tuple:
     """The first batch's last-position logits through K4 (``logits_k``,
     from ``serve_checked``) against the same weights and prompts through
@@ -2505,6 +2602,360 @@ def serve_deepseek_v2_lite_phase(dev) -> dict:
     return row
 
 
+def leaf_scale(leaves: dict, path: str) -> float:
+    """The largest |entry| of leaf ``path`` of a gradient tree (``leaves``:
+    path -> tensor); for a k bias, whose exact gradient is 0 (softmax is
+    invariant to a shift shared by a query's keys), its layer's ``wk``'s if
+    larger (``tests/test_torch_train.py`` holds gradients the same way)."""
+    scale = float(leaves[path].abs().max())
+    if path.endswith("attn/bk"):
+        scale = max(scale, float(leaves[path[:-2] + "wk"].abs().max()))
+    return scale
+
+
+def tree_paths(tree, path: tuple = ()) -> dict:
+    """path -> leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {p: t for k, v in tree.items() for p, t in tree_paths(v, path + (k,)).items()}
+    if isinstance(tree, list):
+        return {p: t for i, v in enumerate(tree)
+                for p, t in tree_paths(v, path + (str(i),)).items()}
+    return {"/".join(path): tree}
+
+
+def grad_shares(got, want) -> dict:
+    """Per leaf: the largest |got - want| over ``leaf_scale`` of want, over
+    TRAIN_GRAD_TOL (1 is the limit)."""
+    g, w = tree_paths(got), tree_paths(want)
+    return {p: float((g[p].float() - w[p].float()).abs().max())
+            / (TRAIN_GRAD_TOL * leaf_scale(w, p)) for p in w}
+
+
+def k4_bwd_row(dev, qkv: tuple, dout, launches: int, launches_per_step: int) -> tuple:
+    """K4's backward kernel on a train call's own q, k, v (with randn dout)
+    and on randn tensors of the same shapes: against its float64 gradient
+    (``k4_grad_oracle``) and its plain version on the same output and LSE,
+    the same bits on a second call, and the no-D control (a zero output)
+    beyond the float64 limit; then its ms, device ms (three kernels a
+    call), plain ms and SDPA's backward (forward + backward less forward).
+    Returns the kernels line's row and the checks."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (_forward, flash_attention_bwd,
+                                                     flash_attention_bwd_plain)
+
+    q, k, v = qkv
+    b, h, sq, dh = q.shape
+    kvh, dv = k.shape[1], v.shape[-1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    checks = {}
+    for what, (q_, k_, v_) in (("train", (q, k, v)), ("randn", k4_randn(dev, q, k, v))):
+        do = torch.randn((b, h, sq, dv), generator=gen, device=dev).bfloat16()
+        out, lse = _forward(q_, k_, v_, True, with_lse=True)
+        got = flash_attention_bwd(q_, k_, v_, out, do, lse, True)
+        again = flash_attention_bwd(q_, k_, v_, out, do, lse, True)
+        plain = flash_attention_bwd_plain(q_, k_, v_, out, do, lse, True, 1024)
+        oracle = k4_grad_oracle(q_, k_, v_, do, True)
+        worst = dict(err_o=0.0, share_o=0.0, err_p=0.0, share_p=0.0)
+        for n, g_, a_, p_ in zip(("dq", "dk", "dv"), got, again, plain):
+            exact, lim, lim_p = oracle[n]
+            require(torch.equal(g_, a_), f"K4 backward ({what}) {n}: two calls differ")
+            bad_o, err_o, share_o = beyond(g_, exact, lim)
+            bad_p, err_p, share_p = beyond(g_, p_, lim_p)
+            require(bad_o == 0, f"K4 backward ({what}) {n} vs float64: {bad_o} entries "
+                                f"beyond the limit, max abs err {err_o:.3g}")
+            require(bad_p == 0, f"K4 backward ({what}) {n} vs plain: {bad_p} entries "
+                                f"beyond the limit, max abs err {err_p:.3g}")
+            for key, val in (("err_o", err_o), ("share_o", share_o), ("err_p", err_p),
+                             ("share_p", share_p)):
+                worst[key] = max(worst[key], val)
+        no_d = flash_attention_bwd(q_, k_, v_, torch.zeros_like(out), do, lse, True)
+        worst["no_d_control_entries_beyond"] = sum(
+            beyond(g_, oracle[n][0], oracle[n][1])[0] for n, g_ in zip(("dq", "dk"), no_d))
+        require(worst["no_d_control_entries_beyond"] > 0,
+                f"K4 backward ({what}): the control without the D term passes the limit")
+        checks[what] = worst
+        del out, lse, got, again, plain, oracle, no_d
+    do = torch.randn((b, h, sq, dv), generator=gen, device=dev).bfloat16()
+    out, lse = _forward(q, k, v, True, with_lse=True)
+    kernel = lambda: flash_attention_bwd(q, k, v, out, do, lse, True)  # noqa: E731
+    plain = lambda: flash_attention_bwd_plain(q, k, v, out, do, lse, True, 1024)  # noqa: E731
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    gqa = dict(enable_gqa=True) if kvh != h else {}
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, **gqa)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do)
+
+    fwd_ms, fwd_bwd_ms = timed(sdpa_fwd, 10), timed(sdpa_fwd_bwd, 10)
+    pairs = sq * (sq + 1) // 2
+    row = dict(
+        name="flash_attention_bwd[dh 64, group 7, Qwen2-0.5B train]", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:63 (its gradient: the reference "
+                 "differentiates src/repro/models/attention.py:136 chunked_attention "
+                 "with jax.value_and_grad; it has no Pallas backward)",
+        launches=launches, launches_per_step=launches_per_step,
+        max_abs_err=max(c["err_p"] for c in checks.values()),
+        max_abs_err_vs_float64=max(c["err_o"] for c in checks.values()),
+        ms=timed(kernel, 5), **kernel_device_ms(kernel, ("bwd_",), reps=3),
+        plain_ms=timed(plain, 2), library_ms=fwd_bwd_ms - fwd_ms,
+        library_call=f"F.scaled_dot_product_attention(q, k, v, is_causal=True, "
+                     f"enable_gqa=True) forward + backward ({fwd_bwd_ms:.4g} ms) less "
+                     f"forward ({fwd_ms:.4g} ms)",
+        shapes=f"q ({b}, {h}, {sq}, {dh}), k and v ({b}, {kvh}, {sq}, {dh}), dout "
+               f"({b}, {h}, {sq}, {dv}) bf16, causal; the last layer's q, k, v of the "
+               "first train step, dout randn",
+        # the function's five products (s, dP, dV, dK, dQ) at the bf16 peak;
+        # bytes: q, k, v, out, dout and the LSE read, dq, dk, dv written
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel())
+            + 4 * lse.numel(),
+            2 * b * h * pairs * (3 * dh + 2 * dv), PEAK_BF16))))
+    return row, checks
+
+
+def train_qwen2_0_5b_phase(dev) -> list[dict]:
+    """Qwen2-0.5B training at full width through ``launch/train.py``: 8 x
+    2,048 tokens a step, packed by the DaphneSched data pipeline, remat
+    "full", AdamW, a checkpoint written and restored. First the first
+    step's loss and gradients through K4 (forward and backward kernels)
+    against the same step through K4's two plain versions, and the control
+    with the attention output detached; then the launcher's run with the
+    counters set to 0 just before and read just after (exactly 48 forward
+    and 24 backward K4 launches a step), the restored checkpoint bitwise
+    the final state, and a resumed run. Returns K4's forward and backward
+    rows at (64, 64), group 7."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline, SyntheticCorpus
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import Model, count_params
+    from repro_torch.models import attention as attention_module
+    from repro_torch.runtime import loss_and_grads
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN["arch"])
+    widths = dict(n_layers=TRAIN_LAYERS, d_model=896, n_heads=14, n_kv_heads=2, head_dim=64,
+                  d_ff=4864, vocab_size=151936, tie_embeddings=True, remat=True,
+                  remat_policy="full", attn_impl="chunked", attn_chunk_kv=1024)
+    got = {n: getattr(cfg, n) for n in widths}
+    require(got == widths, f"{TRAIN['arch']} widths {got}, want {widths}")
+    require(count_params(cfg) == QWEN2_PARAMS,
+            f"{TRAIN['arch']}: {count_params(cfg)} params, want {QWEN2_PARAMS}")
+    b, seq = TRAIN["global_batch"], TRAIN["seq"]
+
+    # -- the first step's gradients: K4 against its plain pair ---------------
+    model = Model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init_params(gen)
+    pipe = DataPipeline(SyntheticCorpus(vocab_size=cfg.vocab_size, mean_len=seq // 2), b, seq)
+    t = time.perf_counter()
+    tokens = pipe.assemble(0)
+    assembly_s = time.perf_counter() - t
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    kept = {}
+    fn = attention_module.flash_attention
+
+    def keep(*a, **kw):
+        kept["call"] = (tuple(x.detach() for x in a), kw)
+        return fn(*a, **kw)
+
+    for k_ in _build.KERNELS:
+        k_.launches.clear()
+    t = time.perf_counter()
+    with mock.patch.object(attention_module, "flash_attention", keep):
+        loss_k, _, grads_k = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t
+    one = launch_counts(_build.KERNELS)
+    require(one == {"flash_attention": 2 * TRAIN_LAYERS, "flash_attention_bwd": TRAIN_LAYERS},
+            f"one K4 gradient of the train loss launched {one}")
+    with mock.patch.object(attention_module, "flash_attention", fa.flash_attention_plain_pair):
+        loss_p, _, grads_p = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    require(launch_counts(_build.KERNELS) == one, "the plain pair launched a kernel")
+    shares = grad_shares(grads_k, grads_p)
+    loss_err = abs(float(loss_k) - float(loss_p))
+    require(math.isfinite(float(loss_k)) and loss_err <= TRAIN_LOSS_RTOL * abs(float(loss_p)),
+            f"first-step loss through K4 {float(loss_k)} vs plain {float(loss_p)}")
+    worst = max(shares, key=shares.get)
+    require(shares[worst] <= 1.0, f"first-step gradient of {worst} through K4 vs plain: "
+                                  f"{shares[worst]:.3g} of the limit")
+    del grads_k
+    with mock.patch.object(attention_module, "flash_attention",
+                           lambda *a, **kw: fn(*a, **kw).detach()):
+        _, _, grads_d = loss_and_grads(model, params, batch)
+    control = grad_shares(grads_d, grads_p)
+    control_worst = max(control, key=control.get)
+    require(control[control_worst] > 1.0,
+            "the detached-attention control passes the gradient limit")
+    del grads_d, grads_p, params, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the launcher's run, a checkpoint, and a resumed run ------------------
+    tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
+    try:
+        def argv(n_steps: int) -> list[str]:
+            return ["--arch", TRAIN["arch"], "--seq", str(seq), "--global-batch", str(b),
+                    "--steps", str(n_steps), "--ckpt-dir", str(tmp),
+                    "--checkpoint-every", str(TRAIN["steps"]), "--device", "cuda"]
+
+        for k_ in _build.KERNELS:
+            k_.launches.clear()
+        run = train_launch.main(argv(TRAIN["steps"]))
+        torch.cuda.synchronize()
+        launches = launch_counts(_build.KERNELS)
+        steps = TRAIN["steps"]
+        require(launches == {"flash_attention": 2 * TRAIN_LAYERS * steps,
+                             "flash_attention_bwd": TRAIN_LAYERS * steps},
+                f"train: launches {launches} in {steps} steps")
+        rep = run.report
+        require(rep.steps_run == steps and rep.retries == 0 and rep.resumed_from is None,
+                f"train report {rep}")
+        losses = [m["loss"] for m in run.metrics]
+        require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+                f"train losses {losses}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        require(ckpt.latest_step(tmp) == steps - 1, f"checkpoint steps in {list(tmp.iterdir())}")
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / f"step_{steps - 1:08d}").iterdir())
+        t = time.perf_counter()
+        tree, _, step = ckpt.restore(tmp, device=dev)
+        restore_s = time.perf_counter() - t
+        saved, final = tree_paths(tree), tree_paths(run.state.__dict__)
+        require(step == steps - 1 and set(saved) == set(final)
+                and all(torch.equal(saved[p], final[p]) for p in final),
+                "the restored checkpoint differs from the final state")
+        del tree, saved
+        # the step's device busy share, one step under the profiler
+        busy = train_step_busy(run, dev)
+        run_tps = run.tokens_per_second
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k_ in _build.KERNELS:
+            k_.launches.clear()
+        resumed = train_launch.main(argv(1))
+        require(resumed.report.resumed_from == steps - 1 and resumed.report.steps_run == 1
+                and launch_counts(_build.KERNELS) == {
+                    "flash_attention": 2 * TRAIN_LAYERS, "flash_attention_bwd": TRAIN_LAYERS},
+                f"resumed run: {resumed.report}, launches {launch_counts(_build.KERNELS)}")
+        require(math.isfinite(resumed.metrics[0]["loss"]), "resumed loss not finite")
+        step_times = rep.step_times
+        # a save of the resumed run's state, timed (the host copy, then the
+        # write), the run's checkpoint gone first: one state on disk at a time
+        shutil.rmtree(tmp)
+        t = time.perf_counter()
+        ckpt.save_async(tmp, steps, resumed.state.__dict__)
+        snapshot_s = time.perf_counter() - t
+        ckpt.wait_for_pending()
+        write_s = time.perf_counter() - t - snapshot_s
+        del resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- K4 at the training shape ----------------------------------------------
+    (q, k, v), kw = kept["call"]
+    require(q.shape == (b, 14, seq, 64) and k.shape == v.shape == (b, 2, seq, 64)
+            and q.dtype == torch.bfloat16 and kw == dict(causal=True, tile_k=1024),
+            f"the train call of K4: q {tuple(q.shape)} {q.dtype}, {kw}")
+    fwd_row, fwd_checks = k4_served_row(
+        dev, "flash_attention[dh 64, group 7, Qwen2-0.5B train]", (q, k, v), kw,
+        launches["flash_attention"], "the last layer's q, k, v of the first train step")
+    fwd_row["launches_per_step"] = 2 * TRAIN_LAYERS
+    do = torch.randn((b, 14, seq, 64), device=dev).bfloat16()
+    bwd_row, bwd_checks = k4_bwd_row(dev, (q, k, v), do, launches["flash_attention_bwd"],
+                                     TRAIN_LAYERS)
+    del q, k, v, do, kept
+    step_s = statistics.median(step_times)
+    emit("train_qwen2_0_5b", arch=TRAIN["arch"], params=QWEN2_PARAMS, batch=b, seq=seq,
+         steps=TRAIN["steps"], launches=launches,
+         losses=losses, step_seconds=step_times, step_seconds_median=step_s,
+         tokens_per_second=b * seq / step_s, run_tokens_per_second=run_tps,
+         assembly_seconds=assembly_s, assembly_share_of_step=assembly_s / step_s,
+         first_gradient_seconds=grad_s, peak_memory_gb=peak_gb, step_busy=busy,
+         checkpoint_bytes=ckpt_bytes, checkpoint_snapshot_seconds=snapshot_s,
+         checkpoint_write_seconds=write_s, restore_seconds=restore_s,
+         resumed_from=steps - 1,
+         first_step_loss=[float(loss_k), float(loss_p)], first_step_loss_err=loss_err,
+         grad_tol=f"{TRAIN_GRAD_TOL} of each leaf's largest |gradient| (a k bias: its "
+                  "wk's) through K4's plain pair",
+         grad_worst=[worst, shares[worst]],
+         grad_shares_by_leaf_kind=share_summary(shares),
+         detached_control_worst=[control_worst, control[control_worst]],
+         k4_tol="2^-8 (|o| + sum w|v|) + 2^-16 sum w|v| vs float64; x2 vs plain",
+         k4_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in fwd_checks.items()},
+         k4_bwd_tol="u (|g| + D's rounding carried) + 2^-14 sum|terms| vs float64; "
+                    "2u|g| + 2^-13 sum|terms| vs plain",
+         k4_bwd_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in bwd_checks.items()},
+         k4_bwd_vs_plain={w_: [c["err_p"], c["share_p"]] for w_, c in bwd_checks.items()},
+         k4_bwd_no_d_control={w_: c["no_d_control_entries_beyond"]
+                              for w_, c in bwd_checks.items()},
+         dout_copies=dict(fa.DOUT_COPIES),
+         seconds=time.perf_counter() - t_phase)
+    return [fwd_row, bwd_row]
+
+
+def share_summary(shares: dict) -> dict:
+    """The worst share of the limit per leaf name (layer indices dropped)."""
+    out: dict = {}
+    for p, v in shares.items():
+        name = "/".join(k for k in p.split("/") if not k.isdigit())
+        out[name] = max(out.get(name, 0.0), v)
+    return out
+
+
+def train_step_busy(run, dev) -> dict:
+    """One more train step of ``run``'s model under ``torch.profiler``:
+    the sum of its kernels' device time over the step's host seconds (the
+    profiler's own overhead makes the share a lower bound; the sum holds
+    the ``PROFILE_FILLER`` launches that open the session, a few ms), and
+    the kernels that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import build_train_step
+
+    step = build_train_step(run.model, AdamWConfig())
+    tokens = torch.from_numpy(run.pipeline.assemble(TRAIN["steps"])).to(dev)
+    filler = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_FILLER):
+            filler.add_(1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = step(run.state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    del state
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in rows) / 1e6
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(wall_seconds=wall, device_seconds=device_s, busy_share=device_s / wall,
+                top=[[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top])
+
+
 def main() -> None:
     """Run every phase; exit non-zero on the first failed check."""
     t_all = time.perf_counter()
@@ -2958,6 +3409,10 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         kernels.append(phase(dev))
+    # training after every serving phase, with everything before freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.extend(train_qwen2_0_5b_phase(dev))
 
     for row in kernels:
         row["redesigned"] = row["name"] in REDESIGNED

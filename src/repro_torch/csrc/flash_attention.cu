@@ -78,6 +78,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;              // contiguous (B, H, Sq, dv)
+  float* lse;           // contiguous (B, H, Sq), m + log l of each row, or null
   Strides qs, ks, vs;
   int H, group;         // query heads, query heads per kv head
   int Sq, Skv, causal;
@@ -251,6 +252,8 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * r + i;
     if (row >= p.Sq) continue;
+    if (p.lse != nullptr && c == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + row] = m[i] + logf(l[i]);
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int jj = 0; jj < NC; ++jj)
@@ -590,6 +593,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_wgmma(Params p) {
   for (int rr = 0; rr < 2; ++rr) {
     const int row = qw + row_a + 8 * rr;
     if (row >= p.Sq) continue;
+    if (p.lse != nullptr && t % 4 == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + row] = m[rr] + logf(l[rr]);
     const float den = fmaxf(l[rr], 1e-30f);
 #pragma unroll
     for (int n8 = 0; n8 < DV / 8; ++n8) {
@@ -622,10 +627,12 @@ int launch(const Params& p, int B, int bf16_in, void* stream) {
 
 // q: (B, H, Sq, dh), k: (B, KV, Skv, dh), v: (B, KV, Skv, dv), each with
 // element strides (batch, head, seq) and a contiguous last axis, 16-byte
-// aligned rows; out: contiguous (B, H, Sq, dv). bf16 != 0: bfloat16
-// tensors, else float32.
+// aligned rows; out: contiguous (B, H, Sq, dv); lse: null, or contiguous
+// fp32 (B, H, Sq) that gets each row's log-sum-exp m + log l (what the
+// backward, csrc/flash_attention_bwd.cu, recomputes P from; the output is
+// the same either way). bf16 != 0: bfloat16 tensors, else float32.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int bf16, int B, int H, int KV,
+                               void* out, void* lse, int bf16, int B, int H, int KV,
                                int Sq, int Skv, int dh, int dv, long long qsb,
                                long long qsh, long long qss, long long ksb,
                                long long ksh, long long kss, long long vsb,
@@ -634,7 +641,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Skv < 1 ||
       B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, out, {qsb, qsh, qss}, {ksb, ksh, kss},
+  const Params p{q, k, v, out, static_cast<float*>(lse), {qsb, qsh, qss}, {ksb, ksh, kss},
                  {vsb, vsh, vss}, H, H / KV, Sq, Skv, causal, scale};
   if (dh == 16 && dv == 16) return launch<16, 16>(p, B, bf16, stream);
   if (dh == 64 && dv == 64) return launch<64, 64>(p, B, bf16, stream);

@@ -110,9 +110,11 @@ class Kernel:
 DAG_WALK = Kernel("dag_walk.cu")
 CC_PROPAGATE = Kernel("cc_propagate.cu")
 FLASH_ATTENTION = Kernel("flash_attention.cu")
+FLASH_ATTENTION_BWD = Kernel("flash_attention_bwd.cu")
 SSM_SCAN = Kernel("ssm_scan.cu")
 RWKV6_SCAN = Kernel("rwkv6_scan.cu")
-KERNELS = (DAG_WALK, CC_PROPAGATE, FLASH_ATTENTION, SSM_SCAN, RWKV6_SCAN)
+KERNELS = (DAG_WALK, CC_PROPAGATE, FLASH_ATTENTION, FLASH_ATTENTION_BWD, SSM_SCAN,
+           RWKV6_SCAN)
 
 
 def build_all() -> None:

@@ -1,4 +1,4 @@
-"""Flash-attention forward (K4): online-softmax attention over kv tiles.
+"""Flash attention (K4): the online-softmax forward and its gradient.
 
 The function of the Pallas kernel ``repro/kernels/flash_attention.py:
 flash_attention``, GQA included (``ops.attention`` of the reference repeats
@@ -23,6 +23,22 @@ version's kv tile, the grouping of the online-softmax updates, which
 moves only fp32 rounding; the kernel's kv tiles are 128 keys (bfloat16)
 or 64 (float32). Each row's recurrence does not depend on the q tiling,
 so the plain version takes all query rows at once.
+
+The gradient. The JAX package differentiates its chunked attention op by
+op (``jax.value_and_grad`` in ``runtime/steps.py``); on a CPU tensor
+autograd does the same through ``flash_attention_plain``'s ops. On a CUDA
+tensor that needs a gradient (grad enabled and q, k or v requiring it)
+``flash_attention`` goes through ``_FlashAttention``, a
+``torch.autograd.Function``: its forward launches the same kernel and has
+it write each row's log-sum-exp ``m + log l`` (fp32) beside the output,
+and its backward launches ``csrc/flash_attention_bwd.cu`` (the standard
+recurrences, its note gives the design), whose plain version is
+``flash_attention_bwd_plain``. A call without a gradient passes no LSE
+buffer, and its output is bit for bit the same. The backward never falls
+back to its plain version; a ``dout`` the kernel cannot read in place
+(``kernel_reads_in_place``) is copied to contiguous, counted in
+``DOUT_COPIES``. ``flash_attention_plain_pair`` is the same Function with
+the two plain versions in the kernels' places, the yardstick on the card.
 """
 
 from __future__ import annotations
@@ -32,10 +48,14 @@ import math
 
 import torch
 
-from ._build import FLASH_ATTENTION, ptr, stream
+from collections import Counter
 
-__all__ = ["NEG_INF", "HEAD_DIMS", "WIDTHS", "flash_attention", "flash_attention_plain",
-           "kernel_reads_in_place"]
+from ._build import FLASH_ATTENTION, FLASH_ATTENTION_BWD, ptr, stream
+
+__all__ = ["NEG_INF", "HEAD_DIMS", "WIDTHS", "DOUT_COPIES", "flash_attention",
+           "flash_attention_plain", "flash_attention_lse_plain",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_plain_pair", "kernel_reads_in_place"]
 
 NEG_INF = -1e30
 #: (dh, dv) pairs the CUDA kernel is compiled for: every dense config's
@@ -44,6 +64,9 @@ NEG_INF = -1e30
 WIDTHS = ((16, 16), (64, 64), (112, 112), (128, 128), (192, 128))
 #: the key widths among them
 HEAD_DIMS = tuple(sorted({dh for dh, _ in WIDTHS}))
+#: copies of a ``dout`` the backward kernel could not read in place, made
+#: by ``flash_attention_bwd`` before its launch (``"dout"``)
+DOUT_COPIES: Counter = Counter()
 
 
 def _shapes(q: torch.Tensor, k: torch.Tensor,
@@ -63,9 +86,11 @@ def _shapes(q: torch.Tensor, k: torch.Tensor,
     return b, h, kvh, sq, skv, dh, v.shape[3]
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True, tile_k: int = 512) -> torch.Tensor:
-    """The kernel's recurrence in plain PyTorch (any device).
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              causal: bool = True,
+                              tile_k: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's recurrence in plain PyTorch (any device): the output
+    and each row's log-sum-exp ``m + log l`` (fp32, ``(B, H, Sq)``).
 
     Kv tiles past the last query's position are skipped when ``causal``:
     they would add ``exp(-1e30 - m) = 0`` with ``corr = 1``.
@@ -95,7 +120,54 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "bkgqv,bkvd->bkgqd", p.to(v.dtype).float(), vt.float())
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, h, sq, dv).to(q.dtype)
+    return out.reshape(b, h, sq, dv).to(q.dtype), (m + torch.log(l)).reshape(b, h, sq)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, tile_k: int = 512) -> torch.Tensor:
+    """The forward kernel's function in plain PyTorch (any device); autograd
+    differentiates its ops on the CPU."""
+    return flash_attention_lse_plain(q, k, v, causal, tile_k)[0]
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                              causal: bool = True, tile_k: int = 512):
+    """The backward kernel's recurrences in plain PyTorch (any device):
+    ``(dq, dk, dv)`` in q's, k's and v's types.
+
+    ``D = rowsum(dout * out)``; per kv tile ``P = exp(s * scale - lse)``
+    (0 where masked), ``dV += P^T dout``, ``dS = P (dout v^T - D)``, ``dQ
+    += dS k``, ``dK = dS^T q`` summed over the group's query heads; dQ and
+    dK times ``scale`` at the end; all in fp32. ``out`` of zeros drops the
+    D term (the control the card tests hold the kernel's limit against).
+    """
+    b, h, kvh, sq, skv, dh, dv = _shapes(q, k, v)
+    g = h // kvh
+    tile_k = min(tile_k, skv)
+    scale = 1.0 / math.sqrt(dh)
+    qf = q.float().reshape(b, kvh, g, sq, dh)
+    dof = dout.float().reshape(b, kvh, g, sq, dv)
+    delta = (dof * out.float().reshape(b, kvh, g, sq, dv)).sum(-1)
+    lse_ = lse.float().reshape(b, kvh, g, sq, 1)
+    dq = torch.zeros((b, kvh, g, sq, dh), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, kvh, skv, dh), dtype=torch.float32, device=q.device)
+    dvv = torch.zeros((b, kvh, skv, dv), dtype=torch.float32, device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    end = min(skv, sq) if causal else skv
+    for k0 in range(0, end, tile_k):
+        kt = k[:, :, k0:k0 + tile_k].float()
+        vt = v[:, :, k0:k0 + tile_k].float()
+        p = torch.exp(torch.einsum("bkgqd,bkvd->bkgqv", qf, kt) * scale - lse_)
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[2], device=q.device)[None, :]
+            p = torch.where(qpos >= kpos, p, torch.zeros_like(p))
+        ds = p * (torch.einsum("bkgqd,bkvd->bkgqv", dof, vt) - delta[..., None])
+        dq += torch.einsum("bkgqv,bkvd->bkgqd", ds, kt)
+        dk[:, :, k0:k0 + tile_k] = torch.einsum("bkgqv,bkgqd->bkvd", ds, qf)
+        dvv[:, :, k0:k0 + tile_k] = torch.einsum("bkgqv,bkgqd->bkvd", p, dof)
+    return ((dq * scale).reshape(b, h, sq, dh).to(q.dtype), (dk * scale).to(k.dtype),
+            dvv.to(v.dtype))
 
 
 def kernel_reads_in_place(t: torch.Tensor) -> bool:
@@ -107,6 +179,118 @@ def kernel_reads_in_place(t: torch.Tensor) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           what: str = "flash_attention") -> tuple:
+    """The shapes of a kernel call on the card; raises on what the kernels
+    do not take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    shapes = _shapes(q, k, v)
+    dh, dv = shapes[5], shapes[6]
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"{what} kernel takes bfloat16 or float32 q, k "
+                         f"and v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if (dh, dv) not in WIDTHS:
+        raise ValueError(f"{what} kernel takes dh in {HEAD_DIMS} with "
+                         f"(dh, dv) one of {WIDTHS}, got ({dh}, {dv})")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
+        if not kernel_reads_in_place(t):
+            raise ValueError(f"{what} kernel: {name} needs a contiguous "
+                             f"last axis, strides a multiple of "
+                             f"{16 // t.element_size()} elements and 16-byte "
+                             f"aligned data, got strides {t.stride()}")
+    return shapes
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+             with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch the forward kernel; the LSE buffer only when ``with_lse``."""
+    b, h, kvh, sq, skv, dh, dv = _check(q, k, v)
+    out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    ll = ctypes.c_longlong
+    FLASH_ATTENTION.launch(
+        "flash_attention", ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse),
+        ctypes.c_int(int(q.dtype == torch.bfloat16)), ctypes.c_int(b),
+        ctypes.c_int(h), ctypes.c_int(kvh), ctypes.c_int(sq), ctypes.c_int(skv),
+        ctypes.c_int(dh), ctypes.c_int(dv), *(ll(st) for t in (q, k, v) for st in t.stride()[:3]),
+        ctypes.c_int(int(causal)),
+        ctypes.c_float(1.0 / math.sqrt(dh)), stream(q.device))
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                        causal: bool = True):
+    """``(dq, dk, dv)`` by the backward kernel (CUDA tensors only): ``out``
+    and ``lse`` are the forward kernel's output and LSE on the same q, k,
+    v; ``dout`` the output's gradient. q, k and v as ``flash_attention``
+    takes them; ``out`` contiguous, ``lse`` contiguous fp32 ``(B, H,
+    Sq)``. A ``dout`` the kernel cannot read in place is copied to
+    contiguous (``DOUT_COPIES``). Three launches (D, dK/dV, dQ), counted
+    once in ``FLASH_ATTENTION_BWD.launches["flash_attention_bwd"]``."""
+    b, h, kvh, sq, skv, dh, dv = _check(q, k, v, "flash_attention_bwd")
+    if out.shape != (b, h, sq, dv) or dout.shape != out.shape or out.dtype != q.dtype \
+            or dout.dtype != q.dtype or not out.is_contiguous() \
+            or lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() \
+            or any(t.device != q.device for t in (out, dout, lse)):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} {out.dtype}, dout "
+                         f"{tuple(dout.shape)} {dout.dtype} and lse {tuple(lse.shape)} "
+                         f"{lse.dtype} do not match q {tuple(q.shape)} {q.dtype}, or "
+                         "out / lse are not contiguous")
+    if not kernel_reads_in_place(dout):
+        dout = dout.contiguous()
+        DOUT_COPIES["dout"] += 1
+    dq = torch.empty((b, h, sq, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, kvh, skv, dh), dtype=q.dtype, device=q.device)
+    dvv = torch.empty((b, kvh, skv, dv), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    ll = ctypes.c_longlong
+    FLASH_ATTENTION_BWD.launch(
+        "flash_attention_bwd", ptr(q), ptr(k), ptr(v), ptr(out), ptr(dout), ptr(lse),
+        ptr(delta), ptr(dq), ptr(dk), ptr(dvv),
+        ctypes.c_int(int(q.dtype == torch.bfloat16)), ctypes.c_int(b),
+        ctypes.c_int(h), ctypes.c_int(kvh), ctypes.c_int(sq), ctypes.c_int(skv),
+        ctypes.c_int(dh), ctypes.c_int(dv),
+        *(ll(st) for t in (q, k, v, dout) for st in t.stride()[:3]),
+        ctypes.c_int(int(causal)), ctypes.c_float(1.0 / math.sqrt(dh)), stream(q.device))
+    return dq, dk, dvv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 with its gradient: the forward kernel writing the LSE, the
+    backward kernel on the saved q, k, v, output and LSE (``plain``: the
+    two plain versions in their places). Under ``torch.utils.checkpoint``
+    the forward runs again in the recompute and writes the same LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, tile_k: int, plain: bool):
+        if plain:
+            out, lse = flash_attention_lse_plain(q, k, v, causal, tile_k)
+        else:
+            out, lse = _forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.tile_k, ctx.plain = causal, tile_k, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if ctx.plain:
+            grads = flash_attention_bwd_plain(q, k, v, out, dout, lse, ctx.causal, ctx.tile_k)
+        else:
+            grads = flash_attention_bwd(q, k, v, out, dout, lse, ctx.causal)
+        return (*grads, None, None, None)
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, tile_k: int = 512) -> torch.Tensor:
     """Attention forward: q ``(B, H, Sq, dh)``, k ``(B, KV, Skv, dh)`` and
@@ -116,35 +300,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     have ``(dh, dv)`` in ``WIDTHS``, a contiguous last axis, other strides a
     multiple of 16 bytes and 16-byte aligned data (``_split_heads``'s
     transposed views qualify as they are); the kernel writes a contiguous
-    output. Anything else raises.
+    output. Anything else raises. Where a gradient is needed the call goes
+    through ``_FlashAttention`` (forward kernel with the LSE, backward
+    kernel); otherwise the forward kernel alone runs, without an LSE.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, tile_k)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    b, h, kvh, sq, skv, dh, dv = _shapes(q, k, v)
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention kernel takes bfloat16 or float32 q, k "
-                         f"and v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if (dh, dv) not in WIDTHS:
-        raise ValueError(f"flash_attention kernel takes dh in {HEAD_DIMS} with "
-                         f"(dh, dv) one of {WIDTHS}, got ({dh}, {dv})")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
-        if not kernel_reads_in_place(t):
-            raise ValueError(f"flash_attention kernel: {name} needs a contiguous "
-                             f"last axis, strides a multiple of "
-                             f"{16 // t.element_size()} elements and 16-byte "
-                             f"aligned data, got strides {t.stride()}")
-    out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
-    ll = ctypes.c_longlong
-    FLASH_ATTENTION.launch(
-        "flash_attention", ptr(q), ptr(k), ptr(v), ptr(out),
-        ctypes.c_int(int(q.dtype == torch.bfloat16)), ctypes.c_int(b),
-        ctypes.c_int(h), ctypes.c_int(kvh), ctypes.c_int(sq), ctypes.c_int(skv),
-        ctypes.c_int(dh), ctypes.c_int(dv), *(ll(st) for t in (q, k, v) for st in t.stride()[:3]),
-        ctypes.c_int(int(causal)),
-        ctypes.c_float(1.0 / math.sqrt(dh)), stream(q.device))
-    return out
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, tile_k, False)
+    return _forward(q, k, v, causal, with_lse=False)[0]
+
+
+def flash_attention_plain_pair(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               causal: bool = True, tile_k: int = 512) -> torch.Tensor:
+    """``flash_attention``'s function and gradient through the two plain
+    versions (``flash_attention_lse_plain`` and
+    ``flash_attention_bwd_plain``), paired as the kernels are (any device):
+    the yardstick a train step through K4 is held to on the card."""
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, tile_k, True)
+    return flash_attention_plain(q, k, v, causal, tile_k)

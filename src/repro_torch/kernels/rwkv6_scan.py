@@ -89,14 +89,21 @@ def rwkv6_scan_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logw and u are float32, ``dh`` is ``HEAD_DIM``, and each of r, k, v
     and logw has a contiguous last axis (other strides are free: the
     model's transposed head views go in as they are). Anything else
-    raises. A chunk above ``MAX_CHUNK`` runs as sub-chunks of its largest
-    divisor up to ``MAX_CHUNK`` (``_build.kernel_chunk``). The kernel's two
-    launches count as one in ``RWKV6_SCAN.launches["rwkv6_scan"]``.
+    raises, and so does a call on the card that needs a gradient (grad
+    enabled and an input requiring it): the kernel has no backward yet
+    (ROADMAP A12.2). A chunk above ``MAX_CHUNK`` runs as sub-chunks of its
+    largest divisor up to ``MAX_CHUNK`` (``_build.kernel_chunk``). The
+    kernel's two launches count as one in ``RWKV6_SCAN.launches["rwkv6_scan"]``.
     """
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, logw, u, chunk)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, logw, u)):
+        raise NotImplementedError(
+            "rwkv6_scan on the card has no backward kernel yet (ROADMAP A12.2): its "
+            "result would carry no gradient; train RWKV6 on the CPU, or call it "
+            "under torch.no_grad()")
     if r.dim() != 4 or not (k.shape == v.shape == logw.shape == r.shape):
         raise ValueError(f"rwkv6_scan: r, k, v and logw must share one (B, H, S, dh) "
                          f"shape, got {[tuple(t.shape) for t in (r, k, v, logw)]}")

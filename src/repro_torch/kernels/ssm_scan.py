@@ -85,7 +85,9 @@ def ssm_scan_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     On a CUDA tensor x, B and C share a dtype (bfloat16 or float32), dt
     and A are float32, ``dh`` is ``HEAD_DIM``, ``N`` is ``D_STATE``, and
     x, B and C have a contiguous last axis (other strides are free).
-    Anything else raises. A chunk above ``MAX_CHUNK`` (the default 128,
+    Anything else raises, and so does a call on the card that needs a
+    gradient (grad enabled and an input requiring it): the kernel has no
+    backward yet (ROADMAP A12.2). A chunk above ``MAX_CHUNK`` (the default 128,
     the Pallas wrapper's) runs as sub-chunks of its largest divisor up to
     ``MAX_CHUNK`` (``_build.kernel_chunk``). The kernel's two launches
     count as one in ``SSM_SCAN.launches["ssm_scan"]``.
@@ -94,6 +96,11 @@ def ssm_scan_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssm_scan_plain(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
+        raise NotImplementedError(
+            "ssm_scan on the card has no backward kernel yet (ROADMAP A12.2): its "
+            "result would carry no gradient; train Zamba2 on the CPU, or call it "
+            "under torch.no_grad()")
     if x.dim() != 4 or B.dim() != 3 or C.shape != B.shape \
             or tuple(dt.shape) != tuple(x.shape[:3]) or tuple(B.shape[:2]) != tuple(x.shape[:2]) \
             or tuple(A.shape) != (x.shape[2],):

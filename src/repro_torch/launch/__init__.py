@@ -1,1 +1,1 @@
-"""Entry points: LM serving (``serve.py``)."""
+"""Entry points: LM serving (``serve.py``) and training (``train.py``)."""

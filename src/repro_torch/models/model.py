@@ -17,19 +17,31 @@ super-block) and ``'mamba_tail'`` — and each layer writes its slice in
 place. ``model_params_from_reference`` turns the reference's params (numpy
 arrays, layers stacked) into the port's.
 
+Training (ROADMAP A12.1): ``Model.train_loss`` (next-token cross entropy
+plus the MoE aux loss) runs the same trunk with each layer wrapped by
+``_remat`` in ``torch.utils.checkpoint`` (``cfg.remat_policy`` "full"
+recomputes the layer, "dots" keeps its unbatched matrix products), as the
+reference wraps its scan bodies in ``jax.checkpoint``. On the card the
+attention's gradient is K4's backward kernel; K5 and K6 have no backward
+kernel yet and refuse under autograd there (A12.2), so Zamba2 and RWKV6
+train on the CPU only.
+
 Other families raise ``NotImplementedError`` naming their ROADMAP item:
 Whisper's encoder-decoder (A11.5) and the InternVL2 vision frontend
-(A11.6). Training (``train_loss``, ``cross_entropy``) waits for A12.
+(A11.6).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import blocks
 from .blocks import ZERO
@@ -38,7 +50,7 @@ from .rwkv import init_rwkv6_cache
 from .ssm import init_mamba2_cache
 
 __all__ = ["NEG_INF", "Model", "unported_part", "mask_vocab_padding",
-           "param_shapes", "count_params", "count_active_params",
+           "cross_entropy", "param_shapes", "count_params", "count_active_params",
            "model_params_from_reference"]
 
 NEG_INF = -1e30
@@ -61,14 +73,53 @@ def mask_vocab_padding(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     v_pad = logits.shape[-1]
     if v_pad == vocab_size:
         return logits
-    mask = torch.arange(v_pad, device=logits.device) < vocab_size
-    return torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    pad = torch.arange(v_pad, device=logits.device) >= vocab_size
+    return logits.masked_fill(pad, NEG_INF)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean next-token cross entropy over ``labels >= 0``: logits ``(B, S,
+    Vp)`` in fp32 with the vocab padding masked, labels ``(B, S)``, -1
+    masked. The reference's ``vp_cross_entropy`` is this on one device;
+    its vocab-parallel branch waits for the mesh layer (ROADMAP A17)."""
+    logits = mask_vocab_padding(logits.float(), vocab_size)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = labels >= 0
+    nll = torch.where(mask, lse - ll, torch.zeros_like(lse))
+    return nll.sum() / mask.sum().clamp_min(1)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of unbatched matrix products, recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, fn):
+    """``fn`` (a layer apply) under ``torch.utils.checkpoint`` per
+    ``cfg.remat`` / ``cfg.remat_policy``: "full" saves the layer's inputs
+    and recomputes the rest in the backward, "dots" also keeps its
+    unbatched matrix products."""
+    if not cfg.remat:
+        return fn
+    kw = {}
+    if getattr(cfg, "remat_policy", "full") == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts, _save_dots)
+
+    def wrapped(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+
+    return wrapped
 
 
 @dataclass
 class Model:
     """Config-driven LM (dense GQA, MoE, MLA, RWKV6, Zamba2): init /
-    prefill / decode_step."""
+    train_loss / prefill / decode_step."""
 
     cfg: Any
 
@@ -170,34 +221,35 @@ class Model:
         return getattr(self.cfg, "attn_impl", "chunked")
 
     def _trunk(self, params: Params, x: torch.Tensor, positions: torch.Tensor,
-               cache: Params | None = None, cache_index=None, impl: str | None = None):
-        """Run the layer stack. Returns ``(x, cache, aux_sum)``."""
+               cache: Params | None = None, cache_index=None, impl: str | None = None,
+               remat: bool = False):
+        """Run the layer stack. Returns ``(x, cache, aux_sum)``. ``remat``
+        (training, no cache) wraps each layer per ``_remat``."""
         cfg = self.cfg
         impl = impl or self._impl(x.shape[1])
+        wrap = partial(_remat, cfg) if remat else (lambda fn: fn)
         aux = ZERO
         if cfg.rwkv is not None:
+            rwkv = wrap(blocks.apply_rwkv_layer)
             for i, lp in enumerate(params["layers"]):
-                x, _, a = _recurrent(blocks.apply_rwkv_layer, lp, x, cfg, cache,
-                                     (i,), cache_index)
+                x, _, a = _recurrent(rwkv, lp, x, cfg, cache, (i,), cache_index)
                 aux = aux + a
             return x, cache, aux
         if cfg.ssm is not None:
+            mamba, shared = wrap(blocks.apply_mamba_layer), wrap(blocks.apply_dense_layer)
             main = None if cache is None else cache["mamba_main"]
             for sb, layers in enumerate(params["mamba_main"]):
                 for j, lp in enumerate(layers):
-                    x, _, a = _recurrent(blocks.apply_mamba_layer, lp, x, cfg, main,
-                                         (sb, j), cache_index)
+                    x, _, a = _recurrent(mamba, lp, x, cfg, main, (sb, j), cache_index)
                     aux = aux + a
                 c = None if cache is None else {"k": cache["attn"]["k"][sb],
                                                 "v": cache["attn"]["v"][sb]}
-                x, _, a = blocks.apply_dense_layer(params["shared_attn"], x, cfg,
-                                                   positions=positions, impl=impl,
-                                                   cache=c, cache_index=cache_index)
+                x, _, a = shared(params["shared_attn"], x, cfg, positions=positions,
+                                 impl=impl, cache=c, cache_index=cache_index)
                 aux = aux + a
             tail = None if cache is None else cache.get("mamba_tail")
             for i, lp in enumerate(params.get("mamba_tail", [])):
-                x, _, a = _recurrent(blocks.apply_mamba_layer, lp, x, cfg, tail,
-                                     (i,), cache_index)
+                x, _, a = _recurrent(mamba, lp, x, cfg, tail, (i,), cache_index)
                 aux = aux + a
             return x, cache, aux
         if cfg.mla is not None:
@@ -206,6 +258,7 @@ class Model:
             apply = blocks.apply_moe_layer
         else:
             apply = blocks.apply_dense_layer
+        apply = wrap(apply)
         # DeepSeek's dense layer0 on cache slice 0, the MoE layers on 1:
         stack = ([params["layer0"]] if "layer0" in params else []) + params["layers"]
         for i, lp in enumerate(stack):
@@ -224,6 +277,21 @@ class Model:
         return unembed(params["head"], x)
 
     # ---- public API ----------------------------------------------------------
+    def train_loss(self, params: Params, batch: dict):
+        """batch: tokens ``(B, S + 1)``. Next-token cross entropy over the
+        first S positions plus the layers' MoE aux loss: ``(loss, {'ce',
+        'aux'})``. The layers run under ``_remat``; the reference's
+        ``vp_cross_entropy`` is ``cross_entropy`` on one device (its mesh
+        branch waits for ROADMAP A17)."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self._embed_inputs(params, {"tokens": tokens})
+        x, _, aux = self._trunk(params, x, positions, remat=True)
+        ce = cross_entropy(self._logits(params, x), labels, cfg.vocab_size)
+        loss = ce + aux
+        return loss, {"ce": ce, "aux": aux}
+
     def prefill(self, params: Params, batch: dict, cache: Params):
         """Run a prompt, fill the cache's head, return last-position logits."""
         tokens = batch["tokens"]

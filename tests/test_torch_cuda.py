@@ -1596,3 +1596,178 @@ def test_moe_model_prefill_on_card_through_k4(cuda, arch):
     assert bool(torch.isfinite(lg).all())
     scale = float(lp.float().abs().max())
     assert float((lg.float() - lp.float()).abs().max()) <= 0.10 * scale
+
+
+# ------------------------------------------------------ K4's gradient (A12.1)
+
+def _k4_grad_inputs(cuda, dtype, dh, dv, s, seed, b=1, kv=2, group=7):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    q = torch.randn((b, kv * group, s, dh), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, kv, s, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, kv, s, dv), generator=gen, device=cuda).to(dtype)
+    dout = torch.randn((b, kv * group, s, dv), generator=gen, device=cuda).to(dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh,dv", FLASH_WIDTHS)
+def test_flash_attention_bwd_against_float64_and_plain(cuda, dtype, causal, dh, dv):
+    """K4's backward kernel, GQA group 7 over 1,100 keys (the last 64- and
+    128-key tiles partial), on the forward kernel's own output and LSE:
+    within ``chip_smoke.k4_grad_oracle``'s per-entry limit of a float64
+    gradient of the same inputs; within its limit against the plain
+    backward on the same output and LSE; the same bits on a second call;
+    and the control, the kernel without the D term (a zero output), beyond
+    the float64 limit somewhere."""
+    from repro_torch.kernels.flash_attention import (_forward, flash_attention_bwd,
+                                                     flash_attention_bwd_plain)
+
+    smoke = _smoke()
+    q, k, v, dout = _k4_grad_inputs(cuda, dtype, dh, dv, 1100, dh + dv + int(causal))
+    out, lse = _forward(q, k, v, causal, with_lse=True)
+    before = _build.FLASH_ATTENTION_BWD.launches["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal)
+    again = flash_attention_bwd(q, k, v, out, dout, lse, causal)
+    torch.cuda.synchronize()
+    assert _build.FLASH_ATTENTION_BWD.launches["flash_attention_bwd"] == before + 2
+    plain = flash_attention_bwd_plain(q, k, v, out, dout, lse, causal, tile_k=128)
+    oracle = smoke.k4_grad_oracle(q, k, v, dout, causal)
+    for name, g, a, p in zip(("dq", "dk", "dv"), got, again, plain):
+        exact, lim, lim_plain = oracle[name]
+        assert g.dtype == dtype and g.shape == exact.shape and g.is_contiguous(), name
+        assert torch.equal(g, a), f"{name} differs between two calls"
+        assert smoke.beyond(g, exact, lim)[0] == 0, f"{name} vs float64"
+        assert smoke.beyond(g, p, lim_plain)[0] == 0, f"{name} vs plain"
+    no_d = flash_attention_bwd(q, k, v, torch.zeros_like(out), dout, lse, causal)
+    assert sum(smoke.beyond(g, oracle[n][0], oracle[n][1])[0]
+               for n, g in zip(("dq", "dk"), no_d)) > 0
+
+
+def test_flash_attention_forward_bits_without_and_with_lse(cuda):
+    """The serving forward's bits do not move when the call needs a
+    gradient (LSE written, one forward launch either way), and the LSE is
+    the plain version's within 1e-4 (it sums p from ex2.approx)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_lse_plain)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _ = _k4_grad_inputs(cuda, dtype, 64, 64, 1100, 3)
+        before = _build.FLASH_ATTENTION.launches["flash_attention"]
+        serve = flash_attention(q, k, v, causal=True)
+        qg = q.clone().requires_grad_(True)
+        train = flash_attention(qg, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert _build.FLASH_ATTENTION.launches["flash_attention"] == before + 2
+        assert serve.grad_fn is None and train.grad_fn is not None
+        assert torch.equal(serve, train.detach())
+        _, lse_plain = flash_attention_lse_plain(q, k, v, True, 128)
+        lse = train.grad_fn.saved_tensors[4]
+        torch.testing.assert_close(lse, lse_plain, atol=1e-4, rtol=0)
+
+
+def test_flash_attention_autograd_launches_the_backward_kernel(cuda):
+    """``flash_attention`` under autograd on the card: one forward and one
+    backward launch, gradients within the float64 limit; the same call
+    through the plain pair launches nothing; a ``dout`` the kernel cannot
+    read in place is copied once, counted in ``DOUT_COPIES``, with the
+    same gradients."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    smoke = _smoke()
+    q, k, v, dout = _k4_grad_inputs(cuda, torch.bfloat16, 64, 64, 300, 4, b=2)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0 = _build.FLASH_ATTENTION.launches["flash_attention"]
+    b0 = _build.FLASH_ATTENTION_BWD.launches["flash_attention_bwd"]
+    out = tfa.flash_attention(*qkv, causal=True)
+    grads = torch.autograd.grad(out, qkv, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    assert _build.FLASH_ATTENTION.launches["flash_attention"] == f0 + 1
+    assert _build.FLASH_ATTENTION_BWD.launches["flash_attention_bwd"] == b0 + 1
+    oracle = smoke.k4_grad_oracle(q, k, v, dout, True)
+    for n, g in zip(("dq", "dk", "dv"), grads):
+        assert smoke.beyond(g, oracle[n][0], oracle[n][1])[0] == 0, n
+    pair = tfa.flash_attention_plain_pair(*qkv, causal=True, tile_k=128)
+    torch.autograd.grad(pair, qkv, dout)
+    assert _build.FLASH_ATTENTION.launches["flash_attention"] == f0 + 1
+    assert _build.FLASH_ATTENTION_BWD.launches["flash_attention_bwd"] == b0 + 1
+    # odd strides of a wider buffer: the kernel cannot read them in place
+    wide = torch.zeros((2, 14, 300, 65), device=cuda, dtype=torch.bfloat16)
+    wide[..., :64] = dout
+    c0 = tfa.DOUT_COPIES["dout"]
+    saved = out.grad_fn.saved_tensors
+    got = tfa.flash_attention_bwd(*saved[:4], wide[..., :64], saved[4], True)
+    assert tfa.DOUT_COPIES["dout"] == c0 + 1
+    for g, h in zip(got, grads):
+        assert torch.equal(g, h)
+
+
+def test_scans_refuse_a_gradient_on_the_card(cuda):
+    """K5 and K6 have no backward kernel yet: on the card a call that needs
+    a gradient raises, naming ROADMAP A12.2, and launches nothing; the same
+    call without a gradient launches once."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_state
+    from repro_torch.kernels.ssm_scan import ssm_scan_state
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    x = torch.randn((1, 64, 2, 64), generator=gen, device=cuda)
+    dt = torch.rand((1, 64, 2), generator=gen, device=cuda) * 0.1
+    A = -torch.rand((2,), generator=gen, device=cuda)
+    B, C = (torch.randn((1, 64, 64), generator=gen, device=cuda) for _ in range(2))
+    r, k, v = (torch.randn((1, 2, 64, 64), generator=gen, device=cuda) for _ in range(3))
+    logw = -torch.rand((1, 2, 64, 64), generator=gen, device=cuda)
+    u = torch.randn((2, 64), generator=gen, device=cuda)
+    cases = [(ssm_scan_state, (x, dt, A, B, C), _build.SSM_SCAN, "ssm_scan"),
+             (rwkv6_scan_state, (r, k, v, logw, u), _build.RWKV6_SCAN, "rwkv6_scan")]
+    for fn, args, kernel, entry in cases:
+        for i in range(len(args)):
+            needs = [t.clone().requires_grad_(j == i) for j, t in enumerate(args)]
+            before = kernel.launches[entry]
+            with pytest.raises(NotImplementedError, match="A12.2"):
+                fn(*needs, chunk=32)
+            assert kernel.launches[entry] == before
+        with torch.no_grad():
+            fn(*needs, chunk=32)
+        torch.cuda.synchronize()
+        assert kernel.launches[entry] == before + 1
+
+
+def test_reduced_dense_train_step_on_the_card_through_k4(cuda):
+    """One ``build_train_step`` step of the reduced Qwen2-0.5B over 1,088
+    tokens on the card (the chunked impl: K4 forward twice a layer, the
+    forward and the remat recompute, and its backward once) against the
+    same step through K4's plain forward and backward: the loss within
+    1e-2, each gradient leaf within the smoke's TRAIN_GRAD_TOL (10% of its
+    largest, a k bias of its wk's), the new params finite."""
+    from unittest import mock
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import Model
+    from repro_torch.models import attention as tattention
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import build_train_step, init_train_state, loss_and_grads
+
+    smoke = _smoke()
+    cfg = get_config("qwen2-0.5b").reduced()
+    model = Model(cfg)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    state = init_train_state(model, gen, AdamWConfig())
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 1089), dtype=np.int32)).to(cuda)
+    f0 = _build.FLASH_ATTENTION.launches["flash_attention"]
+    b0 = _build.FLASH_ATTENTION_BWD.launches["flash_attention_bwd"]
+    new, metrics = build_train_step(model, AdamWConfig())(state, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert _build.FLASH_ATTENTION.launches["flash_attention"] == f0 + 2 * cfg.n_layers
+    assert _build.FLASH_ATTENTION_BWD.launches["flash_attention_bwd"] == b0 + cfg.n_layers
+    assert all(bool(torch.isfinite(t).all()) for t in smoke.tree_paths(new.params).values())
+    loss_k, _, g_k = loss_and_grads(model, state.params, {"tokens": toks})
+    with mock.patch.object(tattention, "flash_attention", tfa.flash_attention_plain_pair):
+        loss_p, _, g_p = loss_and_grads(model, state.params, {"tokens": toks})
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-2 * abs(float(loss_p))
+    assert float(metrics["loss"]) == float(loss_k)
+    shares = smoke.grad_shares(g_k, g_p)
+    assert max(shares.values()) <= 1.0, max(shares.items(), key=lambda kv: kv[1])

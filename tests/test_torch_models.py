@@ -240,9 +240,18 @@ _GUARD = textwrap.dedent("""
                              x[:, :, 0], torch.ones(2), chunk=4).shape == (1, 8, 2, 16)
     assert wkv6(*[torch.ones(1, 2, 8, 16)] * 3, -torch.ones(1, 2, 8, 16),
                 torch.ones(2, 16), chunk=4).shape == (1, 2, 8, 16)
+    import tempfile
+    from repro_torch.launch.train import main as train_main
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        run = train_main(["--smoke", "--device", "cpu", "--arch", "qwen2-0.5b",
+                          "--seq", "1088", "--global-batch", "2", "--steps", "1",
+                          "--ckpt-dir", ckpt_dir, "--checkpoint-every", "1"])
+    assert run.report.steps_run == 1 and run.metrics[0]["loss"] > 0
     for m in ("models.attention", "models.blocks", "models.model", "launch.serve",
               "kernels.flash_attention", "kernels.ops", "vee.sparse", "models.rwkv",
-              "models.ssm", "kernels.rwkv6_scan", "kernels.ssm_scan", "models.moe"):
+              "models.ssm", "kernels.rwkv6_scan", "kernels.ssm_scan", "models.moe",
+              "launch.train", "optim.adamw", "runtime.steps", "runtime.fault",
+              "checkpoint.checkpoint", "data.pipeline"):
         assert f"repro_torch.{m}" in sys.modules, m
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
@@ -262,6 +271,14 @@ def test_flash_attention_source_calls_no_library():
     """K4 is written by hand: its source names no library attention."""
     src = (ROOT / "src" / "repro_torch" / "csrc" / "flash_attention.cu").read_text()
     for word in ("scaled_dot_product_attention", "cudnn", "cublas", "cutlass", "torch"):
+        assert word not in src.lower(), word
+
+
+def test_flash_attention_bwd_source_calls_no_library():
+    """K4's backward is written by hand: its source names no library."""
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "flash_attention_bwd.cu").read_text()
+    for word in ("scaled_dot_product_attention", "cudnn", "cublas", "cutlass", "torch",
+                 "triton"):
         assert word not in src.lower(), word
 
 
