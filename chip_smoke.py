@@ -121,7 +121,9 @@ control with the attention output detached failing it; exactly 48 K4
 forward and 24 backward launches a step; finite losses; the checkpoint
 restored bitwise the final state; ``resumed_from`` right; K4's forward and
 backward at the training shape against their float64 oracles and plain
-versions, the backward twice bitwise and without its D term failing). K5 and K6 run split
+versions, the backward twice bitwise and without its D term failing; each
+of its bf16 kernels issuing HGMMA with no stack frame or local memory, and
+its dK/dV and dQ kernels' device ms apart). K5 and K6 run split
 TF32 on the tensor cores in two launches a call (counted once): each
 one's row gives the device ms of both by ``torch.profiler`` and requires
 the profiler to record the two launches a call, requires a tensor-core
@@ -239,6 +241,17 @@ K4_ULP, K4_FP32 = 2.0 ** -8, 2.0 ** -16
 # a score whose own fp32 sum errs by eps32 sqrt(dh) of its |terms|; 2^-14 of
 # each entry's sum of |terms| holds them with a margin of 4.
 K4_BWD_FP32 = 2.0 ** -14
+# In bfloat16 the kernel also rounds P and dS to bfloat16 (u = 2^-8, half a
+# step of an 8-bit significand) as the A operands of dV += P^T dO, dQ += dS K
+# and dK += dS^T Q. A rounded operand x' = x (1 + e), |e| <= u, moves each
+# product by u |x| |y| at most, so an entry moves by at most u times its sum
+# of |operand products|: dv by u sum_i P |dO|, dq by u scale sum_j |dS| |K|,
+# dk by u scale sum_i |dS| |Q|. With |dS| = P |dP - D| <= P (|dP| + |D|),
+# each is at most u T, T the entry's sum of |terms| that the fp32 part
+# already carries: the bf16 limits gain u T. Against the plain version,
+# which rounds at the same places, the two sides round P and dS from fp32
+# values that differ in their last bits, so a rounding can flip, and that
+# limit gains u T too. float32 inputs are not rounded: nothing is added.
 # The first batch's last-position logits through K4 against the same
 # weights through K4's plain version: the two attention outputs differ in
 # fp32 rounding, which flips bf16 roundings downstream; 36 layers of bf16
@@ -311,7 +324,7 @@ REDESIGNED = frozenset({
     "dag_walk[recommendation, batched x8]", "dag_walk[linreg, seeded]",
     "dag_walk[recommendation, seeded]", "flash_attention", "flash_attention[dh 112, Zamba2]",
     "dag_walk[moe.experts]", "dag_walk[cc_iteration]", "ssm_scan", "rwkv6_scan",
-    "cc_propagate",
+    "cc_propagate", "flash_attention_bwd[dh 64, group 7, Qwen2-0.5B train]",
 })
 # The paper's own host entry points beside the card (phase
 # `paper_entry_points`): Listings 1 and 2 on the VEE's host pool, the
@@ -753,6 +766,14 @@ def sass_functions(kernel) -> list[str]:
     ``_build.Kernel``), by ``cuobjdump -sass``: one string a function, its
     mangled name on the first line."""
     import re
+
+    sass = cuobjdump("-sass", kernel)
+    return re.split(r"\n\s*Function : ", sass)[1:]
+
+
+def cuobjdump(option: str, kernel) -> str:
+    """``cuobjdump option`` of ``kernel``'s built library (a
+    ``_build.Kernel``), the tool beside ``nvcc``."""
     import shutil
 
     from repro_torch.kernels import _build
@@ -760,9 +781,39 @@ def sass_functions(kernel) -> list[str]:
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
     require(bool(tool), "cuobjdump not found beside nvcc")
-    sass = subprocess.run([tool, "-sass", str(kernel.library)],
+    return subprocess.run([tool, option, str(kernel.library)],
                           capture_output=True, text=True, check=True, timeout=120).stdout
-    return re.split(r"\n\s*Function : ", sass)[1:]
+
+
+def kernel_resources(kernel) -> dict:
+    """Each function's resources in ``kernel``'s built library as ptxas
+    fixed them (``cuobjdump -res-usage``): mangled name -> ``{"REG":
+    registers a thread, "STACK": bytes, "SHARED": bytes, "LOCAL": bytes}``.
+    A function that spills registers has a stack frame or local memory."""
+    import re
+
+    text = cuobjdump("-res-usage", kernel)
+    return {name: {k: int(n) for k, n in re.findall(r"([A-Z]+):(\d+)", line)}
+            for name, line in re.findall(r"Function ([^\s:]+):[ \t]*\n\s*([^\n]*)", text)}
+
+
+def k4_bwd_kernels() -> dict:
+    """K4's bfloat16 backward kernels (``bwd_*_wgmma``): readable name ->
+    ``[registers, stack bytes, local bytes, HGMMA in the SASS]``."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    def readable(mangled: str) -> str:
+        name = re.search(r"\d+(bwd_[a-z_]+?)I", mangled).group(1)
+        args = re.findall(r"Li(\d+)E", mangled)
+        return f"{name}<{', '.join(args)}>"
+
+    res = kernel_resources(_build.FLASH_ATTENTION_BWD)
+    sass = {f.split("\n", 1)[0].strip(): f for f in sass_functions(_build.FLASH_ATTENTION_BWD)}
+    return {readable(m): [r.get("REG"), r.get("STACK"), r.get("LOCAL"),
+                          "HGMMA" in sass.get(m, "")]
+            for m, r in res.items() if "_wgmma" in m}
 
 
 def walk_sass_has(program: str, word: str) -> bool:
@@ -1853,7 +1904,8 @@ def k4_check(dev, cases: dict, tile_k: int) -> dict:
     return checks
 
 
-def k4_grad_oracle(q, k, v, dout, causal: bool = True) -> dict:
+def k4_grad_oracle(q, k, v, dout, causal: bool = True,
+                   rounded_operands: bool | None = None) -> dict:
     """K4's gradient in float64 on the same inputs, and each entry's limits
     (see K4_BWD_FP32): ``{name: (exact, limit, limit_vs_plain)}`` for dq,
     dk and dv, one batch at a time.
@@ -1866,13 +1918,19 @@ def k4_grad_oracle(q, k, v, dout, causal: bool = True) -> dict:
     entry's limit is ``u (|dq| + scale (P Dabs) |K|) + K4_BWD_FP32 T``, dk's
     the same with Q, and dv's ``u |dv| + K4_BWD_FP32 T``. Against the plain
     backward on the same output and LSE only the fp32 part and the final
-    rounding differ: ``2 u |g| + 2 K4_BWD_FP32 T``."""
+    rounding differ: ``2 u |g| + 2 K4_BWD_FP32 T``. Where the kernel rounds
+    P and dS as operands (``rounded_operands``, by default for bfloat16
+    inputs), both limits gain ``u T`` (derived beside K4_BWD_FP32)."""
     import torch
 
     b, h, sq, dh = q.shape
     kvh, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = h // kvh
     u = K4_ULP if q.dtype == torch.bfloat16 else 2.0 ** -24
+    if rounded_operands is None:
+        rounded_operands = q.dtype == torch.bfloat16
+    fp32 = K4_BWD_FP32 + (u if rounded_operands else 0.0)  # each T's share
+    fp32_plain = 2 * K4_BWD_FP32 + (u if rounded_operands else 0.0)
     scale = 1.0 / math.sqrt(dh)
     mask = (torch.arange(sq, device=q.device)[:, None]
             >= torch.arange(skv, device=q.device)[None, :]) if causal else None
@@ -1906,8 +1964,8 @@ def k4_grad_oracle(q, k, v, dout, causal: bool = True) -> dict:
         for n, exact, t, r in (("dq", dq, t_q, r_q), ("dk", dk, t_k, r_k),
                                ("dv", dvv, t_v, 0.0)):
             parts[n][0].append(exact)
-            parts[n][1].append(u * (exact.abs() + r) + K4_BWD_FP32 * t)
-            parts[n][2].append(2 * u * exact.abs() + 2 * K4_BWD_FP32 * t)
+            parts[n][1].append(u * (exact.abs() + r) + fp32 * t)
+            parts[n][2].append(2 * u * exact.abs() + fp32_plain * t)
         del w, o, ds, terms, wd, k64, v64
     return {n: tuple(torch.stack(x) for x in p) for n, p in parts.items()}
 
@@ -2636,9 +2694,11 @@ def k4_bwd_row(dev, qkv: tuple, dout, launches: int, launches_per_step: int) -> 
     and on randn tensors of the same shapes: against its float64 gradient
     (``k4_grad_oracle``) and its plain version on the same output and LSE,
     the same bits on a second call, and the no-D control (a zero output)
-    beyond the float64 limit; then its ms, device ms (three kernels a
-    call), plain ms and SDPA's backward (forward + backward less forward).
-    Returns the kernels line's row and the checks."""
+    beyond the float64 limit; then its ms, device ms (three kernels a call,
+    and each kernel's apart), plain ms and SDPA's backward (forward +
+    backward less forward); first, that every bf16 backward kernel issues
+    HGMMA and has no stack frame or local memory (no spill). Returns the
+    kernels line's row and the checks."""
     import torch
     import torch.nn.functional as F
 
@@ -2648,6 +2708,11 @@ def k4_bwd_row(dev, qkv: tuple, dout, launches: int, launches_per_step: int) -> 
     q, k, v = qkv
     b, h, sq, dh = q.shape
     kvh, dv = k.shape[1], v.shape[-1]
+    # every bf16 backward kernel runs on wgmma and spills nothing
+    resources = k4_bwd_kernels()
+    require(len(resources) == 10 and all(r[3] and r[1] == 0 and r[2] == 0
+                                         for r in resources.values()),
+            f"K4 backward's bf16 kernels (registers, stack, local, HGMMA): {resources}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     checks = {}
@@ -2703,6 +2768,11 @@ def k4_bwd_row(dev, qkv: tuple, dout, launches: int, launches_per_step: int) -> 
         max_abs_err=max(c["err_p"] for c in checks.values()),
         max_abs_err_vs_float64=max(c["err_o"] for c in checks.values()),
         ms=timed(kernel, 5), **kernel_device_ms(kernel, ("bwd_",), reps=3),
+        device_ms_by_kernel={n: kernel_device_ms(kernel, (n,), reps=3)["device_ms"]
+                             for n in ("bwd_delta", "bwd_dkdv", "bwd_dq")},
+        bf16_kernels=resources,
+        bf16_kernels_keys="[registers a thread, stack bytes, local bytes, HGMMA in the "
+                          "SASS] (cuobjdump -res-usage and -sass of the built library)",
         plain_ms=timed(plain, 2), library_ms=fwd_bwd_ms - fwd_ms,
         library_call=f"F.scaled_dot_product_attention(q, k, v, is_causal=True, "
                      f"enable_gqa=True) forward + backward ({fwd_bwd_ms:.4g} ms) less "
@@ -2903,8 +2973,9 @@ def train_qwen2_0_5b_phase(dev) -> list[dict]:
          detached_control_worst=[control_worst, control[control_worst]],
          k4_tol="2^-8 (|o| + sum w|v|) + 2^-16 sum w|v| vs float64; x2 vs plain",
          k4_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in fwd_checks.items()},
-         k4_bwd_tol="u (|g| + D's rounding carried) + 2^-14 sum|terms| vs float64; "
-                    "2u|g| + 2^-13 sum|terms| vs plain",
+         k4_bwd_tol="u (|g| + D's rounding carried) + (2^-14 + u) sum|terms| vs float64; "
+                    "2u|g| + (2^-13 + u) sum|terms| vs plain (u = 2^-8: P and dS rounded "
+                    "to bf16 as operands)",
          k4_bwd_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in bwd_checks.items()},
          k4_bwd_vs_plain={w_: [c["err_p"], c["share_p"]] for w_, c in bwd_checks.items()},
          k4_bwd_no_d_control={w_: c["no_d_control_entries_beyond"]

@@ -32,9 +32,11 @@ tensor that needs a gradient (grad enabled and q, k or v requiring it)
 ``torch.autograd.Function``: its forward launches the same kernel and has
 it write each row's log-sum-exp ``m + log l`` (fp32) beside the output,
 and its backward launches ``csrc/flash_attention_bwd.cu`` (the standard
-recurrences, its note gives the design), whose plain version is
-``flash_attention_bwd_plain``. A call without a gradient passes no LSE
-buffer, and its output is bit for bit the same. The backward never falls
+recurrences, its note gives the design: bfloat16 on ``wgmma`` with P and
+dS rounded to bfloat16 as operands, float32 on fp32 FMA, chosen by
+dtype), whose plain version is ``flash_attention_bwd_plain``. A call
+without a gradient passes no LSE buffer, and its output is bit for bit
+the same. The backward never falls
 back to its plain version; a ``dout`` the kernel cannot read in place
 (``kernel_reads_in_place``) is copied to contiguous, counted in
 ``DOUT_COPIES``. ``flash_attention_plain_pair`` is the same Function with
@@ -139,8 +141,11 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``D = rowsum(dout * out)``; per kv tile ``P = exp(s * scale - lse)``
     (0 where masked), ``dV += P^T dout``, ``dS = P (dout v^T - D)``, ``dQ
     += dS k``, ``dK = dS^T q`` summed over the group's query heads; dQ and
-    dK times ``scale`` at the end; all in fp32. ``out`` of zeros drops the
-    D term (the control the card tests hold the kernel's limit against).
+    dK times ``scale`` at the end; all in fp32. For bfloat16 inputs P and
+    dS are rounded to bfloat16 where the kernel rounds them, as the A
+    operands of their products (``dV``; ``dQ`` and ``dK``), after dS is
+    formed from the unrounded P. ``out`` of zeros drops the D term (the
+    control the card tests hold the kernel's limit against).
     """
     b, h, kvh, sq, skv, dh, dv = _shapes(q, k, v)
     g = h // kvh
@@ -155,6 +160,10 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dvv = torch.zeros((b, kvh, skv, dv), dtype=torch.float32, device=q.device)
     qpos = torch.arange(sq, device=q.device)[:, None]
     end = min(skv, sq) if causal else skv
+
+    def rounded(x: torch.Tensor) -> torch.Tensor:
+        return x.to(q.dtype).float() if q.dtype == torch.bfloat16 else x
+
     for k0 in range(0, end, tile_k):
         kt = k[:, :, k0:k0 + tile_k].float()
         vt = v[:, :, k0:k0 + tile_k].float()
@@ -163,6 +172,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kpos = torch.arange(k0, k0 + kt.shape[2], device=q.device)[None, :]
             p = torch.where(qpos >= kpos, p, torch.zeros_like(p))
         ds = p * (torch.einsum("bkgqd,bkvd->bkgqv", dof, vt) - delta[..., None])
+        p, ds = rounded(p), rounded(ds)
         dq += torch.einsum("bkgqv,bkvd->bkgqd", ds, kt)
         dk[:, :, k0:k0 + tile_k] = torch.einsum("bkgqv,bkgqd->bkvd", ds, qf)
         dvv[:, :, k0:k0 + tile_k] = torch.einsum("bkgqv,bkgqd->bkvd", p, dof)

@@ -673,8 +673,10 @@ def test_flash_attention_strided_views_and_offset(cuda):
 
 
 def test_flash_attention_bf16_runs_on_tensor_cores(cuda):
-    """The bf16 kernel's SASS issues Hopper warpgroup products (HGMMA); the
-    fp32 kernel's issues none (fp32 FMA, no TF32)."""
+    """The bf16 kernels' SASS issues Hopper warpgroup products (HGMMA), the
+    forward's and the backward's (dK/dV and dQ, every width); the fp32
+    kernels' issues none (fp32 FMA, no TF32); and no bf16 backward kernel
+    spills (no stack frame, no local memory: ``cuobjdump -res-usage``)."""
     import re
     import shutil
     import subprocess
@@ -692,6 +694,19 @@ def test_flash_attention_bf16_runs_on_tensor_cores(cuda):
     assert len(wgmma) == 5 and len(fp32) == 5
     assert all("HGMMA" in f for f in wgmma)
     assert not any("HGMMA" in f or "HMMA" in f for f in fp32)
+
+    smoke = _smoke()
+    _build.FLASH_ATTENTION_BWD._load()
+    bwd = smoke.sass_functions(_build.FLASH_ATTENTION_BWD)
+    bwd_wgmma = [f for f in bwd if "_wgmma" in f.split("\n", 1)[0]]
+    bwd_fp32 = [f for f in bwd if re.search(r"bwd_(dkdv|dq)I", f.split("\n", 1)[0])]
+    assert len(bwd_wgmma) == 10 and len(bwd_fp32) == 10
+    assert all("HGMMA" in f for f in bwd_wgmma)
+    assert not any("HGMMA" in f or "HMMA" in f for f in bwd_fp32)
+    kernels = smoke.k4_bwd_kernels()
+    assert len(kernels) == 10
+    assert all(hgmma and stack == 0 and local == 0
+               for _, stack, local, hgmma in kernels.values()), kernels
 
 
 def test_flash_attention_mla_widths_against_float64(cuda):
@@ -1613,19 +1628,22 @@ def _k4_grad_inputs(cuda, dtype, dh, dv, s, seed, b=1, kv=2, group=7):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dh,dv", FLASH_WIDTHS)
-def test_flash_attention_bwd_against_float64_and_plain(cuda, dtype, causal, dh, dv):
-    """K4's backward kernel, GQA group 7 over 1,100 keys (the last 64- and
-    128-key tiles partial), on the forward kernel's own output and LSE:
-    within ``chip_smoke.k4_grad_oracle``'s per-entry limit of a float64
-    gradient of the same inputs; within its limit against the plain
-    backward on the same output and LSE; the same bits on a second call;
-    and the control, the kernel without the D term (a zero output), beyond
-    the float64 limit somewhere."""
+@pytest.mark.parametrize("group", [1, 7])
+def test_flash_attention_bwd_against_float64_and_plain(cuda, dtype, causal, dh, dv, group):
+    """K4's backward kernels (bf16 on wgmma, fp32 on FMA), GQA group 7 and
+    1 over 1,100 keys (the last 32-, 64- and 128-key tiles partial), on the
+    forward kernel's own output and LSE: within ``chip_smoke.
+    k4_grad_oracle``'s per-entry limit of a float64 gradient of the same
+    inputs (in bf16 with the term for P and dS rounded as operands); within
+    its limit against the plain backward on the same output and LSE; the
+    same bits on a second call; and the control, the kernel without the D
+    term (a zero output), beyond the float64 limit somewhere."""
     from repro_torch.kernels.flash_attention import (_forward, flash_attention_bwd,
                                                      flash_attention_bwd_plain)
 
     smoke = _smoke()
-    q, k, v, dout = _k4_grad_inputs(cuda, dtype, dh, dv, 1100, dh + dv + int(causal))
+    q, k, v, dout = _k4_grad_inputs(cuda, dtype, dh, dv, 1100, dh + dv + int(causal),
+                                    group=group)
     out, lse = _forward(q, k, v, causal, with_lse=True)
     before = _build.FLASH_ATTENTION_BWD.launches["flash_attention_bwd"]
     got = flash_attention_bwd(q, k, v, out, dout, lse, causal)

@@ -16,7 +16,9 @@ Tolerances:
   k4_grad_oracle``'s limit, the one the card holds the kernel to: the
   final rounding to the inputs' type and D's reading of the rounded
   output (``u`` = 2^-8 in bfloat16, 2^-24 in float32) plus 2^-14 of the
-  entry's sum of |terms| for the fp32 sums, exp and LSE;
+  entry's sum of |terms| for the fp32 sums, exp and LSE; in bfloat16 the
+  plain version rounds P and dS as the kernel does, and the limit carries
+  ``u`` of the sum of |terms| for those roundings (without it dv fails);
 * against the reference's ``jax.vjp``: in float32 within 1e-4 of each
   gradient's largest magnitude (both are fp32 end to end and differ in
   the order of sums and in tiling; seen 1e-6); in bfloat16 within 2^-4 of it: the
@@ -85,6 +87,23 @@ def test_bwd_plain_matches_reference_vjp_and_float64(causal, dh, dv, s, dtype):
         assert err <= VJP_TOL[dtype], (name, err)
         exact = oracle[name][0].numpy()
         assert _rel(g.float().numpy(), exact) <= 2 * _rel(w32, exact) + 1e-6, name
+
+
+@pytest.mark.parametrize("dh,dv", [(64, 64), (192, 128)])
+def test_bf16_operand_rounding_needs_its_limit_term(dh, dv):
+    """The bf16 plain backward, which rounds P and dS to bfloat16 as the
+    kernel's operands, is within ``k4_grad_oracle``'s limit, and the same
+    limit without the derived ``u T`` term (``rounded_operands=False``)
+    fails in dv (GQA group 7, 300 keys, causal; seen 2,745 and 5,781
+    entries beyond it)."""
+    (q, k, v, do), _ = _inputs(dh, dv, 300, torch.bfloat16, 11 + dh)
+    out, lse = tfa.flash_attention_lse_plain(q, k, v, True, 128)
+    got = tfa.flash_attention_bwd_plain(q, k, v, out, do, lse, True, 128)
+    oracle = SMOKE.k4_grad_oracle(q, k, v, do, True)
+    for name, g in zip(("dq", "dk", "dv"), got):
+        assert SMOKE.beyond(g, oracle[name][0], oracle[name][1])[0] == 0, name
+    old = SMOKE.k4_grad_oracle(q, k, v, do, True, rounded_operands=False)
+    assert SMOKE.beyond(got[2], old["dv"][0], old["dv"][1])[0] > 0
 
 
 def test_lse_and_plain_pair_match_autograd():
