@@ -67,7 +67,16 @@ super-table walker kernel and the DLS-scheduled CC step — at real sizes:
   packed by the DaphneSched data pipeline, remat "full", the attention's
   forward and gradient through K4's forward and backward kernels, 3 steps,
   a checkpoint written, restored bitwise and resumed from, in a temporary
-  directory deleted afterwards.
+  directory deleted afterwards;
+* training of RWKV6-3B at full width and depth (3,073,477,120 parameters)
+  through the launcher, 4 x 2,048 tokens a step, 3 steps, a checkpoint of
+  its 36.9 GB of weights and moments restored bitwise on the card, one
+  resumed step; and of Zamba2-7B at full width with its depth cut from 81
+  layers to 18 (three super-blocks; 1,838,512,800 parameters: all 81
+  layers' fp32 weights, gradients and moments take 108.0 GB) through
+  ``build_train_step``, 4 x 2,048 tokens, 3 steps: the scans' forward and
+  gradient through K6 and K6', K5 and K5', Zamba2's shared attention
+  through K4 and K4' at dh 112.
 
 Phases, each printed as one JSON line with its seconds: environment, build
 of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
@@ -123,7 +132,17 @@ restored bitwise the final state; ``resumed_from`` right; K4's forward and
 backward at the training shape against their float64 oracles and plain
 versions, the backward twice bitwise and without its D term failing; each
 of its bf16 kernels issuing HGMMA with no stack frame or local memory, and
-its dK/dV and dQ kernels' device ms apart). K5 and K6 run split
+its dK/dV and dQ kernels' device ms apart); then the recurrent families'
+training (``train_rwkv6_3b``: exactly 2 x 32 K6 and 32 K6' launches a
+step; ``train_zamba2_7b``: 2 x 18 K5, 18 K5', 2 x 3 K4 and 3 K4'; the
+first step's loss and gradient leaves on 4 and 6 layers at full width
+within TRAIN_GRAD_TOL of the same step through the scans' (and K4's)
+plain pairs (RWKV6: within its limit derived from the float64 witness,
+see RWKV_TRAIN), the control with the scan's outputs detached failing it;
+finite losses; K6' and K5' alone at the training shape against a float64
+gradient and their plain versions within ``scan_bwd_limits``, bitwise
+twice, the control with the carried state dropped failing the limit, with
+ms, device ms of each of their three kernels, plain ms and bound). K5 and K6 run split
 TF32 on the tensor cores in two launches a call (counted once): each
 one's row gives the device ms of both by ``torch.profiler`` and requires
 the profiler to record the two launches a call, requires a tensor-core
@@ -143,6 +162,7 @@ repository around it, the script fails and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -292,6 +312,44 @@ TRAIN_LAYERS, QWEN2_PARAMS = 24, 494_147_456
 # gradient of q, k and v away and must fail the limit.
 TRAIN_GRAD_TOL, TRAIN_LOSS_RTOL = 0.10, 1e-2
 DEEPSEEK_PARAMS = (15_706_484_224, 2_661_150_208)
+# Training the recurrent families (phases `train_rwkv6_3b`, `train_zamba2_7b`),
+# after Qwen2-0.5B's: RWKV6-3B at full width and depth through the launcher
+# (3,073,477,120 parameters: 36.9 GB of fp32 weights and AdamW moments,
+# updated in place, beside 12.3 GB of gradients), 4 x 2,048 tokens a step,
+# 3 steps with a checkpoint after the last and one resumed step; Zamba2-7B
+# at full width with its depth cut from 81 layers to 18 (three super-blocks
+# of attn_every = 6, no tail: 1,838,512,800 parameters; all 81 layers'
+# 6,751,130,832 take 108.0 GB at 16 bytes a parameter, beyond the card's
+# 80) through build_train_step on dataclasses.replace(cfg, n_layers=18), 4 x
+# 2,048 tokens, 3 steps. Each scan layer runs its forward twice a step (the
+# forward and the remat recompute) and its backward once; Zamba2's shared
+# attention block K4 twice and K4' once a super-block. The first-step
+# gradient check runs at full width on fewer layers (RWKV6 4, Zamba2 6, one
+# super-block), at the same TRAIN_GRAD_TOL, with its detached-scan control.
+# Both are held to the plain pairs. RWKV6's step is steep at
+# initialisation (u = 0, a zero w_lora_b): a head's output at a step is a
+# few recent values weighted by dot products r . k, cast to bfloat16 and
+# divided by their size in its group norm (ln_x, eps 1e-5), so a scan's
+# last-bit differences move its gradients far: through the kernels against
+# the plain pairs the embedding's gradient moves by 5.1 times
+# TRAIN_GRAD_TOL (an H100 80GB HBM3 at 700 W). Its check therefore carries
+# a witness, the same step with the scan in float64 (`rwkv6_float64_pair`:
+# the sequential oracle forward, the plain backward in float64), and every
+# K6 call of the step's forward held to K6's float64 limit at the call's
+# own inputs, the plain version's too (`rwkv6_forward_witness`). With
+# rho_P the plain pairs' step's worst share against the float64 step for a
+# leaf kind (a leaf's name without its layer index), a scan as sound as the
+# plain one may lie as far from that step on the other side, so RWKV6's
+# limit for the kind is max(1, 2 rho_P) of TRAIN_GRAD_TOL, for the
+# kernels' step against the plain pairs' and against the float64 step; the
+# detached control must fail it. (Against the float64 step the plain pairs
+# read 4.84 on the embedding and 1.2-3.4 elsewhere, the kernels 3.95 and
+# 1.1-3.3, on the same card.)
+RWKV_TRAIN = dict(arch="rwkv6-3b", seq=2048, global_batch=4, steps=3)
+ZAMBA_TRAIN = dict(arch="zamba2-7b", seq=2048, global_batch=4, steps=3, n_layers=18)
+RWKV_TRAIN_PARAMS, ZAMBA_PARAMS, ZAMBA_TRAIN_PARAMS = (3_073_477_120, 6_751_130_832,
+                                                       1_838_512_800)
+GRAD_CHECK_LAYERS = {"rwkv6-3b": 4, "zamba2-7b": 6}
 # K5 and K6 against a float64 oracle of the same recurrence, per entry.
 # Let M be the entry's sum of |terms| (the oracle run on |inputs|: every
 # gate and decay is positive) and c the largest |chunk-end cumsum| of the
@@ -307,6 +365,26 @@ DEEPSEEK_PARAMS = (15_706_484_224, 2_661_150_208)
 # rounded to bfloat16, held to the oracle of the unrounded inputs, must
 # pass the limit somewhere.
 SCAN_ROUNDINGS = 3
+# K5' and K6' (the scans' gradients) against a float64 gradient of the same
+# inputs (`scan_bwd_limits`: the plain backward in float64, the gradient
+# the CPU tests hold to jax.vjp of the reference). T is each entry's sum of
+# |terms| (the plain backward's `magnitude` run: |inputs|, every difference
+# a sum). Along any term's path the kernel's fp32 sums take a dot product
+# over dh, a sum over the chunk's steps, the reverse cumsum over them and
+# the carried state's dot product over dh: about 4 Q additions at dh = Q,
+# and the reverse pass's fmaf chain over the chunks; 6 Q holds them with a
+# margin. dA and du also sum over (batch, chunk), dB and dC over the heads:
+# those add to k. Each gate's exponent is a difference of fp32 prefix sums
+# (the (1 + c) of SCAN_ROUNDINGS). So an entry's limit is u |g| +
+# eps32 sqrt(k) (1 + c) T, u the unit roundoff of the gradient's own type
+# (bfloat16 dx, dB, dC, dr, dk, dv round once); against the plain version
+# both sides round: twice it. The control: the backward kernel with the
+# state carried between chunks dropped (`scan_bwd_dropped_carry`: the
+# forward's entering states zeroed), which must pass the limit somewhere.
+# (Decays rounded to bfloat16, the forward's control, do not serve under
+# fast decay: there the limit's (1 + c) is over a thousand, and the clamp
+# value -30 is exact in bfloat16.)
+SCAN_BWD_ROUNDINGS = 6
 # Launches of a small kernel that open each profiler session of
 # `kernel_device_ms`, in the places whose records the profiler drops
 PROFILE_FILLER = 1000
@@ -2191,6 +2269,66 @@ def ssm_checks(inputs: dict, chunk: int) -> tuple[dict, float]:
     return checks, err
 
 
+def scan_bwd_limits(kind: str, inputs: dict, dy, dstate, q: int) -> dict:
+    """K5''s (``kind`` "ssm") or K6''s ("rwkv6") float64 gradient of
+    ``inputs`` for y's gradient ``dy`` and the final state's ``dstate``, and
+    each entry's limits (see SCAN_BWD_ROUNDINGS): ``{name: (exact, limit,
+    limit_vs_plain)}``, for every check of K5' and K6', the smoke's and the
+    tests'. ``q`` is the kernel's chunk."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd_plain
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_plain
+
+    def unit(t):
+        return 2.0 ** -8 if t.dtype == torch.bfloat16 else 2.0 ** -24
+
+    if kind == "ssm":
+        x, dt, A, B, C = (inputs[n] for n in ("x", "dt", "A", "B", "C"))
+        bt, s, h, _ = x.shape
+        nc = s // q
+        args = (x, dt, A, B, C, dy, dstate, q)
+        names = ("dx", "ddt", "dA", "dB", "dC")
+        c = (dt.double() * A.double()).reshape(bt, nc, q, h).sum(2).abs().amax(1)   # (Bt, H)
+        cmax = (c[:, None, :, None], c[:, None, :], c.amax(0), c.amax(1)[:, None, None],
+                c.amax(1)[:, None, None])
+        extra = (0, 0, bt * nc, h, h)
+        units = (unit(x), 2.0 ** -24, 2.0 ** -24, unit(B), unit(C))
+        bwd = ssm_scan_bwd_plain
+    else:
+        r, k, v, logw, u = (inputs[n] for n in ("r", "k", "v", "logw", "u"))
+        b, h, s, dh = r.shape
+        nc = s // q
+        args = (r, k, v, logw, u, dy, dstate, q)
+        names = ("dr", "dk", "dv", "dlogw", "du")
+        c = logw.double().reshape(b, h, nc, q, dh).sum(3).abs().amax((2, 3))        # (B, H)
+        cmax = (c[:, :, None, None],) * 4 + (c.amax(0)[:, None],)
+        extra = (0, 0, 0, 0, b * nc)
+        units = (unit(r), unit(k), unit(v), 2.0 ** -24, 2.0 ** -24)
+        bwd = rwkv6_scan_bwd_plain
+    exact = bwd(*args, dtype=torch.float64)
+    terms = bwd(*args, dtype=torch.float64, magnitude=True)
+    out = {}
+    for name, g, t, cm, ex, un in zip(names, exact, terms, cmax, extra, units):
+        fp32 = EPS32 * math.sqrt(SCAN_BWD_ROUNDINGS * q + ex) * (1.0 + cm) * t
+        out[name] = (g, un * g.abs() + fp32, 2 * un * g.abs() + 2 * fp32)
+    return out
+
+
+def scan_bwd_dropped_carry(kind: str, args, chunk: int, dy, dstate) -> tuple:
+    """The control of K5' and K6' (see SCAN_BWD_ROUNDINGS): the backward
+    kernel on ``args`` with the forward's entering states zeroed."""
+    import torch
+
+    from repro_torch.kernels import rwkv6_scan, ssm_scan
+
+    if kind == "ssm":
+        _, _, cum, states = ssm_scan._forward(*args, chunk)
+        return ssm_scan.ssm_scan_bwd(*args, cum, torch.zeros_like(states), dy, dstate)
+    _, final, states = rwkv6_scan._forward(*args, chunk)
+    return rwkv6_scan.rwkv6_scan_bwd(*args, torch.zeros_like(states), final, dy, dstate)
+
+
 def serve_checked(dev, serve: dict, widths: dict, want_launches: dict, patches: dict):
     """``serve_lm`` of ``serve["arch"]`` at full size, launch counters set
     to 0 just before and read just after, its config's ``widths`` and its
@@ -2683,10 +2821,16 @@ def tree_paths(tree, path: tuple = ()) -> dict:
 
 def grad_shares(got, want) -> dict:
     """Per leaf: the largest |got - want| over ``leaf_scale`` of want, over
-    TRAIN_GRAD_TOL (1 is the limit)."""
+    TRAIN_GRAD_TOL (1 is the limit). A leaf whose gradient is 0 in want
+    (RWKV6's ``w_lora_a`` at initialisation, behind a zero ``w_lora_b``)
+    must be 0 in got too: its share is 0, or infinite."""
     g, w = tree_paths(got), tree_paths(want)
-    return {p: float((g[p].float() - w[p].float()).abs().max())
-            / (TRAIN_GRAD_TOL * leaf_scale(w, p)) for p in w}
+
+    def share(p: str) -> float:
+        err, scale = float((g[p].float() - w[p].float()).abs().max()), leaf_scale(w, p)
+        return err / (TRAIN_GRAD_TOL * scale) if scale else (0.0 if err == 0 else math.inf)
+
+    return {p: share(p) for p in w}
 
 
 def k4_bwd_row(dev, qkv: tuple, dout, launches: int, launches_per_step: int) -> tuple:
@@ -2914,7 +3058,8 @@ def train_qwen2_0_5b_phase(dev) -> list[dict]:
                 "the restored checkpoint differs from the final state")
         del tree, saved
         # the step's device busy share, one step under the profiler
-        busy = train_step_busy(run, dev)
+        busy = train_step_busy(run.model, run.state, torch.from_numpy(
+            run.pipeline.assemble(TRAIN["steps"])).to(dev))
         run_tps = run.tokens_per_second
         del run
         gc.collect()
@@ -2985,21 +3130,589 @@ def train_qwen2_0_5b_phase(dev) -> list[dict]:
     return [fwd_row, bwd_row]
 
 
+def recurrent_grad_check(dev, cfg, batch, scan: tuple, attention: bool,
+                         truth=None) -> dict:
+    """The first step's loss and gradient leaves of ``cfg`` on ``batch``
+    through the kernels against the same step through the plain pairs
+    (``scan``: the model module, its scan wrapper's name and the scan's
+    plain pair; with ``attention`` K4's plain pair too), each leaf within
+    the limit and the loss within TRAIN_LOSS_RTOL; then the control, the
+    scan's outputs detached, which must fail the limit. The limit is
+    TRAIN_GRAD_TOL, or with ``truth`` (the scan in float64, see
+    RWKV_TRAIN) max(1, 2 rho_P) of it for each leaf kind, rho_P the plain
+    pairs' step's worst share of that kind against the step through
+    ``truth``, and the kernels' step is held to that step within it too.
+    Returns the numbers, the kernel run's launches and its scan calls'
+    tensors and chunks (the forward's first, the backward's recomputes
+    after)."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attention_module
+    from repro_torch.runtime import loss_and_grads
+
+    module, fn_name, pair = scan
+    model = Model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init_params(gen)
+    fn = getattr(module, fn_name)
+    calls = []
+
+    def keep(*a, **kw):
+        calls.append((tuple(t.detach() for t in a[:5]), a[5]))
+        return fn(*a, **kw)
+
+    for k_ in _build.KERNELS:
+        k_.launches.clear()
+    t = time.perf_counter()
+    with mock.patch.object(module, fn_name, keep):
+        loss_k, _, grads_k = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t
+    launches = launch_counts(_build.KERNELS)
+
+    def through(scan_fn):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(module, fn_name, scan_fn))
+            if attention:
+                stack.enter_context(mock.patch.object(attention_module, "flash_attention",
+                                                      fa.flash_attention_plain_pair))
+            return loss_and_grads(model, params, batch)
+
+    loss_p, _, grads_p = through(pair)
+    torch.cuda.synchronize()
+    require(launch_counts(_build.KERNELS) == launches,
+            f"the plain pairs launched {launch_counts(_build.KERNELS)} after {launches}")
+    shares = grad_shares(grads_k, grads_p)
+    limits, witness = None, None    # limits: per leaf kind, in TRAIN_GRAD_TOL
+    if truth is not None:
+        _, _, grads_t = through(truth)
+        torch.cuda.synchronize()
+        require(launch_counts(_build.KERNELS) == launches,
+                f"the float64 step launched {launch_counts(_build.KERNELS)} after {launches}")
+        rho_p, rho_k = grad_shares(grads_p, grads_t), grad_shares(grads_k, grads_t)
+        del grads_t
+        limits = {kind: max(1.0, 2.0 * v) for kind, v in share_summary(rho_p).items()}
+        witness = dict(plain_pairs_vs_float64=share_summary(rho_p),
+                       kernels_vs_float64=share_summary(rho_k))
+
+    def over(sh: dict) -> dict:  # each leaf's share over its limit
+        return {q: v / (limits[leaf_kind(q)] if limits else 1.0) for q, v in sh.items()}
+
+    def worst_of(sh: dict) -> list:
+        o = over(sh)
+        q = max(o, key=o.get)
+        return [q, sh[q], o[q]]
+
+    loss_err = abs(float(loss_k) - float(loss_p))
+    worst = worst_of(shares)
+    require(math.isfinite(float(loss_k)) and loss_err <= TRAIN_LOSS_RTOL * abs(float(loss_p)),
+            f"{cfg.name} first-step loss through the kernels {float(loss_k)} vs plain "
+            f"{float(loss_p)}")
+    require(worst[2] <= 1.0, f"{cfg.name} first-step gradient through the kernels vs the "
+                             f"plain pairs: {worst} (leaf, share, share of its limit)")
+    if witness is not None:
+        witness["kernels_vs_float64_worst"] = worst_of(rho_k)
+        require(witness["kernels_vs_float64_worst"][2] <= 1.0,
+                f"{cfg.name} first-step gradient through the kernels vs the float64 step: "
+                f"{witness['kernels_vs_float64_worst']} (leaf, share, share of its limit)")
+    del grads_k
+    with mock.patch.object(module, fn_name,
+                           lambda *a, **kw: tuple(t.detach() for t in fn(*a, **kw))):
+        _, _, grads_d = loss_and_grads(model, params, batch)
+    control = worst_of(grad_shares(grads_d, grads_p))
+    require(control[2] > 1.0, f"{cfg.name}: the detached-scan control passes the gradient "
+                              f"limit: {control} (leaf, share, share of its limit)")
+    del grads_d, grads_p, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(layers=cfg.n_layers, launches=launches, seconds=grad_s,
+               yardstick="the plain pairs" + (" and K4's plain pair" if attention else ""),
+               loss=[float(loss_k), float(loss_p)], loss_err=loss_err,
+               worst=worst, shares_by_leaf_kind=share_summary(shares),
+               detached_control_worst=control)
+    if witness is not None:
+        out["limits_by_leaf_kind"] = limits
+        out["float64_witness"] = witness
+    return out, calls
+
+
+def rwkv6_float64_pair(r, k, v, logw, u, chunk: int = 64):
+    """``rwkv6_scan_state``'s function and gradient in float64: the
+    sequential oracle (``kernels/ref.py:rwkv6_scan_ref``) forward and
+    ``rwkv6_scan_bwd_plain`` in float64, given back in float32 and the
+    inputs' dtypes. The truth RWKV6's train steps are read against (see
+    RWKV_TRAIN)."""
+    import torch
+
+    from repro_torch.kernels.ref import rwkv6_scan_ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd_plain
+
+    class Float64Scan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, r, k, v, logw, u):
+            ctx.set_materialize_grads(False)
+            ctx.save_for_backward(r, k, v, logw, u)
+            y, state = rwkv6_scan_ref(r, k, v, logw, u, dtype=torch.float64,
+                                      return_state=True)
+            return y.float(), state.float()
+
+        @staticmethod
+        def backward(ctx, dy, dstate):
+            r, k, v, logw, u = ctx.saved_tensors
+            if dy is None:
+                dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+            grads = rwkv6_scan_bwd_plain(r, k, v, logw, u, dy, dstate, chunk,
+                                         dtype=torch.float64)
+            return tuple(g.to(t.dtype) for g, t in zip(grads, (r, k, v, logw, u)))
+
+    return Float64Scan.apply(r, k, v, logw, u)
+
+
+def rwkv6_forward_witness(calls: list) -> dict:
+    """K6 and its plain version on each of a train step's forward calls
+    (``calls``: r, k, v, logw, u and the chunk) against the float64 oracle
+    within K6's limit (``rwkv6_limits``), y and the final state. Returns
+    the worst share of the limit of each, per call."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain, rwkv6_scan_state
+
+    out = []
+    for i, ((r, k, v, logw, u), chunk) in enumerate(calls):
+        with torch.no_grad():
+            got = rwkv6_scan_state(r, k, v, logw, u, chunk)
+            plain = rwkv6_scan_plain(r, k, v, logw, u, chunk)
+        oracle, limits, cmax = rwkv6_limits(r, k, v, logw, u, min(chunk, r.shape[2]))
+        row = dict(largest_chunk_cumsum=cmax)
+        for part, g, pl, o, lim in zip(("y", "state"), got, plain, oracle, limits):
+            bad_k, err_k, share_k = beyond(g, o, lim)
+            bad_p, err_p, share_p = beyond(pl, o, lim)
+            require(bad_k == 0 and bad_p == 0,
+                    f"RWKV6 train call {i} {part} vs float64: {bad_k} entries of K6 and "
+                    f"{bad_p} of the plain version beyond K6's limit (max abs err "
+                    f"{err_k:.3g}, {err_p:.3g})")
+            row[part] = dict(k6=[err_k, share_k], plain=[err_p, share_p])
+        out.append(row)
+        del got, plain, oracle, limits
+        torch.cuda.empty_cache()
+    return out
+
+
+def scan_bwd_row(dev, kind: str, args: tuple, chunk: int, launches: int,
+                 launches_per_step: int, what: str) -> tuple:
+    """K5' (``kind`` "ssm") or K6' ("rwkv6") alone, on a train call's own
+    inputs (``args``, ``what``) and on randn inputs of the same shapes (K6:
+    fast decay), y's gradient randn and the final state's none (as in
+    training): against the float64 gradient within ``scan_bwd_limits`` and
+    the plain backward within twice it, the same bits on a second call, the
+    dropped-carry control beyond the limit; then its ms, device ms (three
+    launches a call, and each kernel's apart), plain ms and bound. Returns
+    the kernels line's row and the checks."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rwkv6_scan, ssm_scan
+
+    mod = ssm_scan if kind == "ssm" else rwkv6_scan
+    bwd = mod.ssm_scan_bwd if kind == "ssm" else mod.rwkv6_scan_bwd
+    plain_bwd = mod.ssm_scan_bwd_plain if kind == "ssm" else mod.rwkv6_scan_bwd_plain
+    names = ("x", "dt", "A", "B", "C") if kind == "ssm" else ("r", "k", "v", "logw", "u")
+    kernels = (("ssm_bwd_states", "ssm_bwd_chunks", "ssm_bwd_fold") if kind == "ssm" else
+               ("rwkv6_bwd_states", "rwkv6_bwd_chunks", "rwkv6_bwd_fold"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    if kind == "ssm":
+        x, dt, A, B, C = args
+        randn = (torch.randn(x.shape, generator=gen, device=dev).to(x.dtype),
+                 F.softplus(torch.randn(dt.shape, generator=gen, device=dev)),
+                 -torch.exp(torch.randn(A.shape, generator=gen, device=dev) * 0.5),
+                 torch.randn(B.shape, generator=gen, device=dev).to(B.dtype),
+                 torch.randn(C.shape, generator=gen, device=dev).to(C.dtype))
+    else:
+        r = args[0]
+        randn = (*(torch.randn(r.shape, generator=gen, device=dev).to(r.dtype)
+                   for _ in range(3)),
+                 torch.clamp(-torch.exp(torch.randn(r.shape, generator=gen, device=dev) * 4.0),
+                             min=-30.0),
+                 torch.randn(args[4].shape, generator=gen, device=dev) * 0.1)
+    q = mod.kernel_chunk(mod.seq_chunk(args[0].shape[2 if kind == "rwkv6" else 1], chunk),
+                         mod.MAX_CHUNK)
+    def forward(inputs):  # y and the backward's scratch: (cum, states) or (states, final)
+        out = mod._forward(*inputs, chunk)
+        return out[0], (out[2:] if kind == "ssm" else (out[2], out[1]))
+
+    checks = {}
+    for which, inputs in (("train", args), ("randn", randn)):
+        y, scratch = forward(inputs)
+        dy = torch.randn(y.shape, generator=gen, device=dev)
+        del y
+        got = bwd(*inputs, *scratch, dy, None)
+        again = bwd(*inputs, *scratch, dy, None)
+        plain = plain_bwd(*inputs, dy, None, chunk)
+        limits = scan_bwd_limits(kind, dict(zip(names, inputs)), dy, None, q)
+        control = scan_bwd_dropped_carry(kind, inputs, chunk, dy, None)
+        worst = dict(err_o=0.0, share_o=0.0, err_p=0.0, share_p=0.0, control_beyond=0)
+        for name, g, a, p, c in zip(limits, got, again, plain, control):
+            exact, lim, lim_p = limits[name]
+            require(torch.equal(g, a), f"{kind} backward ({which}) {name}: two calls differ")
+            bad_o, err_o, share_o = beyond(g, exact, lim)
+            bad_p, err_p, share_p = beyond(g, p, lim_p)
+            require(bad_o == 0, f"{kind} backward ({which}) {name} vs float64: {bad_o} "
+                                f"entries beyond the limit, max abs err {err_o:.3g}")
+            require(bad_p == 0, f"{kind} backward ({which}) {name} vs plain: {bad_p} "
+                                f"entries beyond the limit, max abs err {err_p:.3g}")
+            worst["control_beyond"] += beyond(c, exact, lim)[0]
+            for key, val in (("err_o", err_o), ("share_o", share_o), ("err_p", err_p),
+                             ("share_p", share_p)):
+                worst[key] = max(worst[key], val)
+        require(worst["control_beyond"] > 0, f"{kind} backward ({which}): the dropped-carry "
+                                             "control passes the limit")
+        checks[which] = worst
+        del got, again, plain, limits, control, scratch
+    torch.cuda.empty_cache()
+    y, scratch = forward(args)
+    dy = torch.randn(y.shape, generator=gen, device=dev)
+    del y
+    kernel = lambda: bwd(*args, *scratch, dy, None)  # noqa: E731
+    plain = lambda: plain_bwd(*args, dy, None, chunk)  # noqa: E731
+    device = kernel_device_ms(kernel, kernels, reps=3)
+    require(device["device_launches_per_call"] == 3,
+            f"{kind} backward under the profiler: {device}; want 3 launches a call")
+    # the function's bytes: its inputs read once (dy float32), its gradients
+    # written once; its operations at chunk q, per token and head (products
+    # counted at 2 flops a multiply-add, as the forward's rows count them)
+    elem = args[0].element_size()
+    if kind == "ssm":
+        x, dt, A, B, C = args
+        bt, s, h, dh = x.shape
+        n = B.shape[-1]
+        n_bytes = (2 * (x.numel() + B.numel() + C.numel()) * elem + 2 * dt.numel() * 4
+                   + 2 * A.numel() * 4 + dy.numel() * 4)
+        # the reverse pass, Y, the carry-in and dx's state term (2 dh N
+        # each); within the chunk, (q + 1) / 2 earlier or later steps of
+        # dy . x, G^T dy and C . B (once for the h heads), dB's and dC's
+        # shares (2 N each), and the scalars; expf: E's (q - 1) / 2 and
+        # three more a step
+        prod = lambda q: bt * s * h * (8 * dh * n + (q + 1) / 2 * (4 * dh + 4 * n + 2 * n / h))  # noqa: E731
+        rest = lambda q: bt * s * h * (dh * n / q + 20)  # noqa: E731
+        exps = lambda q: bt * s * h * ((q - 1) / 2 + 3)  # noqa: E731
+        shapes = (f"x ({bt}, {s}, {h}, {dh}) {x.dtype} (a strided view), B, C ({bt}, {s}, "
+                  f"{n}), dt f32, dy f32, chunk {chunk}; dx, dB, dC {x.dtype}, ddt, dA f32")
+        replaces = ("src/repro/kernels/ssm_scan.py:57 (its gradient: the reference "
+                    "differentiates src/repro/models/ssm.py:116 chunk_step with "
+                    "jax.value_and_grad; it has no Pallas backward)")
+        name = "ssm_scan_bwd[Zamba2-7B train]"
+    else:
+        r, k, v, logw, u = args
+        b, h, s, dh = r.shape
+        n_bytes = (2 * 3 * r.numel() * elem + 2 * logw.numel() * 4 + 2 * u.numel() * 4
+                   + dy.numel() * 4)
+        # the reverse pass, the carry-in, dv's and dk's state terms (2 dh^2
+        # each); within the chunk, (q + 1) / 2 steps of dA, A, A^T dy and
+        # the gated parts of dr and dk (2 dh each), and the scalars; expf:
+        # the exact gate's (q - 1) / 2 dh three times, and 4 dh more a step
+        prod = lambda q: b * h * s * (8 * dh * dh + (q + 1) / 2 * 10 * dh)  # noqa: E731
+        rest = lambda q: b * h * s * (dh * dh / q + 12 * dh)  # noqa: E731
+        exps = lambda q: b * h * s * (3 * (q - 1) / 2 * dh + 4 * dh)  # noqa: E731
+        shapes = (f"r, k, v ({b}, {h}, {s}, {dh}) {r.dtype} (transposed views), logw f32, "
+                  f"dy f32, chunk {chunk}; dr, dk, dv {r.dtype}, dlogw, du f32")
+        replaces = ("src/repro/kernels/rwkv6_scan.py:70 (its gradient: the reference "
+                    "differentiates src/repro/models/rwkv.py:88 _wkv_chunked with "
+                    "jax.value_and_grad; it has no Pallas backward)")
+        name = "rwkv6_scan_bwd[RWKV6-3B train]"
+    bound = scan_bound(n_bytes, lambda q: (prod(q) + rest(q), exps(q)), q,
+                       tf32_work=lambda q: (3 * prod(q), rest(q), exps(q)))
+    row = dict(
+        name=name, route="cuda",
+        source=f"src/repro_torch/csrc/{kind}_scan_bwd.cu", replaces=replaces,
+        launches=launches, launches_per_step=launches_per_step,
+        max_abs_err=max(c["err_p"] for c in checks.values()),
+        max_abs_err_vs_float64=max(c["err_o"] for c in checks.values()),
+        ms=timed(kernel, 5), **device,
+        device_ms_by_kernel={n_: kernel_device_ms(kernel, (n_,), reps=3)["device_ms"]
+                             for n_ in kernels},
+        plain_ms=timed(plain, 2), library_ms=None,
+        library_call="none: no one PyTorch call computes the scan's gradient",
+        shapes=shapes + f"; {what}, dy randn", **bound)
+    return row, checks
+
+
+def train_step_seconds(step, state, pipe, first: int, steps: int, dev) -> tuple:
+    """``steps`` calls of ``step`` on the pipeline's batches from
+    ``first``: the final state, each step's host seconds (to a
+    synchronise) and losses."""
+    import torch
+
+    seconds, losses = [], []
+    for i in range(first, first + steps):
+        tokens = torch.from_numpy(pipe.assemble(i)).to(dev)
+        t = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens})
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+    return state, seconds, losses
+
+
+def train_rwkv6_3b_phase(dev) -> dict:
+    """RWKV6-3B training at full width and depth through
+    ``launch/train.py``: 4 x 2,048 tokens a step, remat "full", AdamW in
+    place, 3 steps with a checkpoint after the last, restored bitwise, and
+    one resumed step. First the first step's gradients at full width on
+    ``GRAD_CHECK_LAYERS`` layers through K6 and K6' against K6's plain
+    pair, and the detached-scan control. Then the launcher's run with the
+    counters set to 0 just before and read just after: exactly 2 x 32 K6
+    and 32 K6' launches a step, nothing else. Returns K6''s row."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RWKVConfig
+    from repro_torch.data import DataPipeline, SyntheticCorpus
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain_pair
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import count_params
+    from repro_torch.models import rwkv as rwkv_module
+
+    t_phase = time.perf_counter()
+    spec = RWKV_TRAIN
+    cfg = get_config(spec["arch"])
+    widths = dict(n_layers=RWKV_LAYERS, d_model=2560, n_heads=40, d_ff=8960,
+                  vocab_size=65536, rwkv=RWKVConfig(64, 64, 64), remat=True,
+                  remat_policy="full")
+    got = {n: getattr(cfg, n) for n in widths}
+    require(got == widths, f"{spec['arch']} widths {got}, want {widths}")
+    require(count_params(cfg) == RWKV_TRAIN_PARAMS,
+            f"{spec['arch']}: {count_params(cfg)} params, want {RWKV_TRAIN_PARAMS}")
+    b, seq, steps = spec["global_batch"], spec["seq"], spec["steps"]
+    pipe = DataPipeline(SyntheticCorpus(vocab_size=cfg.vocab_size, mean_len=seq // 2), b, seq)
+    batch = {"tokens": torch.from_numpy(pipe.assemble(0)).to(dev)}
+    layers = GRAD_CHECK_LAYERS[spec["arch"]]
+    grad, calls = recurrent_grad_check(
+        dev, dataclasses.replace(cfg, n_layers=layers), batch,
+        (rwkv_module, "rwkv6_scan_state", rwkv6_scan_plain_pair), attention=False,
+        truth=rwkv6_float64_pair)
+    require(grad["launches"] == {"rwkv6_scan": 2 * layers, "rwkv6_scan_bwd": layers},
+            f"one gradient of {layers} RWKV6 layers launched {grad['launches']}")
+    grad["float64_witness"]["forward_calls"] = rwkv6_forward_witness(calls[:layers])
+    call = calls[-1]
+    del calls
+    del batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
+    try:
+        def argv(n_steps: int) -> list[str]:
+            return ["--arch", spec["arch"], "--seq", str(seq), "--global-batch", str(b),
+                    "--steps", str(n_steps), "--ckpt-dir", str(tmp),
+                    "--checkpoint-every", str(steps), "--device", "cuda"]
+
+        for k_ in _build.KERNELS:
+            k_.launches.clear()
+        run = train_launch.main(argv(steps))
+        torch.cuda.synchronize()
+        launches = launch_counts(_build.KERNELS)
+        require(launches == {"rwkv6_scan": 2 * RWKV_LAYERS * steps,
+                             "rwkv6_scan_bwd": RWKV_LAYERS * steps},
+                f"train {spec['arch']}: launches {launches} in {steps} steps")
+        rep = run.report
+        require(rep.steps_run == steps and rep.retries == 0 and rep.resumed_from is None,
+                f"train report {rep}")
+        losses = [m["loss"] for m in run.metrics]
+        require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+                f"train losses {losses}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        require(ckpt.latest_step(tmp) == steps - 1, f"checkpoint steps in {list(tmp.iterdir())}")
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / f"step_{steps - 1:08d}").iterdir())
+        gc.collect()
+        torch.cuda.empty_cache()  # the final state and its restored copy: 73.8 GB
+        t = time.perf_counter()
+        tree, _, step = ckpt.restore(tmp, device=dev)
+        restore_s = time.perf_counter() - t
+        saved, final = tree_paths(tree), tree_paths(run.state.__dict__)
+        require(step == steps - 1 and set(saved) == set(final)
+                and all(torch.equal(saved[p], final[p]) for p in final),
+                "the restored checkpoint differs from the final state")
+        del tree, saved, final
+        torch.cuda.empty_cache()
+        busy = train_step_busy(run.model, run.state, torch.from_numpy(
+            run.pipeline.assemble(steps)).to(dev), in_place=True)
+        run_tps, step_times = run.tokens_per_second, rep.step_times
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k_ in _build.KERNELS:
+            k_.launches.clear()
+        resumed = train_launch.main(argv(1))
+        require(resumed.report.resumed_from == steps - 1 and resumed.report.steps_run == 1
+                and launch_counts(_build.KERNELS) == {"rwkv6_scan": 2 * RWKV_LAYERS,
+                                                      "rwkv6_scan_bwd": RWKV_LAYERS},
+                f"resumed run: {resumed.report}, launches {launch_counts(_build.KERNELS)}")
+        require(math.isfinite(resumed.metrics[0]["loss"]), "resumed loss not finite")
+        resumed_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (r, k, v, logw, u), chunk = call
+    require(r.shape == (b, 40, seq, 64) and r.dtype == torch.bfloat16 and chunk == 64,
+            f"the train call of K6: r {tuple(r.shape)} {r.dtype}, chunk {chunk}")
+    row, checks = scan_bwd_row(dev, "rwkv6", (r, k, v, logw, u), chunk,
+                               launches["rwkv6_scan_bwd"], RWKV_LAYERS,
+                               f"layer 0's r, k, v, logw, u in the {layers}-layer first-step "
+                               "gradient (the last call: the backward's remat recompute)")
+    step_s = statistics.median(step_times)
+    emit("train_rwkv6_3b", arch=spec["arch"], params=RWKV_TRAIN_PARAMS, batch=b, seq=seq,
+         steps=steps, launches=launches, losses=losses, step_seconds=step_times,
+         step_seconds_median=step_s, tokens_per_second=b * seq / step_s,
+         run_tokens_per_second=run_tps, peak_memory_gb=peak_gb,
+         resumed_peak_memory_gb=resumed_peak_gb, step_busy=busy,
+         checkpoint_bytes=ckpt_bytes, restore_seconds=restore_s, resumed_from=steps - 1,
+         grad_check=grad,
+         grad_tol=f"max(1, 2 rho_P) x {TRAIN_GRAD_TOL} of each leaf's largest |gradient| "
+                  "through the plain pairs and through the float64 step, rho_P the plain "
+                  "pairs' worst share of the leaf's kind vs the step with the scan in float64 "
+                  f"(RWKV_TRAIN), {layers} layers at full width; a leaf 0 in both (w_lora_a "
+                  "behind a zero w_lora_b) must be 0",
+         k6_bwd_tol="u |g| + eps32 sqrt(6 Q + k') (1 + c) sum|terms| vs float64; twice it vs "
+                    "plain; the backward with the carried state dropped must pass it",
+         k6_bwd_checks=checks, seconds=time.perf_counter() - t_phase)
+    return row
+
+
+def train_zamba2_7b_phase(dev) -> dict:
+    """Zamba2-7B training at full width, its depth cut to 18 layers (see
+    ZAMBA_TRAIN), through ``build_train_step`` on
+    ``dataclasses.replace(cfg, n_layers=18)``: 4 x 2,048 tokens a step from
+    the DaphneSched data pipeline, remat "full", AdamW in place, 3 steps.
+    First the first step's gradients at full width on one super-block (6
+    layers) through K5, K5', K4 and K4' against their plain pairs, and the
+    detached-scan control. Then the steps with the counters set to 0 just
+    before and read just after: exactly 2 x 18 K5, 18 K5', 2 x 3 K4 and 3
+    K4' launches a step. Returns K5''s row."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.data import DataPipeline, SyntheticCorpus
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain_pair
+    from repro_torch.models import Model, count_params
+    from repro_torch.models import ssm as ssm_module
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import build_train_step, init_train_state
+
+    t_phase = time.perf_counter()
+    spec = ZAMBA_TRAIN
+    full = get_config(spec["arch"])
+    widths = dict(n_layers=ZAMBA_MAMBA_LAYERS, d_model=3584, n_heads=32, n_kv_heads=32,
+                  head_dim=112, d_ff=14336, vocab_size=32000, remat=True, remat_policy="full",
+                  ssm=SSMConfig(d_state=64, head_dim=64, expand=2, chunk=64, conv_width=4,
+                                attn_every=6))
+    got = {n: getattr(full, n) for n in widths}
+    require(got == widths, f"{spec['arch']} widths {got}, want {widths}")
+    cfg = dataclasses.replace(full, n_layers=spec["n_layers"])
+    require(count_params(full) == ZAMBA_PARAMS and count_params(cfg) == ZAMBA_TRAIN_PARAMS,
+            f"{spec['arch']}: {count_params(full)} params, {count_params(cfg)} at "
+            f"{spec['n_layers']} layers")
+    b, seq, steps = spec["global_batch"], spec["seq"], spec["steps"]
+    n_sb = spec["n_layers"] // full.ssm.attn_every
+    pipe = DataPipeline(SyntheticCorpus(vocab_size=cfg.vocab_size, mean_len=seq // 2), b, seq)
+    batch = {"tokens": torch.from_numpy(pipe.assemble(0)).to(dev)}
+    layers = GRAD_CHECK_LAYERS[spec["arch"]]
+    grad, calls = recurrent_grad_check(
+        dev, dataclasses.replace(full, n_layers=layers), batch,
+        (ssm_module, "ssm_scan_state", ssm_scan_plain_pair), attention=True)
+    call = calls[-1]
+    del calls
+    require(grad["launches"] == {"ssm_scan": 2 * layers, "ssm_scan_bwd": layers,
+                                 "flash_attention": 2, "flash_attention_bwd": 1},
+            f"one gradient of {layers} Zamba2 layers launched {grad['launches']}")
+    del batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    opt = AdamWConfig()
+    state = init_train_state(model, gen, opt)
+    step = build_train_step(model, opt, in_place=True)
+    want = {"ssm_scan": 2 * spec["n_layers"], "ssm_scan_bwd": spec["n_layers"],
+            "flash_attention": 2 * n_sb, "flash_attention_bwd": n_sb}
+    for k_ in _build.KERNELS:
+        k_.launches.clear()
+    state, step_times, losses = train_step_seconds(step, state, pipe, 0, steps, dev)
+    launches = launch_counts(_build.KERNELS)
+    require(launches == {e: n * steps for e, n in want.items()},
+            f"train {spec['arch']} at {spec['n_layers']} layers: launches {launches} in "
+            f"{steps} steps, want {want} a step")
+    require(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    require(all(bool(torch.isfinite(t_).all()) for t_ in tree_paths(state.params).values()),
+            "the trained params are not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy = train_step_busy(model, state, torch.from_numpy(pipe.assemble(steps)).to(dev),
+                           in_place=True)
+    del state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    (x, dt, A, B, C), chunk = call
+    require(x.shape == (b, seq, 112, 64) and x.dtype == torch.bfloat16 and chunk == 64
+            and not x.is_contiguous(),
+            f"the train call of K5: x {tuple(x.shape)} {x.dtype}, chunk {chunk}")
+    row, checks = scan_bwd_row(dev, "ssm", (x, dt, A, B, C), chunk,
+                               launches["ssm_scan_bwd"], spec["n_layers"],
+                               f"layer 0's x, dt, A, B, C in the {layers}-layer first-step "
+                               "gradient (the last call: the backward's remat recompute)")
+    step_s = statistics.median(step_times)
+    emit("train_zamba2_7b", arch=spec["arch"], n_layers=spec["n_layers"],
+         depth_cut=f"{ZAMBA_MAMBA_LAYERS} -> {spec['n_layers']} layers ({n_sb} super-blocks "
+                   f"of {full.ssm.attn_every}, no tail): {ZAMBA_PARAMS} params take "
+                   f"{16 * ZAMBA_PARAMS / 1e9:.1f} GB at 16 bytes a parameter",
+         params=ZAMBA_TRAIN_PARAMS, batch=b, seq=seq, steps=steps, launches=launches,
+         launches_per_step=want, losses=losses, step_seconds=step_times,
+         step_seconds_median=step_s, tokens_per_second=b * seq / step_s,
+         peak_memory_gb=peak_gb, step_busy=busy, grad_check=grad,
+         grad_tol=f"{TRAIN_GRAD_TOL} of each leaf's largest |gradient| through K5's and K4's "
+                  f"plain pairs, {layers} layers (one super-block) at full width",
+         k5_bwd_tol="u |g| + eps32 sqrt(6 Q + k') (1 + c) sum|terms| vs float64; twice it vs "
+                    "plain; the backward with the carried state dropped must pass it",
+         k5_bwd_checks=checks, seconds=time.perf_counter() - t_phase)
+    return row
+
+
+def leaf_kind(path: str) -> str:
+    """A gradient leaf's name with its layer indices dropped."""
+    return "/".join(k for k in path.split("/") if not k.isdigit())
+
+
 def share_summary(shares: dict) -> dict:
-    """The worst share of the limit per leaf name (layer indices dropped)."""
+    """The worst share of the limit per leaf kind (``leaf_kind``)."""
     out: dict = {}
     for p, v in shares.items():
-        name = "/".join(k for k in p.split("/") if not k.isdigit())
+        name = leaf_kind(p)
         out[name] = max(out.get(name, 0.0), v)
     return out
 
 
-def train_step_busy(run, dev) -> dict:
-    """One more train step of ``run``'s model under ``torch.profiler``:
-    the sum of its kernels' device time over the step's host seconds (the
-    profiler's own overhead makes the share a lower bound; the sum holds
-    the ``PROFILE_FILLER`` launches that open the session, a few ms), and
-    the kernels that take the most device time."""
+def train_step_busy(model, state, tokens, in_place: bool = False) -> dict:
+    """One more train step of ``model`` from ``state`` on ``tokens`` under
+    ``torch.profiler`` (``in_place``: written over ``state``): the sum of
+    its kernels' device time over the step's host seconds (the profiler's
+    own overhead makes the share a lower bound; the sum holds the
+    ``PROFILE_FILLER`` launches that open the session, a few ms), and the
+    kernels that take the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3007,16 +3720,15 @@ def train_step_busy(run, dev) -> dict:
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import build_train_step
 
-    step = build_train_step(run.model, AdamWConfig())
-    tokens = torch.from_numpy(run.pipeline.assemble(TRAIN["steps"])).to(dev)
-    filler = torch.zeros(1, device=dev)
+    step = build_train_step(model, AdamWConfig(), in_place=in_place)
+    filler = torch.zeros(1, device=tokens.device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_FILLER):
             filler.add_(1)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        state, _ = step(run.state, {"tokens": tokens})
+        state, _ = step(state, {"tokens": tokens})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     del state
@@ -3484,6 +4196,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     kernels.extend(train_qwen2_0_5b_phase(dev))
+    for phase in (train_rwkv6_3b_phase, train_zamba2_7b_phase):
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.append(phase(dev))
 
     for row in kernels:
         row["redesigned"] = row["name"] in REDESIGNED

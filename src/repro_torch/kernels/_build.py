@@ -112,9 +112,11 @@ CC_PROPAGATE = Kernel("cc_propagate.cu")
 FLASH_ATTENTION = Kernel("flash_attention.cu")
 FLASH_ATTENTION_BWD = Kernel("flash_attention_bwd.cu")
 SSM_SCAN = Kernel("ssm_scan.cu")
+SSM_SCAN_BWD = Kernel("ssm_scan_bwd.cu")
 RWKV6_SCAN = Kernel("rwkv6_scan.cu")
+RWKV6_SCAN_BWD = Kernel("rwkv6_scan_bwd.cu")
 KERNELS = (DAG_WALK, CC_PROPAGATE, FLASH_ATTENTION, FLASH_ATTENTION_BWD, SSM_SCAN,
-           RWKV6_SCAN)
+           SSM_SCAN_BWD, RWKV6_SCAN, RWKV6_SCAN_BWD)
 
 
 def build_all() -> None:

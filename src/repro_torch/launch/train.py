@@ -13,7 +13,11 @@ background thread), the loss is ``Model.train_loss`` under the config's
 remat, and AdamW (``optim/adamw.py``) updates the fp32 master weights;
 ``runtime/fault.py:run_loop`` retries failed steps, flags stragglers,
 checkpoints every ``--checkpoint-every`` steps and resumes from the latest
-COMMITTED checkpoint in ``--ckpt-dir``. The weights are drawn on
+COMMITTED checkpoint in ``--ckpt-dir``. Each step writes the new weights
+and moments over the old (``build_train_step(in_place=True)``, the same
+bits as the reference's pure update, unless ``--compress-grads``), and a
+run that resumes draws no state of its own: RWKV6-3B's fp32 weights and
+moments (36.9 GB) are held once on an 80 GB card. The weights are drawn on
 ``--device`` (the card unless the caller asks for the CPU) from a
 ``torch.Generator`` seeded 0. On the card a prompt over 1,024 tokens takes
 its attention, forward and backward, through K4.
@@ -90,6 +94,7 @@ def main(argv: list[str] | None = None) -> TrainRun:
     report lines and return the run."""
     args = parse_args(argv)
 
+    from ..checkpoint import checkpoint as ckpt
     from ..configs import get_config
     from ..core import SchedulerConfig
     from ..data import DataPipeline, SyntheticCorpus
@@ -118,10 +123,14 @@ def main(argv: list[str] | None = None) -> TrainRun:
                                               n_workers=4,
                                               numa_domains=(0, 0, 1, 1)))
 
+    # a run that resumes restores its state from the checkpoint: it draws
+    # none, so that one state, not two, is ever held on the device
+    resumes = args.ckpt_dir is not None and ckpt.latest_step(args.ckpt_dir) is not None
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    state = init_train_state(model, gen, opt_cfg)
-    step = build_train_step(model, opt_cfg, n_microbatches=args.microbatches)
+    state = None if resumes else init_train_state(model, gen, opt_cfg)
+    step = build_train_step(model, opt_cfg, n_microbatches=args.microbatches,
+                            in_place=not args.compress_grads)
 
     metrics: list[dict] = []
 

@@ -22,9 +22,9 @@ plus the MoE aux loss) runs the same trunk with each layer wrapped by
 ``_remat`` in ``torch.utils.checkpoint`` (``cfg.remat_policy`` "full"
 recomputes the layer, "dots" keeps its unbatched matrix products), as the
 reference wraps its scan bodies in ``jax.checkpoint``. On the card the
-attention's gradient is K4's backward kernel; K5 and K6 have no backward
-kernel yet and refuse under autograd there (A12.2), so Zamba2 and RWKV6
-train on the CPU only.
+attention's gradient is K4's backward kernel and the scans' are K5' and
+K6' (``kernels/ssm_scan.py:_SsmScan``, ``kernels/rwkv6_scan.py:
+_Rwkv6Scan``), so every served family trains there too.
 
 Other families raise ``NotImplementedError`` naming their ROADMAP item:
 Whisper's encoder-decoder (A11.5) and the InternVL2 vision frontend

@@ -12,7 +12,14 @@ as the reference does before its all-reduce; on one card there is no
 all-reduce, so it only changes the numbers the update sees, as there.
 
 The functions are pure, as the reference's: ``apply_updates`` returns new
-params and a new state and leaves its arguments as they were.
+params and a new state and leaves its arguments as they were. With
+``in_place`` it copies each leaf's new values over the params and moments
+it is given (the same arithmetic, so the same bits) and returns them: a
+step then holds one copy of the weights and moments, not two, which
+RWKV6-3B's 36.9 GB of fp32 weights and moments beside 12.3 GB of
+gradients need on one 80 GB card. A failure after the first copy leaves
+the state part new and part old: it raises ``PartialUpdateError``, which
+is not retried.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import Any, Callable
 import torch
 
 __all__ = ["AdamWConfig", "lr_schedule", "init_opt_state", "global_norm",
-           "apply_updates", "tree_map", "tree_leaves"]
+           "apply_updates", "PartialUpdateError", "tree_map", "tree_leaves"]
 
 Params = Any
 
@@ -127,12 +134,29 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def apply_updates(params: Params, grads: Params, state: dict, cfg: AdamWConfig):
+class PartialUpdateError(RuntimeError):
+    """An in-place update that failed after writing some leaves: the state
+    holds new values for those and old ones for the rest, so the step must
+    not run again on it (``retryable`` False: ``runtime/fault.py:run_loop``
+    raises it at once)."""
+
+    retryable = False
+
+
+def apply_updates(params: Params, grads: Params, state: dict, cfg: AdamWConfig,
+                  in_place: bool = False):
     """One AdamW step: ``(new_params, new_state, {'grad_norm', 'lr'})``.
     ``grad_norm`` is the norm before clipping (after compression). Under
     ``compress`` the int8 scale is per stacked tensor, as the reference's:
     the reference stacks each layer leaf over the layers, so one scale
-    serves e.g. every layer's ``attn/wq`` (``_stacked_map``)."""
+    serves e.g. every layer's ``attn/wq`` (``_stacked_map``). ``in_place``
+    (fp32 params, no ``compress``): each leaf's new param and moments are
+    copied over ``params`` and ``state``'s moments (see the module's note),
+    which the caller gives up; a failure after the first copy raises
+    ``PartialUpdateError``."""
+    if in_place and (cfg.compress or any(p.dtype != torch.float32
+                                         for p in tree_leaves(params))):
+        raise ValueError("apply_updates in place takes float32 params and no compress")
     grads = tree_map(lambda g: g.float(), grads)
     new_err = None
     if cfg.compress:
@@ -150,7 +174,6 @@ def apply_updates(params: Params, grads: Params, state: dict, cfg: AdamWConfig):
 
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-    grads = tree_map(lambda g: g * scale, grads)
 
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
@@ -160,6 +183,7 @@ def apply_updates(params: Params, grads: Params, state: dict, cfg: AdamWConfig):
     bc2 = 1 - torch.pow(_f32(b2, step.device), stepf)
 
     def upd(p, g, mu, nu):
+        g = g * scale
         mu = b1 * mu + (1 - b1) * g
         nu = b2 * nu + (1 - b2) * g * g
         mhat = mu / bc1
@@ -168,7 +192,22 @@ def apply_updates(params: Params, grads: Params, state: dict, cfg: AdamWConfig):
         p32 = p32 - lr * (mhat / (torch.sqrt(nhat) + cfg.eps) + cfg.weight_decay * p32)
         return p32.to(p.dtype), mu, nu
 
-    out = tree_map(upd, params, grads, state["mu"], state["nu"])
+    written = []
+
+    def write(p, g, mu, nu):  # upd's results copied over its inputs
+        new = upd(p, g, mu, nu)
+        written.append(p)
+        for old, t in zip((p, mu, nu), new):
+            old.copy_(t)
+        return p, mu, nu
+
+    try:
+        out = tree_map(write if in_place else upd, params, grads, state["mu"], state["nu"])
+    except Exception as e:
+        if written:
+            raise PartialUpdateError(f"AdamW failed after writing {len(written)} leaves in "
+                                     "place; resume from a checkpoint") from e
+        raise
     pick = lambda i: tree_map(lambda p, t: t[i], params, out)  # noqa: E731
     new_state = {"mu": pick(1), "nu": pick(2), "step": step}
     if cfg.compress:

@@ -2,8 +2,10 @@
 auto-resume (the port's copy of ``runtime/fault.py``).
 
 The failure model is the reference's: (a) transient step failures ->
-bounded retry; (b) stragglers -> each step's time against the rolling
-median of the last ``straggler_window`` steps, flagged beyond
+bounded retry, except an exception whose ``retryable`` is False (a step
+that wrote part of its state in place), which is raised at once; (b)
+stragglers -> each step's time against the rolling median of the last
+``straggler_window`` steps, flagged beyond
 ``straggler_factor`` times it; (c) process death -> a restart resumes from
 the latest COMMITTED checkpoint (``checkpoint/checkpoint.py`` makes the
 save atomic). Step times come from this module's ``perf_counter``, so a
@@ -82,6 +84,13 @@ def run_loop(
                 dt = perf_counter() - t0
                 break
             except Exception as e:  # transient failure -> bounded retry
+                if not getattr(e, "retryable", True):
+                    # e.g. an in-place update that wrote part of the state
+                    # (optim/adamw.py:PartialUpdateError): a retry would
+                    # apply those leaves' update twice
+                    if ckpt_dir is not None:
+                        ckpt.wait_for_pending()
+                    raise
                 attempt += 1
                 report.retries += 1
                 log.warning("step %d failed (%s); retry %d/%d",

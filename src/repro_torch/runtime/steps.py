@@ -61,8 +61,15 @@ def loss_and_grads(model: "Model", params, batch: dict):
     return loss.detach(), metrics, grads
 
 
-def build_train_step(model: "Model", opt_cfg: AdamWConfig, n_microbatches: int = 1):
+def build_train_step(model: "Model", opt_cfg: AdamWConfig, n_microbatches: int = 1,
+                     in_place: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``in_place``: the step writes the new params and moments over the old
+    state's (``apply_updates(in_place=True)``: the same bits), which the
+    caller gives up; the launcher steps so. A failure before the first
+    write leaves the state as it was, and ``run_loop`` may retry the step;
+    one after raises ``PartialUpdateError``, which it does not retry.
 
     ``n_microbatches > 1`` splits the batch into equal microbatches along
     its first axis and averages their gradients and losses, the metrics
@@ -88,7 +95,8 @@ def build_train_step(model: "Model", opt_cfg: AdamWConfig, n_microbatches: int =
             grads = tree_map(lambda g: g / n_microbatches, grads)
             loss = loss / n_microbatches
             metrics = {"ce": loss, "aux": torch.zeros((), device=loss.device)}
-        new_params, new_opt, opt_metrics = apply_updates(params, grads, state.opt, opt_cfg)
+        new_params, new_opt, opt_metrics = apply_updates(params, grads, state.opt, opt_cfg,
+                                                         in_place=in_place)
         new_state = TrainState(params=new_params, opt=new_opt, step=state.step + 1)
         return new_state, {"loss": loss, **metrics, **opt_metrics}
 

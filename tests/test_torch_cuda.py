@@ -1721,35 +1721,185 @@ def test_flash_attention_autograd_launches_the_backward_kernel(cuda):
         assert torch.equal(g, h)
 
 
-def test_scans_refuse_a_gradient_on_the_card(cuda):
-    """K5 and K6 have no backward kernel yet: on the card a call that needs
-    a gradient raises, naming ROADMAP A12.2, and launches nothing; the same
-    call without a gradient launches once."""
+def _scan_cases(cuda):
+    """One float32 K5 and K6 call's inputs over 64 steps, 64 wide heads and
+    state: (wrapper, inputs, forward kernel, forward entry, backward
+    kernel, backward entry)."""
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan_state
     from repro_torch.kernels.ssm_scan import ssm_scan_state
 
-    gen = torch.Generator(device=cuda)
-    gen.manual_seed(6)
-    x = torch.randn((1, 64, 2, 64), generator=gen, device=cuda)
-    dt = torch.rand((1, 64, 2), generator=gen, device=cuda) * 0.1
-    A = -torch.rand((2,), generator=gen, device=cuda)
-    B, C = (torch.randn((1, 64, 64), generator=gen, device=cuda) for _ in range(2))
-    r, k, v = (torch.randn((1, 2, 64, 64), generator=gen, device=cuda) for _ in range(3))
-    logw = -torch.rand((1, 2, 64, 64), generator=gen, device=cuda)
-    u = torch.randn((2, 64), generator=gen, device=cuda)
-    cases = [(ssm_scan_state, (x, dt, A, B, C), _build.SSM_SCAN, "ssm_scan"),
-             (rwkv6_scan_state, (r, k, v, logw, u), _build.RWKV6_SCAN, "rwkv6_scan")]
-    for fn, args, kernel, entry in cases:
-        for i in range(len(args)):
-            needs = [t.clone().requires_grad_(j == i) for j, t in enumerate(args)]
-            before = kernel.launches[entry]
-            with pytest.raises(NotImplementedError, match="A12.2"):
-                fn(*needs, chunk=32)
-            assert kernel.launches[entry] == before
+    return [(ssm_scan_state, _ssm_mamba2_inputs(cuda, 1, 64, 2, torch.float32, 6),
+             _build.SSM_SCAN, "ssm_scan", _build.SSM_SCAN_BWD, "ssm_scan_bwd"),
+            (rwkv6_scan_state, _rwkv6_draw_inputs(cuda, 1, 2, 64, torch.float32, "model", 6),
+             _build.RWKV6_SCAN, "rwkv6_scan", _build.RWKV6_SCAN_BWD, "rwkv6_scan_bwd")]
+
+
+def test_scans_launch_forward_and_backward_once_under_autograd(cuda):
+    """On the card a K5 or K6 call that needs a gradient (any one input
+    requiring it) launches the forward kernel once, and its backward the
+    backward kernel once, with finite gradients; without a gradient the
+    forward alone runs, its outputs bitwise those of a call under
+    autograd."""
+    for fn, args, fwd, fwd_entry, bwd, bwd_entry in _scan_cases(cuda):
         with torch.no_grad():
-            fn(*needs, chunk=32)
+            want = fn(*args, chunk=32)
+        for i in range(len(args)):
+            needs = [t.detach().clone().requires_grad_(j == i) for j, t in enumerate(args)]
+            f0, b0 = fwd.launches[fwd_entry], bwd.launches[bwd_entry]
+            y, state = fn(*needs, chunk=32)
+            assert fwd.launches[fwd_entry] == f0 + 1 and bwd.launches[bwd_entry] == b0
+            assert torch.equal(y, want[0]) and torch.equal(state, want[1])
+            (g,) = torch.autograd.grad((y.square().sum() + state.sum()), needs[i])
+            torch.cuda.synchronize()
+            assert fwd.launches[fwd_entry] == f0 + 1 and bwd.launches[bwd_entry] == b0 + 1
+            assert g.dtype == args[i].dtype and bool(torch.isfinite(g).all()), (fwd_entry, i)
+        f0, b0 = fwd.launches[fwd_entry], bwd.launches[bwd_entry]
+        with torch.no_grad():
+            again = fn(*needs, chunk=32)
         torch.cuda.synchronize()
-        assert kernel.launches[entry] == before + 1
+        assert fwd.launches[fwd_entry] == f0 + 1 and bwd.launches[bwd_entry] == b0
+        assert all(torch.equal(a, w) for a, w in zip(again, want))
+
+
+def _scan_bwd_checked(kind, args, chunk, q, cuda):
+    """K5' or K6' on ``args`` (through the Function, one forward and one
+    backward launch) against the float64 gradient within the smoke's limit
+    (``scan_bwd_limits``), against the plain backward within twice it, the
+    same bits on a second call, and the control, the backward kernel with
+    the state carried between chunks dropped (the forward's entering
+    states zeroed), beyond the limit. y's and the final state's gradients
+    both randn."""
+    from repro_torch.kernels import rwkv6_scan as trw
+    from repro_torch.kernels import ssm_scan as tss
+
+    smoke = _smoke()
+    names = ("x", "dt", "A", "B", "C") if kind == "ssm" else ("r", "k", "v", "logw", "u")
+    fn, bwd_plain, bwd, entry = ((tss.ssm_scan_state, tss.ssm_scan_bwd_plain, _build.SSM_SCAN_BWD,
+                                  "ssm_scan_bwd") if kind == "ssm" else
+                                 (trw.rwkv6_scan_state, trw.rwkv6_scan_bwd_plain,
+                                  _build.RWKV6_SCAN_BWD, "rwkv6_scan_bwd"))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(chunk)
+
+    cot = []
+
+    def grads(inputs):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        y, state = fn(*leaves, chunk=chunk)
+        if not cot:
+            cot.extend((torch.randn(y.shape, generator=gen, device=cuda),
+                        torch.randn(state.shape, generator=gen, device=cuda)))
+        return torch.autograd.grad((y, state), leaves, cot)
+
+    b0 = bwd.launches[entry]
+    got = grads(args)
+    again = grads(args)
+    torch.cuda.synchronize()
+    assert bwd.launches[entry] == b0 + 2
+    dy, dstate = cot
+    plain = bwd_plain(*args, dy, dstate, chunk)
+    limits = smoke.scan_bwd_limits(kind, dict(zip(names, args)), dy, dstate, q)
+    control = smoke.scan_bwd_dropped_carry(kind, args, chunk, dy, dstate)
+    beyond_control = 0
+    for name, g, a, p in zip(limits, got, again, plain):
+        exact, lim, lim_p = limits[name]
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        bad, err, _ = smoke.beyond(g, exact, lim)
+        assert bad == 0, f"{name} vs float64: {bad} entries beyond, max abs err {err:.3g}"
+        bad, err, _ = smoke.beyond(g, p, lim_p)
+        assert bad == 0, f"{name} vs plain: {bad} entries beyond, max abs err {err:.3g}"
+    for name, c in zip(limits, control):
+        beyond_control += smoke.beyond(c, limits[name][0], limits[name][1])[0]
+    assert beyond_control > 0, "the dropped-carry control passes the limit"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_ssm_scan_bwd_against_plain_and_float64(cuda, dtype, chunk):
+    """K5' on strided views of one conv output (the model's), Mamba2's dt
+    and A draws and randn ones, 160 steps at chunk 32 (five chunks) or
+    192 at 64 (three)."""
+    s = 160 if chunk == 32 else 192
+    _scan_bwd_checked("ssm", _ssm_mamba2_inputs(cuda, 2, s, 3, dtype, chunk), chunk, chunk, cuda)
+    _scan_bwd_checked("ssm", _ssm_inputs(cuda, 2, s, 3, dtype, chunk + 1), chunk, chunk, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("draw", ["model", "fast"])
+def test_rwkv6_scan_bwd_against_plain_and_float64(cuda, dtype, chunk, draw):
+    """K6' on transposed head views of one projection (the model's), at the
+    model's decay and at fast decay (logw down to -30), five chunks of 32
+    or three of 64."""
+    s = 160 if chunk == 32 else 192
+    _scan_bwd_checked("rwkv6", _rwkv6_draw_inputs(cuda, 2, 3, s, dtype, draw, chunk), chunk,
+                      chunk, cuda)
+
+
+def test_scan_bwd_odd_chunk_and_unaligned_rows(cuda):
+    """A chunk off the 16-step sub-chunk (24: K6' pads it) and bfloat16 rows
+    that do not start on 16 bytes."""
+    _scan_bwd_checked("rwkv6", _rwkv6_draw_inputs(cuda, 1, 2, 96, torch.bfloat16, "fast", 3,
+                                                  pad=1), 24, 24, cuda)
+    _scan_bwd_checked("ssm", _ssm_mamba2_inputs(cuda, 1, 96, 2, torch.bfloat16, 3, pad=1), 24,
+                      24, cuda)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-3b"])
+def test_reduced_recurrent_train_step_on_the_card(cuda, arch):
+    """One ``build_train_step`` step of the reduced Zamba2 (3 layers, the
+    shared block after every 2nd) or RWKV6 (2 layers) over 2 x 256 tokens,
+    its heads and state widened to 64 (the kernels' widths): each scan
+    layer launches its forward twice (the forward and the remat recompute)
+    and its backward once; the new params are finite; the loss and every
+    gradient leaf within TRAIN_GRAD_TOL of the same step through the
+    scans' plain pairs, which launch no scan kernel."""
+    from unittest import mock
+
+    from repro_torch.kernels import rwkv6_scan as trw
+    from repro_torch.kernels import ssm_scan as tss
+    from repro_torch.models import Model
+    from repro_torch.models import rwkv as trwkv
+    from repro_torch.models import ssm as tssm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import build_train_step, init_train_state, loss_and_grads
+
+    smoke = _smoke()
+    cfg = get_config(arch).reduced()
+    if cfg.ssm is not None:
+        cfg = dataclasses.replace(cfg, n_layers=3, d_model=128, ssm=dataclasses.replace(
+            cfg.ssm, head_dim=64, d_state=64, chunk=64, attn_every=2))
+        module, name, pair = tssm, "ssm_scan_state", tss.ssm_scan_plain_pair
+        fwd, fwd_entry, bwd, bwd_entry = (_build.SSM_SCAN, "ssm_scan", _build.SSM_SCAN_BWD,
+                                          "ssm_scan_bwd")
+        layers = 3
+    else:
+        cfg = dataclasses.replace(cfg, d_model=128, n_heads=2,
+                                  rwkv=dataclasses.replace(cfg.rwkv, head_dim=64, chunk=64))
+        module, name, pair = trwkv, "rwkv6_scan_state", trw.rwkv6_scan_plain_pair
+        fwd, fwd_entry, bwd, bwd_entry = (_build.RWKV6_SCAN, "rwkv6_scan",
+                                          _build.RWKV6_SCAN_BWD, "rwkv6_scan_bwd")
+        layers = cfg.n_layers
+    model = Model(cfg)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    state = init_train_state(model, gen, AdamWConfig())
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 257), dtype=np.int32)).to(cuda)
+    f0, b0 = fwd.launches[fwd_entry], bwd.launches[bwd_entry]
+    new, metrics = build_train_step(model, AdamWConfig())(state, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert fwd.launches[fwd_entry] == f0 + 2 * layers
+    assert bwd.launches[bwd_entry] == b0 + layers
+    assert all(bool(torch.isfinite(t).all()) for t in smoke.tree_paths(new.params).values())
+    loss_k, _, g_k = loss_and_grads(model, state.params, {"tokens": toks})
+    f0, b0 = fwd.launches[fwd_entry], bwd.launches[bwd_entry]
+    with mock.patch.object(module, name, pair):
+        loss_p, _, g_p = loss_and_grads(model, state.params, {"tokens": toks})
+    assert fwd.launches[fwd_entry] == f0 and bwd.launches[bwd_entry] == b0
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-2 * abs(float(loss_p))
+    shares = smoke.grad_shares(g_k, g_p)
+    assert max(shares.values()) <= 1.0, max(shares.items(), key=lambda kv: kv[1])
 
 
 def test_reduced_dense_train_step_on_the_card_through_k4(cuda):

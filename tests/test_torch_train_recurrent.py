@@ -8,8 +8,9 @@ chunked impl (K4's plain version) and its scan runs 136 chunks of 8; that
 run skips the "dots" repeat, which the 32-token runs check. RWKV6 has no
 attention: over 1,088 tokens it takes no other path than over 32 (its
 WKV runs in chunks of 8 at any length), so it runs at 32 only, to keep
-the suite's time. On the card K5 and K6 refuse a call that needs a
-gradient (ROADMAP A12.2).
+the suite's time. On the card the scans' gradients are K5' and K6'
+(``tests/test_torch_scan_bwd.py`` holds their plain versions to
+``jax.vjp`` of the reference; ``tests/test_torch_cuda.py`` the kernels).
 """
 
 import pytest
