@@ -141,8 +141,9 @@ plain pairs (RWKV6: within its limit derived from the float64 witness,
 see RWKV_TRAIN), the control with the scan's outputs detached failing it;
 finite losses; K6' and K5' alone at the training shape against a float64
 gradient and their plain versions within ``scan_bwd_limits``, bitwise
-twice, the control with the carried state dropped failing the limit, with
-ms, device ms of each of their three kernels, plain ms and bound). K5 and K6 run split
+twice, the control with the carried state dropped failing the limit, HMMA
+in the SASS of their product kernels with no stack frame or local memory,
+with ms, device ms of each of their three kernels, plain ms and bound). K5 and K6 run split
 TF32 on the tensor cores in two launches a call (counted once): each
 one's row gives the device ms of both by ``torch.profiler`` and requires
 the profiler to record the two launches a call, requires a tensor-core
@@ -403,6 +404,7 @@ REDESIGNED = frozenset({
     "dag_walk[recommendation, seeded]", "flash_attention", "flash_attention[dh 112, Zamba2]",
     "dag_walk[moe.experts]", "dag_walk[cc_iteration]", "ssm_scan", "rwkv6_scan",
     "cc_propagate", "flash_attention_bwd[dh 64, group 7, Qwen2-0.5B train]",
+    "ssm_scan_bwd[Zamba2-7B train]", "rwkv6_scan_bwd[RWKV6-3B train]",
 })
 # The paper's own host entry points beside the card (phase
 # `paper_entry_points`): Listings 1 and 2 on the VEE's host pool, the
@@ -906,21 +908,44 @@ def walk_sass_has(program: str, word: str) -> bool:
     return word in funcs[0]
 
 
+# The scans' kernels that issue products, each built for both input types:
+# K5's and K6's two launches, and the reverse pass and chunk kernels of K5'
+# and K6' (their third launch, the fold, only adds)
 SCAN_KERNELS = {"ssm_scan": ("ssm_states", "ssm_outputs"),
-                "rwkv6_scan": ("rwkv6_states", "rwkv6_outputs")}
+                "rwkv6_scan": ("rwkv6_states", "rwkv6_outputs"),
+                "ssm_scan_bwd": ("ssm_bwd_states", "ssm_bwd_chunks"),
+                "rwkv6_scan_bwd": ("rwkv6_bwd_states", "rwkv6_bwd_chunks")}
+
+
+def scan_library(scan: str):
+    """The built ``_build.Kernel`` of the scan ``scan`` (``SCAN_KERNELS``)."""
+    from repro_torch.kernels import _build
+
+    return {"ssm_scan": _build.SSM_SCAN, "rwkv6_scan": _build.RWKV6_SCAN,
+            "ssm_scan_bwd": _build.SSM_SCAN_BWD, "rwkv6_scan_bwd": _build.RWKV6_SCAN_BWD}[scan]
 
 
 def scan_sass_has(scan: str, words: tuple) -> dict:
-    """For each kernel of the scan ``scan`` (``SCAN_KERNELS``: K5's
-    csrc/ssm_scan.cu, K6's csrc/rwkv6_scan.cu; two launches, each built for
-    both input types), whether its SASS holds any of ``words``."""
-    from repro_torch.kernels import _build
-
-    library = {"ssm_scan": _build.SSM_SCAN, "rwkv6_scan": _build.RWKV6_SCAN}[scan]
-    funcs = {f.split("\n", 1)[0].strip(): f for f in sass_functions(library)
+    """For each kernel of the scan ``scan`` that issues products
+    (``SCAN_KERNELS``: K5's csrc/ssm_scan.cu, K6's csrc/rwkv6_scan.cu, and
+    their gradients' csrc/ssm_scan_bwd.cu, csrc/rwkv6_scan_bwd.cu; two
+    kernels each, each built for both input types), whether its SASS holds
+    any of ``words``."""
+    funcs = {f.split("\n", 1)[0].strip(): f for f in sass_functions(scan_library(scan))
              if any(k in f.split("\n", 1)[0] for k in SCAN_KERNELS[scan])}
     require(len(funcs) == 4, f"{scan}'s four kernels not found in the SASS: {sorted(funcs)}")
     return {name: any(w in f for w in words) for name, f in funcs.items()}
+
+
+def scan_bwd_kernels(scan: str) -> dict:
+    """K5''s (``scan`` "ssm_scan_bwd") or K6''s ("rwkv6_scan_bwd") kernels
+    that issue products, both input types: mangled name -> ``[registers,
+    stack bytes, local bytes, HMMA in the SASS]`` (``cuobjdump
+    -res-usage`` and ``-sass``)."""
+    res = kernel_resources(scan_library(scan))
+    hmma = scan_sass_has(scan, ("HMMA",))
+    return {name: [r.get("REG"), r.get("STACK"), r.get("LOCAL"), hmma.get(name, False)]
+            for name, r in res.items() if any(k in name for k in SCAN_KERNELS[scan])}
 
 
 def card_line() -> str:
@@ -3311,15 +3336,23 @@ def scan_bwd_row(dev, kind: str, args: tuple, chunk: int, launches: int,
     fast decay), y's gradient randn and the final state's none (as in
     training): against the float64 gradient within ``scan_bwd_limits`` and
     the plain backward within twice it, the same bits on a second call, the
-    dropped-carry control beyond the limit; then its ms, device ms (three
-    launches a call, and each kernel's apart), plain ms and bound. Returns
-    the kernels line's row and the checks."""
+    dropped-carry control beyond the limit; HMMA in the SASS of its two
+    product kernels in both input types, with no stack frame or local
+    memory; then its ms, device ms (three launches a call, and each
+    kernel's apart), plain ms and bound. Returns the kernels line's row and
+    the checks."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import rwkv6_scan, ssm_scan
 
     mod = ssm_scan if kind == "ssm" else rwkv6_scan
+    # the two kernels that issue products, in both input types, run on the
+    # tensor cores (HMMA: mma.sync) and spill nothing
+    resources = scan_bwd_kernels(f"{kind}_scan_bwd")
+    require(len(resources) == 4 and all(r[3] and r[1] == 0 and r[2] == 0
+                                        for r in resources.values()),
+            f"{kind} backward's product kernels (registers, stack, local, HMMA): {resources}")
     bwd = mod.ssm_scan_bwd if kind == "ssm" else mod.rwkv6_scan_bwd
     plain_bwd = mod.ssm_scan_bwd_plain if kind == "ssm" else mod.rwkv6_scan_bwd_plain
     names = ("x", "dt", "A", "B", "C") if kind == "ssm" else ("r", "k", "v", "logw", "u")
@@ -3439,6 +3472,7 @@ def scan_bwd_row(dev, kind: str, args: tuple, chunk: int, launches: int,
                              for n_ in kernels},
         plain_ms=timed(plain, 2), library_ms=None,
         library_call="none: no one PyTorch call computes the scan's gradient",
+        kernel_resources=resources,
         shapes=shapes + f"; {what}, dy randn", **bound)
     return row, checks
 

@@ -103,33 +103,6 @@ struct Params {
   int vec;             // every row starts on 16 bytes: 16-byte cp.async
 };
 
-// Copy `rows` rows of `cols` elements (global row i at src + i * stride)
-// into a shared tile of `pitch` elements a row: 16-byte cp.async when
-// `vec`, else plain loads and stores.
-template <class T, int NT>
-__device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* src, long long stride,
-                                           int rows, int cols, bool vec) {
-  constexpr int PER = 16 / sizeof(T);
-  if (vec) {
-    const int pieces = cols / PER;
-    for (int e = threadIdx.x; e < rows * pieces; e += NT) {
-      const int i = e / pieces, j = e % pieces;
-      cp16(dst + i * pitch + j * PER, src + i * stride + j * PER);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * cols; e += NT) {
-      const int i = e / cols, j = e % cols;
-      dst[i * pitch + j] = src[i * stride + j];
-    }
-  }
-}
-
-// Zero rows [from, to) of a shared tile: the padded steps.
-template <class T, int NT>
-__device__ __forceinline__ void zero_rows(T* dst, int pitch, int from, int to) {
-  for (int e = threadIdx.x; e < (to - from) * pitch; e += NT) set_zero(dst[from * pitch + e]);
-}
-
 // One channel's inclusive cumsum in place, rows 0..P-1 in time order; rows
 // from Q on are padded steps and add logw 0, whatever the tile holds.
 __device__ __forceinline__ void cumsum_column(float* col, int pitch, int Q, int P) {
@@ -172,14 +145,14 @@ __global__ void __launch_bounds__(ST_THREADS, 3) rwkv6_states(Params p) {
   const float* lw = p.logw + b * p.ws[0] + h * p.ws[1];
 
   for (int i = 0; i < 2; ++i) {  // padded steps: k and v 0 (cp.async writes rows below Q)
-    zero_rows<T, ST_THREADS>(sm.K[i], LDT, Q, P);
-    zero_rows<T, ST_THREADS>(sm.V[i], LDVS, Q, P);
+    zero_tile_rows<T, ST_THREADS>(sm.K[i], LDT, Q, P);
+    zero_tile_rows<T, ST_THREADS>(sm.V[i], LDVS, Q, P);
   }
   auto stage = [&](int c, int buf) {
     const long long s0 = (long long)c * Q;
-    stage_rows<T, ST_THREADS>(sm.K[buf], LDT, k + s0 * p.ks[2], p.ks[2], Q, DH, p.vec);
-    stage_rows<float, ST_THREADS>(sm.W[buf], LDT, lw + s0 * p.ws[2], p.ws[2], Q, DH, p.vec);
-    stage_rows<T, ST_THREADS>(sm.V[buf], LDVS, v + s0 * p.vs[2], p.vs[2], Q, 16 * CB, p.vec);
+    stage_tile<T, ST_THREADS>(sm.K[buf], LDT, k + s0 * p.ks[2], p.ks[2], Q, DH, p.vec);
+    stage_tile<float, ST_THREADS>(sm.W[buf], LDT, lw + s0 * p.ws[2], p.ws[2], Q, DH, p.vec);
+    stage_tile<T, ST_THREADS>(sm.V[buf], LDVS, v + s0 * p.vs[2], p.vs[2], Q, 16 * CB, p.vec);
   };
 
   float st[2][4];
@@ -281,13 +254,13 @@ __global__ void __launch_bounds__(OUT_THREADS, 4) rwkv6_outputs(Params p) {
   const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + h * p.vs[1] + s0 * p.vs[2];
   const float* lw = p.logw + b * p.ws[0] + h * p.ws[1] + s0 * p.ws[2];
 
-  zero_rows<T, OUT_THREADS>(sm.R, LR, Q, P);  // padded steps: r, k 0
-  zero_rows<T, OUT_THREADS>(sm.K, LR, Q, P);
-  stage_rows<T, OUT_THREADS>(sm.R, LR, rg, p.rs[2], Q, DH, p.vec);
-  stage_rows<T, OUT_THREADS>(sm.K, LR, kg, p.ks[2], Q, DH, p.vec);
-  stage_rows<float, OUT_THREADS>(sm.W, LDC, lw, p.ws[2], Q, DH, p.vec);
+  zero_tile_rows<T, OUT_THREADS>(sm.R, LR, Q, P);  // padded steps: r, k 0
+  zero_tile_rows<T, OUT_THREADS>(sm.K, LR, Q, P);
+  stage_tile<T, OUT_THREADS>(sm.R, LR, rg, p.rs[2], Q, DH, p.vec);
+  stage_tile<T, OUT_THREADS>(sm.K, LR, kg, p.ks[2], Q, DH, p.vec);
+  stage_tile<float, OUT_THREADS>(sm.W, LDC, lw, p.ws[2], Q, DH, p.vec);
   if (c > 0)
-    stage_rows<float, OUT_THREADS>(sm.SV, LDS, p.chunk_state + ((long long)bh * p.nc + c) * DH * DH,
+    stage_tile<float, OUT_THREADS>(sm.SV, LDS, p.chunk_state + ((long long)bh * p.nc + c) * DH * DH,
                                    DH, DH, DH, true);
   if (tid < DH) sm.u[tid] = p.u[h * DH + tid];
   cp_commit();
@@ -323,8 +296,8 @@ __global__ void __launch_bounds__(OUT_THREADS, 4) rwkv6_outputs(Params p) {
   }
   __syncthreads();  // every warp is done with S_in: v is staged over it while A is formed
   T* V = reinterpret_cast<T*>(sm.SV);
-  zero_rows<T, OUT_THREADS>(V, LDV, Q, P);  // padded steps: v 0
-  stage_rows<T, OUT_THREADS>(V, LDV, vg, p.vs[2], Q, DH, p.vec);
+  zero_tile_rows<T, OUT_THREADS>(V, LDV, Q, P);  // padded steps: v 0
+  stage_tile<T, OUT_THREADS>(V, LDV, vg, p.vs[2], Q, DH, p.vec);
   cp_commit();
 
   // A's blocks below the diagonal's blocks, (i, j) with j < i: warp w

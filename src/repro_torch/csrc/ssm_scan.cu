@@ -102,34 +102,6 @@ struct Params {
   int vec;             // x, B and C rows start on 16 bytes: 16-byte cp.async
 };
 
-// Copy `rows` rows of 64 elements (global row r at src + r * stride) into
-// a shared tile of kPitch<T> elements a row: 16-byte cp.async when `vec`,
-// else plain loads and stores.
-template <class T>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src, long long stride, int rows,
-                                           bool vec) {
-  constexpr int LD = kPitch<T>, PER = 16 / sizeof(T), PIECES = 64 / PER;
-  if (vec) {
-    for (int e = threadIdx.x; e < rows * PIECES; e += THREADS) {
-      const int r = e / PIECES, p = e % PIECES;
-      cp16(dst + r * LD + p * PER, src + r * stride + p * PER);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * 64; e += THREADS) {
-      const int r = e / 64, c = e % 64;
-      dst[r * LD + c] = src[r * stride + c];
-    }
-  }
-}
-
-// Zero rows Q..63 of a staged tile (cp.async writes rows below Q only): a
-// masked G or w times an unwritten NaN would still give NaN.
-template <class T>
-__device__ __forceinline__ void zero_tail(T* dst, int Q) {
-  constexpr int LD = kPitch<T>;
-  for (int e = threadIdx.x; e < (QMAX - Q) * LD; e += THREADS) set_zero(dst[Q * LD + e]);
-}
-
 // ---------------------------------------------------------------- states
 
 template <class T>
@@ -178,16 +150,17 @@ __global__ void __launch_bounds__(THREADS, 4) ssm_states(Params p) {
     for (int t = tid; t < n; t += THREADS) cum[w0 + t] = win[(t / Q) * (Q + 1) + t % Q];
     __syncthreads();
   }
-  for (int i = 0; i < 2; ++i) {
-    zero_tail(sm.X[i], Q);
-    zero_tail(sm.Bm[i], Q);
+  for (int i = 0; i < 2; ++i) {  // rows Q..63 zero (cp.async writes rows below Q only): a
+    // masked G or w times an unwritten NaN would still give NaN
+    zero_tile_rows<T, THREADS>(sm.X[i], LD, Q, QMAX);
+    zero_tile_rows<T, THREADS>(sm.Bm[i], LD, Q, QMAX);
   }
   __syncthreads();  // cum in device memory, seen by the block's cp.async below
 
   auto stage = [&](int c, int buf) {
     const long long s0 = (long long)c * Q;
-    stage_rows(sm.X[buf], x + s0 * p.xs[1], p.xs[1], Q, p.vec);
-    stage_rows(sm.Bm[buf], Bg + s0 * p.bs[1], p.bs[1], Q, p.vec);
+    stage_tile<T, THREADS>(sm.X[buf], LD, x + s0 * p.xs[1], p.xs[1], Q, DH, p.vec);
+    stage_tile<T, THREADS>(sm.Bm[buf], LD, Bg + s0 * p.bs[1], p.bs[1], Q, N, p.vec);
     if (tid < Q) {
       cp4(&sm.dt[buf][tid], dt + (s0 + tid) * p.ds[1]);
       cp4(&sm.cum[buf][tid], cum + s0 + tid);
@@ -283,17 +256,18 @@ __global__ void __launch_bounds__(THREADS, 3) ssm_outputs(Params p) {
   const T* Bg = static_cast<const T*>(p.B) + b * p.bs[0] + s0 * p.bs[1];
   const T* Cg = static_cast<const T*>(p.C) + b * p.cs[0] + s0 * p.cs[1];
 
-  zero_tail(sm.Cm, Q);
-  zero_tail(sm.Bm, Q);
-  for (int i = 0; i < 2; ++i) zero_tail(sm.X[i], Q);
+  zero_tile_rows<T, THREADS>(sm.Cm, LD, Q, QMAX);  // rows Q..63 zero, as in ssm_states
+  zero_tile_rows<T, THREADS>(sm.Bm, LD, Q, QMAX);
+  for (int i = 0; i < 2; ++i) zero_tile_rows<T, THREADS>(sm.X[i], LD, Q, QMAX);
   if (tid < QMAX - Q)
     for (int i = 0; i < 2; ++i) sm.cum[i][Q + tid] = sm.dt[i][Q + tid] = 0.f;
 
   auto stage = [&](int hi, int buf) {
     const int h = h0 + hi;
     const long long bh = (long long)b * p.H + h;
-    stage_rows(sm.X[buf], static_cast<const T*>(p.x) + b * p.xs[0] + h * p.xs[2] + s0 * p.xs[1],
-               p.xs[1], Q, p.vec);
+    stage_tile<T, THREADS>(sm.X[buf], LD,
+                           static_cast<const T*>(p.x) + b * p.xs[0] + h * p.xs[2] + s0 * p.xs[1],
+                           p.xs[1], Q, DH, p.vec);
     if (tid < Q) {
       cp4(&sm.dt[buf][tid], p.dt + b * p.ds[0] + h * p.ds[2] + (s0 + tid) * p.ds[1]);
       cp4(&sm.cum[buf][tid], p.cum + bh * p.S + s0 + tid);
@@ -307,8 +281,8 @@ __global__ void __launch_bounds__(THREADS, 3) ssm_outputs(Params p) {
     }
   };
 
-  stage_rows(sm.Cm, Cg, p.cs[1], Q, p.vec);
-  stage_rows(sm.Bm, Bg, p.bs[1], Q, p.vec);
+  stage_tile<T, THREADS>(sm.Cm, LD, Cg, p.cs[1], Q, N, p.vec);
+  stage_tile<T, THREADS>(sm.Bm, LD, Bg, p.bs[1], Q, N, p.vec);
   stage(0, 0);
   cp_commit();
 

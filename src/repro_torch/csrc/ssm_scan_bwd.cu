@@ -24,43 +24,73 @@
 //            + sum_s w_s dt_s P_s;
 //   dda   = the reverse cumsum of dcum within the chunk (the gradient of
 //           dt a), dA = sum over (batch, step) of dt dda.
-// B and C are shared by the heads: each head's share is written apart and
-// summed over the heads in a fixed order. kernels/ssm_scan.py:
-// ssm_scan_bwd_plain is the plain version of the same recurrences.
+// kernels/ssm_scan.py:ssm_scan_bwd_plain is the plain version of the same
+// recurrences.
 //
-// Bound on an H100 (NVIDIA's data sheet: 3.35 TB/s, 67 TFLOP/s fp32): at
-// Zamba2-7B's training shape (4 x 2,048 steps x 112 heads, dh = N = 64,
+// Bound on an H100 (NVIDIA's data sheet: 3.35 TB/s, 495 TFLOP/s TF32):
+// at Zamba2-7B's training shape (4 x 2,048 steps x 112 heads, dh = N = 64,
 // bf16 x, B, C) the function reads x, dt, B, C and dy and writes dx, ddt,
-// dB, dC (about 480 MB, 0.14 ms); its products on fp32 FMA take longer at
-// any chunk (chip_smoke.py reckons both and states which one binds).
+// dB, dC (about 480 MB, 0.14 ms); its products as split TF32 take a
+// little longer, 0.19 ms (chip_smoke.py reckons both and states which one
+// binds).
 //
 // Design: three launches, no atomics and no grid barrier, so two calls
 // give the same bits; the wrapper counts the call once.
-//   ssm_bwd_states, one CTA of 128 threads per (batch, head, 16 rows of
-//     dS): the chunks in reverse order, each one's dy rows, C and cum
-//     staged in shared memory, dS written to scratch before the chunk's
-//     term is added, dS = fmaf(dS, exp(cum_Q), sum_t exp(cum_t) dy C^T)
-//     in registers (a thread 8 entries, the sum over t in time order).
-//   ssm_bwd_chunks, one CTA of 256 threads per (chunk, batch, head), all
-//     chunks at once: x, dy, B, C, S_in and dS staged as fp32 tiles (183
-//     KB of shared memory), the Q x Q tiles G, Ml and Z, the Q x N tiles
-//     Y and exp(cum) S_in^T dy, then dx, dB and dC's shares, the row
-//     sums of dcum, the reverse cumsum, ddt and the chunk's part of dA,
-//     each entry by one thread over its sum's terms in a fixed order.
-//   ssm_bwd_fold: dB and dC summed over the heads, h ascending, and dA
-//     over (batch, chunk) in order.
-// Products on fp32 FMA (a simple kernel first; K5's forward runs split
-// TF32 on mma.sync). Tiles are fp32 with a pitch of 65 floats, so a warp
-// reading a column hits 32 banks.
+//   ssm_bwd_states, one CTA of 4 warps per (batch, head), the mirror of
+//     K5's ssm_states: the chunks in reverse order, each one's dy rows, C
+//     and cumsum staged by cp.async while the one after computes; dS
+//     written to scratch before the chunk's term is added; the term U =
+//     (dy exp(cum))^T C on the tensor cores (rows d, k = t), and dS =
+//     fmaf(dS, exp(cum_Q), U) in registers, one rounding, as ssm_states.
+//   ssm_bwd_chunks, one CTA of 4 warps per (chunk, batch, group of 8
+//     heads), as K5's ssm_outputs: C and B staged once for the group in
+//     their own type (bf16 tiles of 144 bytes a row) and C B^T formed once
+//     on the tensor cores; then per head, with x, dy, S_in and dS staged
+//     (each head's S_in, dS and x, dy loaded by cp.async as soon as the
+//     head before is done with that tile):
+//       (a) rows t: the carry-in Cr = exp(cum_t) (dy S_in) (k = d), added
+//           to the group's dC, and C_t . Cr_t;
+//       (b) rows s: dx's state term wdt_s (B dS^T) (k = n), Y = x dS
+//           (k = d), P_s = B_s . Y_s, dB += wdt_s Y;
+//       (c) rows s: M^T = x dy^T (k = d) on the tensor cores, and in its
+//           registers G^T, Ml^T and Z^T (as ssm_outputs keeps G from C B^T
+//           to G x): dx += G^T dy and dB += Ml^T C (k = t), Ml^T written
+//           to shared memory, Z^T's row sums and dt-weighted column sums
+//           by warp shuffles in a fixed order;
+//       (d) rows t: dC += Ml B (k = s, Ml read transposed from shared
+//           memory); then one warp runs the head's tail: dcum, its
+//           reverse cumsum by a shuffle scan of fixed order, ddt, and the
+//           chunk's part of dA.
+//     Warp w owns rows 16 w..16 w + 15 in both orientations; dB (rows s)
+//     and dC (rows t) are summed over the group's heads in registers, the
+//     heads in ascending order, and written once a group.
+//   ssm_bwd_fold: dB and dC summed over the H / 8 head groups in order,
+//     dA over (batch, chunk) in order.
+// Products: split TF32 on mma.sync (tf32_mma.cuh gives the order of the
+// TF32 products); x, B and C exact when bf16, dy, the states and the
+// gated tiles split. kernels/ref.py:ssm_scan_bwd_split_ref emulates this
+// order on the CPU. 100 KB of shared memory in bf16: two CTAs an SM.
 
 #include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int DH = 64, N = 64, QMAX = 64, LD = 65;
-constexpr int ST_THREADS = 128, ST_ROWS = 16, ST_BLOCKS = DH / ST_ROWS;
-constexpr int CH_THREADS = 256, FOLD_THREADS = 256;
+constexpr int DH = 64, N = 64, QMAX = 64, THREADS = 128, HG = 8, FOLD_THREADS = 256;
+// fp32 tile pitches in floats, multiples of 16 bytes for cp.async: dy and
+// Ml^T are read as A fragments with rows by g (68, distinct banks); the
+// states as B fragments with k by t (72). The states kernel reads dy as A
+// with k by t (72).
+constexpr int LDY = 68, LDS = 72, LDYS = 72;
+// Row pitch of a staged x, B or C tile in elements: 144 bytes in bf16,
+// 272 in fp32.
+template <class T> constexpr int kPitch = std::is_same<T, float>::value ? 68 : 72;
 
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -72,11 +102,11 @@ struct Params {
   const void* C;
   const float* cum;          // the forward's scratch (Bt, H, S)
   const float* chunk_state;  // the forward's scratch (Bt, H, nc, DH, N): state entering chunk c
-  const float* dy;           // (Bt, S, H, DH), strides dys, last axis contiguous
+  const float* dy;           // (Bt, S, H, DH), strides ys, last axis contiguous
   const float* dstate;       // (Bt, H, DH, N) contiguous, or null (zero)
   float* ds;                 // scratch (Bt, H, nc, DH, N): gradient of the state leaving chunk c
-  float* dBh;                // scratch (Bt, H, S, N): each head's share of dB
-  float* dCh;                // scratch (Bt, H, S, N)
+  float* dBg;                // scratch (Bt, ng, S, N): each head group's share of dB
+  float* dCg;                // scratch (Bt, ng, S, N)
   float* dApart;             // scratch (Bt, H, nc)
   void* dx;                  // contiguous (Bt, S, H, DH), x's type
   float* ddt;                // contiguous (Bt, S, H)
@@ -84,183 +114,484 @@ struct Params {
   void* dB;                  // contiguous (Bt, S, N), B's type
   void* dC;
   long long xs[3], ds_[3], bs[2], cs[2], ys[3];
-  int Bt, H, S, Q, nc;
+  int Bt, H, S, Q, nc, ng;
+  int vec;   // x, B and C rows start on 16 bytes: 16-byte cp.async
+  int yvec;  // dy rows start on 16 bytes
 };
 
 // ------------------------------------------------------- reverse dS pass
 
+template <class T>
 struct StatesSmem {
-  float dy[QMAX][ST_ROWS + 1];
-  float C[QMAX][LD];
-  float e[QMAX];  // exp(cum_t)
+  float DY[2][QMAX * LDYS];
+  T Cm[2][QMAX * kPitch<T>];
+  float cum[2][QMAX];
+  float e[QMAX];  // exp(cum_t), 0 past Q
 };
 
 template <class T>
-__global__ void __launch_bounds__(ST_THREADS) ssm_bwd_states(Params p) {
-  __shared__ StatesSmem sm;
-  const int bh = blockIdx.x / ST_BLOCKS, blk = blockIdx.x % ST_BLOCKS;
-  const int b = bh / p.H, h = bh % p.H, tid = threadIdx.x, Q = p.Q;
-  const int dl = tid / 8, d = ST_ROWS * blk + dl;  // this thread's row of dS
+__global__ void __launch_bounds__(THREADS, 3) ssm_bwd_states(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<StatesSmem<T>*>(smem_raw);
+  constexpr int LD = kPitch<T>;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H, tid = threadIdx.x;
+  const int Q = p.Q, nc = p.nc;
   const T* Cg = static_cast<const T*>(p.C) + b * p.cs[0];
-  const float* dyg = p.dy + b * p.ys[0] + h * p.ys[2] + ST_ROWS * blk;
-  const float* cum = p.cum + (long long)bh * p.S;
-  float acc[8];
-  float* ds = p.ds + (long long)bh * p.nc * DH * N;
+  const float* dyg = p.dy + b * p.ys[0] + h * p.ys[2];
+  const float* cumg = p.cum + (long long)bh * p.S;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int d0 = 16 * warp + g, d1 = d0 + 8;  // this thread's rows of dS
+  const int ksteps = (Q + 7) / 8;
+
+  for (int i = 0; i < 2; ++i) {  // rows past Q: 0 (cp.async writes rows below Q)
+    zero_tile_rows<float, THREADS>(sm.DY[i], LDYS, Q, QMAX);
+    zero_tile_rows<T, THREADS>(sm.Cm[i], LD, Q, QMAX);
+  }
+  auto stage = [&](int c, int buf) {
+    const long long s0 = (long long)c * Q;
+    stage_tile<float, THREADS>(sm.DY[buf], LDYS, dyg + s0 * p.ys[1], p.ys[1], Q, DH, p.yvec);
+    stage_tile<T, THREADS>(sm.Cm[buf], LD, Cg + s0 * p.cs[1], p.cs[1], Q, N, p.vec);
+    if (tid < Q) cp4(&sm.cum[buf][tid], cumg + s0 + tid);
+  };
+
+  float st[8][4];
+  const float* dst = p.dstate ? p.dstate + (long long)bh * DH * N : nullptr;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const int n = tid % 8 + 8 * j;
-    acc[j] = p.dstate ? p.dstate[((long long)bh * DH + d) * N + n] : 0.f;
+    const int n = 8 * j + 2 * t4;
+    st[j][0] = dst ? dst[d0 * N + n] : 0.f;
+    st[j][1] = dst ? dst[d0 * N + n + 1] : 0.f;
+    st[j][2] = dst ? dst[d1 * N + n] : 0.f;
+    st[j][3] = dst ? dst[d1 * N + n + 1] : 0.f;
   }
-  for (int c = p.nc - 1; c >= 0; --c) {
-    const long long s0 = (long long)c * Q;
-    __syncthreads();  // every thread is done with chunk c + 1's tiles
-    for (int e = tid; e < Q * N; e += ST_THREADS)
-      sm.C[e / N][e % N] = to_f(Cg[(s0 + e / N) * p.cs[1] + e % N]);
-    for (int e = tid; e < Q * ST_ROWS; e += ST_THREADS)
-      sm.dy[e / ST_ROWS][e % ST_ROWS] = dyg[(s0 + e / ST_ROWS) * p.ys[1] + e % ST_ROWS];
-    if (tid < Q) sm.e[tid] = expf(cum[s0 + tid]);
+  float* ds = p.ds + (long long)bh * nc * DH * N;
+
+  stage(nc - 1, 0);
+  cp_commit();
+  for (int c = nc - 1; c >= 0; --c) {
+    const int buf = (nc - 1 - c) & 1;
+    cp_wait<0>();
+    __syncthreads();  // chunk c staged; every warp is done with chunk c + 1
+    if (c > 0) stage(c - 1, buf ^ 1);
+    cp_commit();
+    if (tid < QMAX) sm.e[tid] = tid < Q ? expf(sm.cum[buf][tid]) : 0.f;
     __syncthreads();
-    const float decay = expf(cum[s0 + Q - 1]);
+    const float decay = expf(sm.cum[buf][Q - 1]);
+    const float* DY = sm.DY[buf];
+    const T* Cm = sm.Cm[buf];
+
+    // U = (dy exp(cum))^T C: rows d, columns n, k = t
+    float u[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) u[j][i] = 0.f;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int t0 = 8 * ks + t4, t1 = t0 + 4;
+      const float e0 = sm.e[t0], e1 = sm.e[t1];
+      const FragA fa = frag_a<false>(DY[t0 * LDYS + d0] * e0, DY[t0 * LDYS + d1] * e0,
+                                     DY[t1 * LDYS + d0] * e1, DY[t1 * LDYS + d1] * e1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mma_step<false, kExact<T>>(u[j], fa, to_f(Cm[t0 * LD + 8 * j + g]),
+                                   to_f(Cm[t1 * LD + 8 * j + g]));
+    }
+    float* out = ds + (long long)c * DH * N;  // the gradient of the state leaving chunk c
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int n = tid % 8 + 8 * j;
-      ds[((long long)c * DH + d) * N + n] = acc[j];
-      float v = 0.f;
-      for (int t = 0; t < Q; ++t) v = fmaf(sm.e[t] * sm.dy[t][dl], sm.C[t][n], v);
-      acc[j] = fmaf(acc[j], decay, v);
+      const int n = 8 * j + 2 * t4;
+      store2(out + d0 * N + n, st[j][0], st[j][1]);
+      store2(out + d1 * N + n, st[j][2], st[j][3]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[j][i] = fmaf(st[j][i], decay, u[j][i]);
     }
   }
 }
 
 // ------------------------------------------------------- every chunk
 
+template <class T>
 struct ChunkSmem {
-  float X[QMAX][LD], DY[QMAX][LD], Bm[QMAX][LD], Cm[QMAX][LD];
-  float Si[DH][LD], So[DH][LD];  // [d][n]
-  float G[QMAX][LD], Ml[QMAX][LD], Z[QMAX][LD];  // [t][s]
-  float Y[QMAX][LD], Cr[QMAX][LD];               // [s][n], [t][n]
-  float cum[QMAX], dt[QMAX], w[QMAX], P[QMAX], zs[QMAX], dcum[QMAX];
-  float red[CH_THREADS];
+  T Cm[QMAX * kPitch<T>], Bm[QMAX * kPitch<T>];  // the group's C and B
+  T X[QMAX * kPitch<T>];                         // this head's x
+  float DY[QMAX * LDY];                          // this head's dy
+  float Si[DH * LDS], So[DH * LDS];              // S_in and dS, [d][n]
+  float MlT[QMAX * LDY];                         // Ml^T, [s][t]
+  float cum[2][QMAX], dt[2][QMAX];               // this head's and the next one's
+  float zs[QMAX], P[QMAX], cc[QMAX];             // per step: sum_t Z[t,s], P_s, C_t . Cr_t
+  float colz[4][QMAX];                           // per warp: sum over its rows s of Z[t,s] dt_s
+  float red[4];                                  // per warp: its share of <dS, S_in>
 };
 
 template <class T>
-__global__ void __launch_bounds__(CH_THREADS) ssm_bwd_chunks(Params p) {
+__global__ void __launch_bounds__(THREADS, 2) ssm_bwd_chunks(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<ChunkSmem*>(smem_raw);
-  const int c = blockIdx.x, b = blockIdx.y, h = blockIdx.z, tid = threadIdx.x;
-  const int Q = p.Q;
-  const long long bh = (long long)b * p.H + h, s0 = (long long)c * Q;
-  const T* x = static_cast<const T*>(p.x) + b * p.xs[0] + h * p.xs[2] + s0 * p.xs[1];
+  auto& sm = *reinterpret_cast<ChunkSmem<T>*>(smem_raw);
+  constexpr int LD = kPitch<T>;
+  constexpr bool CX = kExact<T>;
+  const int c = blockIdx.x, b = blockIdx.y, grp = blockIdx.z, h0 = grp * HG, tid = threadIdx.x;
+  const int Q = p.Q, nh = min(HG, p.H - h0);
+  const long long s0 = (long long)c * Q;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;  // this thread's rows (s or t)
+  const bool active = 16 * warp < Q;
+  const int jmin = 2 * warp, jlast = (Q - 1) / 8;  // rows s: the column tiles t >= s reaches
+  const int kmax = min(2 * warp + 1, jlast);       // rows t: the k tiles s <= t reaches
   const T* Bg = static_cast<const T*>(p.B) + b * p.bs[0] + s0 * p.bs[1];
   const T* Cg = static_cast<const T*>(p.C) + b * p.cs[0] + s0 * p.cs[1];
-  const float* dy = p.dy + b * p.ys[0] + h * p.ys[2] + s0 * p.ys[1];
-  const float* si = p.chunk_state + (bh * p.nc + c) * DH * N;
-  const float* so = p.ds + (bh * p.nc + c) * DH * N;
 
-  for (int e = tid; e < Q * DH; e += CH_THREADS) {
-    const int t = e / DH, k = e % DH;
-    sm.X[t][k] = to_f(x[t * p.xs[1] + k]);
-    sm.DY[t][k] = dy[t * p.ys[1] + k];
-    sm.Bm[t][k] = to_f(Bg[t * p.bs[1] + k]);
-    sm.Cm[t][k] = to_f(Cg[t * p.cs[1] + k]);
-  }
-  for (int e = tid; e < DH * N; e += CH_THREADS) {
-    sm.Si[e / N][e % N] = c > 0 ? si[e] : 0.f;
-    sm.So[e / N][e % N] = so[e];
-  }
-  if (tid < Q) {
-    sm.cum[tid] = p.cum[bh * p.S + s0 + tid];
-    sm.dt[tid] = p.dt[b * p.ds_[0] + (s0 + tid) * p.ds_[1] + h * p.ds_[2]];
-  }
-  __syncthreads();
-  const float cq = sm.cum[Q - 1];
+  zero_tile_rows<T, THREADS>(sm.Cm, LD, Q, QMAX);
+  zero_tile_rows<T, THREADS>(sm.Bm, LD, Q, QMAX);
+  zero_tile_rows<T, THREADS>(sm.X, LD, Q, QMAX);
+  zero_tile_rows<float, THREADS>(sm.DY, LDY, Q, QMAX);
+  zero_tile_rows<float, THREADS>(sm.MlT, LDY, 0, QMAX);
+  if (tid < QMAX - Q)
+    for (int i = 0; i < 2; ++i) sm.cum[i][Q + tid] = sm.dt[i][Q + tid] = 0.f;
 
-  // the Q x Q tiles: G, Ml and Z, 0 above the diagonal
-  for (int e = tid; e < Q * Q; e += CH_THREADS) {
-    const int t = e / Q, s = e % Q;
-    float g = 0.f, ml = 0.f, z = 0.f;
-    if (s <= t) {
-      float cb = 0.f, m = 0.f;
-      for (int k = 0; k < N; ++k) cb = fmaf(sm.Cm[t][k], sm.Bm[s][k], cb);
-      for (int k = 0; k < DH; ++k) m = fmaf(sm.DY[t][k], sm.X[s][k], m);
-      const float E = expf(sm.cum[t] - sm.cum[s]);
-      g = cb * E * sm.dt[s];
-      ml = m * E * sm.dt[s];
-      z = m * cb * E;
+  auto head = [&](int hi) { return (long long)b * p.H + h0 + hi; };
+  auto stage_x_dy = [&](int hi, int buf) {
+    const int h = h0 + hi;
+    stage_tile<T, THREADS>(sm.X, LD, static_cast<const T*>(p.x) + b * p.xs[0] + h * p.xs[2] +
+                                         s0 * p.xs[1], p.xs[1], Q, DH, p.vec);
+    stage_tile<float, THREADS>(sm.DY, LDY, p.dy + b * p.ys[0] + h * p.ys[2] + s0 * p.ys[1],
+                               p.ys[1], Q, DH, p.yvec);
+    if (tid < Q) {
+      cp4(&sm.dt[buf][tid], p.dt + b * p.ds_[0] + h * p.ds_[2] + (s0 + tid) * p.ds_[1]);
+      cp4(&sm.cum[buf][tid], p.cum + head(hi) * p.S + s0 + tid);
     }
-    sm.G[t][s] = g;
-    sm.Ml[t][s] = ml;
-    sm.Z[t][s] = z;
-  }
-  // the Q x N tiles: Y = dS^T x and the carry-in's exp(cum) S_in^T dy
-  for (int e = tid; e < Q * N; e += CH_THREADS) {
-    const int s = e / N, n = e % N;
-    float y = 0.f, cr = 0.f;
-    for (int d = 0; d < DH; ++d) {
-      y = fmaf(sm.So[d][n], sm.X[s][d], y);
-      cr = fmaf(sm.Si[d][n], sm.DY[s][d], cr);
+  };
+  auto stage_state = [&](float* dst, const float* src) {
+    for (int e = tid; e < DH * N / 4; e += THREADS) {
+      const int d = e / (N / 4), q4 = e % (N / 4);
+      cp16(dst + d * LDS + 4 * q4, src + d * N + 4 * q4);
     }
-    sm.Y[s][n] = y;
-    sm.Cr[s][n] = expf(sm.cum[s]) * cr;
-  }
-  if (tid < Q) sm.w[tid] = expf(cq - sm.cum[tid]);
-  // <dS, S_in>: each thread's entries in order, then a fixed tree
-  float dot = 0.f;
-  for (int e = tid; e < DH * N; e += CH_THREADS) dot = fmaf(sm.So[e / N][e % N], sm.Si[e / N][e % N], dot);
-  sm.red[tid] = dot;
-  __syncthreads();
-  for (int half = CH_THREADS / 2; half > 0; half /= 2) {
-    if (tid < half) sm.red[tid] += sm.red[tid + half];
-    __syncthreads();
+  };
+  auto stage_si = [&](int hi) {
+    if (c > 0) stage_state(sm.Si, p.chunk_state + (head(hi) * p.nc + c) * DH * N);
+  };
+  auto stage_so = [&](int hi) { stage_state(sm.So, p.ds + (head(hi) * p.nc + c) * DH * N); };
+
+  stage_tile<T, THREADS>(sm.Cm, LD, Cg, p.cs[1], Q, N, p.vec);
+  stage_tile<T, THREADS>(sm.Bm, LD, Bg, p.bs[1], Q, N, p.vec);
+  stage_x_dy(0, 0);
+  stage_si(0);
+  stage_so(0);
+  cp_commit();
+
+  float cb[8][4];  // C B^T, rows s, columns t (kept for the group)
+  float dB[8][4], dC[8][4];  // the group's dB (rows s) and dC (rows t), columns n
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) cb[j][i] = dB[j][i] = dC[j][i] = 0.f;
+
+  for (int hi = 0; hi < nh; ++hi) {
+    const int buf = hi & 1, h = h0 + hi;
+    const long long bh = head(hi);
+    cp_wait<0>();
+    __syncthreads();  // head hi staged (with C and B for head 0); head hi - 1 done
+    const float* cum = sm.cum[buf];
+    const float* dts = sm.dt[buf];
+    const T* X = sm.X;
+    const float* DY = sm.DY;
+
+    if (hi == 0 && active) {  // B C^T: rows s, columns t, k = n; once for the group
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        const int n0 = 8 * ks + t4, n1 = n0 + 4;
+        const FragA fb = frag_a<CX>(to_f(sm.Bm[r0 * LD + n0]), to_f(sm.Bm[r1 * LD + n0]),
+                                    to_f(sm.Bm[r0 * LD + n1]), to_f(sm.Bm[r1 * LD + n1]));
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (j >= jmin && j <= jlast)
+            mma_step<CX, CX>(cb[j], fb, to_f(sm.Cm[(8 * j + g) * LD + n0]),
+                             to_f(sm.Cm[(8 * j + g) * LD + n1]));
+      }
+    }
+
+    // (a) rows t: the carry-in Cr = exp(cum_t) (dy S_in), k = d; dC += Cr;
+    // C_t . Cr_t; and this thread's share of <dS, S_in>
+    float dot = 0.f;
+    if (c > 0) {
+      if (active) {
+        float cv[8][4];
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) cv[m][i] = 0.f;
+#pragma unroll 2
+        for (int ks = 0; ks < 8; ++ks) {
+          const int d0 = 8 * ks + t4, d1 = d0 + 4;
+          const FragA fa = frag_a<false>(DY[r0 * LDY + d0], DY[r1 * LDY + d0],
+                                         DY[r0 * LDY + d1], DY[r1 * LDY + d1]);
+#pragma unroll
+          for (int m = 0; m < 8; ++m)
+            mma_step<false, false>(cv[m], fa, sm.Si[d0 * LDS + 8 * m + g],
+                                   sm.Si[d1 * LDS + 8 * m + g]);
+        }
+        const float e0 = expf(cum[r0]), e1 = expf(cum[r1]);
+        float c0 = 0.f, c1 = 0.f;
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const int n = 8 * m + 2 * t4;
+          const float a0 = e0 * cv[m][0], a1 = e0 * cv[m][1];
+          const float a2 = e1 * cv[m][2], a3 = e1 * cv[m][3];
+          dC[m][0] += a0;
+          dC[m][1] += a1;
+          dC[m][2] += a2;
+          dC[m][3] += a3;
+          c0 = fmaf(to_f(sm.Cm[r0 * LD + n]), a0, c0);
+          c0 = fmaf(to_f(sm.Cm[r0 * LD + n + 1]), a1, c0);
+          c1 = fmaf(to_f(sm.Cm[r1 * LD + n]), a2, c1);
+          c1 = fmaf(to_f(sm.Cm[r1 * LD + n + 1]), a3, c1);
+        }
+        c0 += __shfl_xor_sync(0xffffffffu, c0, 1);
+        c0 += __shfl_xor_sync(0xffffffffu, c0, 2);
+        c1 += __shfl_xor_sync(0xffffffffu, c1, 1);
+        c1 += __shfl_xor_sync(0xffffffffu, c1, 2);
+        if (t4 == 0) {
+          sm.cc[r0] = c0;
+          sm.cc[r1] = c1;
+        }
+      }
+      for (int e = tid; e < DH * N; e += THREADS) {
+        const int i = (e / N) * LDS + e % N;
+        dot = fmaf(sm.So[i], sm.Si[i], dot);
+      }
+    }
+    for (int off = 16; off > 0; off /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (lane == 0) sm.red[warp] = dot;
+    __syncthreads();  // every warp is done with S_in
+    if (hi + 1 < nh) stage_si(hi + 1);
+    cp_commit();
+
+    // (b) rows s: dx's state term wdt_s (B dS^T), k = n; Y = x dS, k = d;
+    // P_s = B_s . Y_s; dB += wdt_s Y
+    const float cq = cum[Q - 1];
+    const float cs0 = cum[r0], cs1 = cum[r1], dt0 = dts[r0], dt1 = dts[r1];
+    const float wdt0 = r0 < Q ? expf(cq - cs0) * dt0 : 0.f;
+    const float wdt1 = r1 < Q ? expf(cq - cs1) * dt1 : 0.f;
+    float dxv[8][4];
+    if (active) {
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dxv[m][i] = 0.f;
+#pragma unroll 2
+      for (int ks = 0; ks < 8; ++ks) {
+        const int n0 = 8 * ks + t4, n1 = n0 + 4;
+        const FragA fb = frag_a<CX>(to_f(sm.Bm[r0 * LD + n0]), to_f(sm.Bm[r1 * LD + n0]),
+                                    to_f(sm.Bm[r0 * LD + n1]), to_f(sm.Bm[r1 * LD + n1]));
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          mma_step<CX, false>(dxv[m], fb, sm.So[(8 * m + g) * LDS + n0],
+                              sm.So[(8 * m + g) * LDS + n1]);
+      }
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        dxv[m][0] *= wdt0;
+        dxv[m][1] *= wdt0;
+        dxv[m][2] *= wdt1;
+        dxv[m][3] *= wdt1;
+      }
+      float yv[8][4];
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) yv[m][i] = 0.f;
+#pragma unroll 2
+      for (int ks = 0; ks < 8; ++ks) {
+        const int d0 = 8 * ks + t4, d1 = d0 + 4;
+        const FragA fx = frag_a<CX>(to_f(X[r0 * LD + d0]), to_f(X[r1 * LD + d0]),
+                                    to_f(X[r0 * LD + d1]), to_f(X[r1 * LD + d1]));
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          mma_step<CX, false>(yv[m], fx, sm.So[d0 * LDS + 8 * m + g], sm.So[d1 * LDS + 8 * m + g]);
+      }
+      float P0 = 0.f, P1 = 0.f;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int n = 8 * m + 2 * t4;
+        P0 = fmaf(to_f(sm.Bm[r0 * LD + n]), yv[m][0], P0);
+        P0 = fmaf(to_f(sm.Bm[r0 * LD + n + 1]), yv[m][1], P0);
+        P1 = fmaf(to_f(sm.Bm[r1 * LD + n]), yv[m][2], P1);
+        P1 = fmaf(to_f(sm.Bm[r1 * LD + n + 1]), yv[m][3], P1);
+        dB[m][0] = fmaf(wdt0, yv[m][0], dB[m][0]);
+        dB[m][1] = fmaf(wdt0, yv[m][1], dB[m][1]);
+        dB[m][2] = fmaf(wdt1, yv[m][2], dB[m][2]);
+        dB[m][3] = fmaf(wdt1, yv[m][3], dB[m][3]);
+      }
+      P0 += __shfl_xor_sync(0xffffffffu, P0, 1);
+      P0 += __shfl_xor_sync(0xffffffffu, P0, 2);
+      P1 += __shfl_xor_sync(0xffffffffu, P1, 1);
+      P1 += __shfl_xor_sync(0xffffffffu, P1, 2);
+      if (t4 == 0) {
+        sm.P[r0] = P0;
+        sm.P[r1] = P1;
+      }
+    }
+    __syncthreads();  // every warp is done with dS
+    if (hi + 1 < nh) stage_so(hi + 1);
+    cp_commit();
+
+    // (c) rows s: M^T = x dy^T (columns t, k = d); G^T, Ml^T, Z^T from its
+    // registers; dx += G^T dy and dB += Ml^T C (k = t)
+    if (active) {
+      float mv[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mv[j][i] = 0.f;
+#pragma unroll 2
+      for (int ks = 0; ks < 8; ++ks) {
+        const int d0 = 8 * ks + t4, d1 = d0 + 4;
+        const FragA fx = frag_a<CX>(to_f(X[r0 * LD + d0]), to_f(X[r1 * LD + d0]),
+                                    to_f(X[r0 * LD + d1]), to_f(X[r1 * LD + d1]));
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (j >= jmin && j <= jlast)
+            mma_step<CX, false>(mv[j], fx, DY[(8 * j + g) * LDY + d0],
+                                DY[(8 * j + g) * LDY + d1]);
+      }
+      float zs0 = 0.f, zs1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < jmin || j > jlast) continue;
+        // this thread's columns t: ta = 8 j + 2 t4 and tb = ta + 1; as an
+        // A fragment, k-slot t4 stands for ta and t4 + 4 for tb
+        const int ta = 8 * j + 2 * t4, tb = ta + 1;
+        const float cta = cum[ta], ctb = cum[tb];
+        const float E00 = r0 <= ta && ta < Q ? expf(cta - cs0) : 0.f;
+        const float E01 = r0 <= tb && tb < Q ? expf(ctb - cs0) : 0.f;
+        const float E10 = r1 <= ta && ta < Q ? expf(cta - cs1) : 0.f;
+        const float E11 = r1 <= tb && tb < Q ? expf(ctb - cs1) : 0.f;
+        const float g00 = cb[j][0] * E00 * dt0, g01 = cb[j][1] * E01 * dt0;
+        const float g10 = cb[j][2] * E10 * dt1, g11 = cb[j][3] * E11 * dt1;
+        const float l00 = mv[j][0] * E00 * dt0, l01 = mv[j][1] * E01 * dt0;
+        const float l10 = mv[j][2] * E10 * dt1, l11 = mv[j][3] * E11 * dt1;
+        const float z00 = mv[j][0] * cb[j][0] * E00, z01 = mv[j][1] * cb[j][1] * E01;
+        const float z10 = mv[j][2] * cb[j][2] * E10, z11 = mv[j][3] * cb[j][3] * E11;
+        store2(sm.MlT + r0 * LDY + ta, l00, l01);
+        store2(sm.MlT + r1 * LDY + ta, l10, l11);
+        zs0 = zs0 + z00 + z01;
+        zs1 = zs1 + z10 + z11;
+        // sum over this warp's rows s of Z[t,s] dt_s: rows g, g + 8 of the
+        // thread, then the eight g by an xor tree
+        float ca = fmaf(z10, dt1, z00 * dt0), cbv = fmaf(z11, dt1, z01 * dt0);
+#pragma unroll
+        for (int off = 4; off < 32; off *= 2) {
+          ca += __shfl_xor_sync(0xffffffffu, ca, off);
+          cbv += __shfl_xor_sync(0xffffffffu, cbv, off);
+        }
+        if (g == 0) {
+          sm.colz[warp][ta] = ca;
+          sm.colz[warp][tb] = cbv;
+        }
+        const FragA fg = frag_a<false>(g00, g10, g01, g11);
+        const FragA fm = frag_a<false>(l00, l10, l01, l11);
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          mma_step<false, false>(dxv[m], fg, DY[ta * LDY + 8 * m + g], DY[tb * LDY + 8 * m + g]);
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          mma_step<false, CX>(dB[m], fm, to_f(sm.Cm[ta * LD + 8 * m + g]),
+                              to_f(sm.Cm[tb * LD + 8 * m + g]));
+      }
+      zs0 += __shfl_xor_sync(0xffffffffu, zs0, 1);
+      zs0 += __shfl_xor_sync(0xffffffffu, zs0, 2);
+      zs1 += __shfl_xor_sync(0xffffffffu, zs1, 1);
+      zs1 += __shfl_xor_sync(0xffffffffu, zs1, 2);
+      if (t4 == 0) {
+        sm.zs[r0] = zs0;
+        sm.zs[r1] = zs1;
+      }
+      T* dx = static_cast<T*>(p.dx) + ((b * (long long)p.S + s0) * p.H + h) * DH;
+      const long long row = (long long)p.H * DH;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int d = 8 * m + 2 * t4;
+        if (r0 < Q) store2(dx + r0 * row + d, dxv[m][0], dxv[m][1]);
+        if (r1 < Q) store2(dx + r1 * row + d, dxv[m][2], dxv[m][3]);
+      }
+    }
+    __syncthreads();  // Ml^T, the step sums and the column sums written; x, dy free
+    if (hi + 1 < nh) stage_x_dy(hi + 1, buf ^ 1);
+    cp_commit();
+
+    // (d) rows t: dC += Ml B, k = s <= t, Ml read transposed
+    if (active) {
+      for (int ks = 0; ks <= kmax; ++ks) {
+        const int sa = 8 * ks + t4, sb = sa + 4;
+        const FragA fa = frag_a<false>(sm.MlT[sa * LDY + r0], sm.MlT[sa * LDY + r1],
+                                       sm.MlT[sb * LDY + r0], sm.MlT[sb * LDY + r1]);
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          mma_step<false, CX>(dC[m], fa, to_f(sm.Bm[sa * LD + 8 * m + g]),
+                              to_f(sm.Bm[sb * LD + 8 * m + g]));
+      }
+    }
+    if (warp == 0) {  // the head's tail: lane l steps 2 l and 2 l + 1
+      const float a = p.A[h];
+      float dc[2], w[2], P[2], zs[2], dtj[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j = 2 * lane + q;
+        const bool in = j < Q;
+        float row = 0.f;
+        for (int v = 0; v <= j / 16 && in; ++v) row += sm.colz[v][j];
+        dtj[q] = dts[j];
+        w[q] = in ? expf(cq - cum[j]) : 0.f;
+        P[q] = in ? sm.P[j] : 0.f;
+        zs[q] = in ? sm.zs[j] : 0.f;
+        const float cc = in && c > 0 ? sm.cc[j] : 0.f;
+        dc[q] = in ? (row - dtj[q] * zs[q]) + cc - w[q] * dtj[q] * P[q] : 0.f;
+      }
+      // the chunk-end terms: exp(cum_Q) <dS, S_in> + sum_s w_s dt_s P_s
+      float ends = fmaf(w[1] * dtj[1], P[1], w[0] * dtj[0] * P[0]);
+#pragma unroll
+      for (int off = 1; off < 32; off *= 2) ends += __shfl_xor_sync(0xffffffffu, ends, off);
+      const float dot_all = (sm.red[0] + sm.red[1]) + (sm.red[2] + sm.red[3]);
+      const int last = Q - 1;
+      if (2 * lane == last) dc[0] += expf(cq) * dot_all + ends;
+      if (2 * lane + 1 == last) dc[1] += expf(cq) * dot_all + ends;
+      // the reverse cumsum: each lane's pair, then the lanes after it by a
+      // suffix scan of fixed rounds
+      const float pair = dc[0] + dc[1];
+      float suf = pair;
+#pragma unroll
+      for (int off = 1; off < 32; off *= 2) {
+        const float o = __shfl_down_sync(0xffffffffu, suf, off);
+        if (lane + off < 32) suf += o;
+      }
+      float after = __shfl_down_sync(0xffffffffu, suf, 1);
+      if (lane == 31) after = 0.f;
+      const float dda1 = dc[1] + after, dda0 = dc[0] + dda1;
+      float* ddt = p.ddt + (b * (long long)p.S + s0) * p.H + h;
+      if (2 * lane < Q) ddt[(long long)(2 * lane) * p.H] = fmaf(a, dda0, fmaf(w[0], P[0], zs[0]));
+      if (2 * lane + 1 < Q)
+        ddt[(long long)(2 * lane + 1) * p.H] = fmaf(a, dda1, fmaf(w[1], P[1], zs[1]));
+      float da = fmaf(dtj[1], dda1, dtj[0] * dda0);
+#pragma unroll
+      for (int off = 1; off < 32; off *= 2) da += __shfl_xor_sync(0xffffffffu, da, off);
+      if (lane == 0) p.dApart[bh * p.nc + c] = da;
+    }
   }
 
-  // dx, in x's type
-  T* dx = static_cast<T*>(p.dx) + ((b * (long long)p.S + s0) * p.H + h) * DH;
-  for (int e = tid; e < Q * DH; e += CH_THREADS) {
-    const int s = e / DH, d = e % DH;
-    float intra = 0.f, st = 0.f;
-    for (int t = s; t < Q; ++t) intra = fmaf(sm.G[t][s], sm.DY[t][d], intra);
-    for (int n = 0; n < N; ++n) st = fmaf(sm.So[d][n], sm.Bm[s][n], st);
-    store(dx + (long long)s * p.H * DH + d, fmaf(sm.w[s] * sm.dt[s], st, intra));
-  }
-  // this head's shares of dB and dC
-  float* dBh = p.dBh + (bh * p.S + s0) * N;
-  float* dCh = p.dCh + (bh * p.S + s0) * N;
-  for (int e = tid; e < Q * N; e += CH_THREADS) {
-    const int s = e / N, n = e % N;
-    float db = 0.f, dc = 0.f;
-    for (int t = s; t < Q; ++t) db = fmaf(sm.Ml[t][s], sm.Cm[t][n], db);
-    for (int u = 0; u <= s; ++u) dc = fmaf(sm.Ml[s][u], sm.Bm[u][n], dc);
-    dBh[(long long)s * N + n] = fmaf(sm.w[s] * sm.dt[s], sm.Y[s][n], db);
-    dCh[(long long)s * N + n] = dc + sm.Cr[s][n];
-  }
-  // each step's terms of ddt and dcum
-  if (tid < Q) {
-    const int j = tid;
-    float zs = 0.f, row = 0.f, P = 0.f, cc = 0.f;
-    for (int t = j; t < Q; ++t) zs += sm.Z[t][j];
-    for (int s = 0; s <= j; ++s) row = fmaf(sm.Z[j][s], sm.dt[s], row);
-    for (int n = 0; n < N; ++n) {
-      P = fmaf(sm.Bm[j][n], sm.Y[j][n], P);
-      cc = fmaf(sm.Cm[j][n], sm.Cr[j][n], cc);
+  // the group's shares of dB (rows s) and dC (rows t)
+  if (active) {
+    const long long base = ((long long)b * p.ng + grp) * p.S + s0;
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int n = 8 * m + 2 * t4;
+      if (r0 < Q) {
+        store2(p.dBg + (base + r0) * N + n, dB[m][0], dB[m][1]);
+        store2(p.dCg + (base + r0) * N + n, dC[m][0], dC[m][1]);
+      }
+      if (r1 < Q) {
+        store2(p.dBg + (base + r1) * N + n, dB[m][2], dB[m][3]);
+        store2(p.dCg + (base + r1) * N + n, dC[m][2], dC[m][3]);
+      }
     }
-    sm.zs[j] = zs;
-    sm.P[j] = P;
-    sm.dcum[j] = (row - sm.dt[j] * zs) + cc - sm.w[j] * sm.dt[j] * P;
-  }
-  __syncthreads();
-  if (tid == 0) {  // the chunk-end terms, the reverse cumsum, ddt and dA's part
-    float ends = 0.f;
-    for (int s = 0; s < Q; ++s) ends = fmaf(sm.w[s] * sm.dt[s], sm.P[s], ends);
-    const float a = p.A[h];
-    float dda = 0.f, da = 0.f;
-    for (int j = Q - 1; j >= 0; --j) {
-      dda += j == Q - 1 ? sm.dcum[j] + (expf(cq) * sm.red[0] + ends) : sm.dcum[j];
-      p.ddt[(b * (long long)p.S + s0 + j) * p.H + h] =
-          fmaf(a, dda, fmaf(sm.w[j], sm.P[j], sm.zs[j]));
-      da = fmaf(sm.dt[j], dda, da);
-    }
-    p.dApart[bh * p.nc + c] = da;
   }
 }
 
@@ -273,9 +604,9 @@ __global__ void __launch_bounds__(FOLD_THREADS) ssm_bwd_fold(Params p) {
   if (i < p.Bt * per_b) {
     const long long b = i / per_b, sn = i % per_b;
     float db = 0.f, dc = 0.f;
-    for (int h = 0; h < p.H; ++h) {
-      db += p.dBh[(b * p.H + h) * per_b + sn];
-      dc += p.dCh[(b * p.H + h) * per_b + sn];
+    for (int gi = 0; gi < p.ng; ++gi) {
+      db += p.dBg[(b * p.ng + gi) * per_b + sn];
+      dc += p.dCg[(b * p.ng + gi) * per_b + sn];
     }
     store(static_cast<T*>(p.dB) + i, db);
     store(static_cast<T*>(p.dC) + i, dc);
@@ -291,14 +622,17 @@ __global__ void __launch_bounds__(FOLD_THREADS) ssm_bwd_fold(Params p) {
 template <class T>
 int launch(const Params& p, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const int smem = (int)sizeof(ChunkSmem);
-  cudaError_t err = cudaFuncSetAttribute(ssm_bwd_chunks<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int st_smem = (int)sizeof(StatesSmem<T>), ch_smem = (int)sizeof(ChunkSmem<T>);
+  cudaError_t err = cudaFuncSetAttribute(ssm_bwd_states<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, st_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssm_bwd_chunks<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ch_smem);
   if (err != cudaSuccess) return (int)err;
-  ssm_bwd_states<T><<<p.Bt * p.H * ST_BLOCKS, ST_THREADS, 0, s>>>(p);
+  ssm_bwd_states<T><<<p.Bt * p.H, THREADS, st_smem, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ssm_bwd_chunks<T><<<dim3(p.nc, p.Bt, p.H), CH_THREADS, smem, s>>>(p);
+  ssm_bwd_chunks<T><<<dim3(p.nc, p.Bt, p.ng), THREADS, ch_smem, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long items = (long long)p.Bt * p.S * N;
@@ -315,25 +649,29 @@ int launch(const Params& p, void* stream) {
 // scratch of the same inputs and chunk Q; dy: (Bt, S, H, dh) float32,
 // strides (batch, seq, head), last axis contiguous; dstate: contiguous
 // (Bt, H, dh, N) float32 or null. ds (Bt * H * (S / Q) * dh * N floats),
-// dBh and dCh (Bt * H * S * N each) and dApart (Bt * H * (S / Q)) are the
-// caller's scratch. Writes dx (contiguous, x's shape and type), ddt
-// (contiguous (Bt, S, H) float32), dA (H,) float32, and dB and dC
-// (contiguous (Bt, S, N), B's type). Three launches on `stream`.
+// dBg and dCg (Bt * ceil(H / 8) * S * N each) and dApart (Bt * H * (S /
+// Q)) are the caller's scratch. Writes dx (contiguous, x's shape and
+// type), ddt (contiguous (Bt, S, H) float32), dA (H,) float32, and dB and
+// dC (contiguous (Bt, S, N), B's type). Three launches on `stream`.
 extern "C" int ssm_scan_bwd(const void* x, const float* dt, const float* A, const void* B,
                             const void* C, const float* cum, const float* chunk_state,
-                            const float* dy, const float* dstate, float* ds, float* dBh,
-                            float* dCh, float* dApart, void* dx, float* ddt, float* dA, void* dB,
+                            const float* dy, const float* dstate, float* ds, float* dBg,
+                            float* dCg, float* dApart, void* dx, float* ddt, float* dA, void* dB,
                             void* dC, int bf16, int Bt, int H, int S, int dh, int n, int Q,
                             long long xsb, long long xss, long long xsh, long long dsb,
                             long long dss, long long dsh, long long bsb, long long bss,
                             long long csb, long long css, long long ysb, long long yss,
                             long long ysh, void* stream) {
-  if (dh != DH || n != N || Bt < 1 || H < 1 || H > 65535 || Bt > 65535 || Q < 1 || Q > QMAX ||
-      S < Q || S % Q)
+  if (dh != DH || n != N || Bt < 1 || H < 1 || Bt > 65535 || Q < 1 || Q > QMAX || S < Q ||
+      S % Q)
     return (int)cudaErrorInvalidValue;
-  const Params p{x,   dt,  A,  B,  C,  cum, chunk_state, dy, dstate, ds, dBh, dCh, dApart,
+  const long long eb = bf16 ? 2 : 4;
+  const int vec = aligned16(x, eb, {xsb, xss, xsh}) && aligned16(B, eb, {bsb, bss}) &&
+                  aligned16(C, eb, {csb, css});
+  const int yvec = aligned16(dy, 4, {ysb, yss, ysh});
+  const Params p{x,   dt,  A,  B,  C,  cum, chunk_state, dy, dstate, ds, dBg, dCg, dApart,
                  dx,  ddt, dA, dB, dC, {xsb, xss, xsh}, {dsb, dss, dsh}, {bsb, bss}, {csb, css},
-                 {ysb, yss, ysh}, Bt, H, S, Q, S / Q};
+                 {ysb, yss, ysh}, Bt, H, S, Q, S / Q, (H + HG - 1) / HG, vec, yvec};
   return bf16 ? launch<__nv_bfloat16>(p, stream) : launch<float>(p, stream);
 }
 

@@ -1,4 +1,5 @@
-// Pieces shared by the scan kernels (ssm_scan.cu, rwkv6_scan.cu): cp.async
+// Pieces shared by the scan kernels (ssm_scan.cu, rwkv6_scan.cu and their
+// gradients ssm_scan_bwd.cu, rwkv6_scan_bwd.cu): cp.async
 // staging, and fp32-accurate products on the tensor cores as split TF32.
 //
 // Products run on mma.sync m16n8k8 TF32 with fp32 accumulation (SASS
@@ -120,6 +121,33 @@ __device__ __forceinline__ void mma_step(float (&d)[4], const FragA& a, float b0
     mma(d, a.big, bs0, bs1);
     mma(d, a.big, bb0, bb1);
   }
+}
+
+// Copy `rows` rows of `cols` elements (global row i at src + i * stride)
+// into a shared tile of `pitch` elements a row, by the NT threads of the
+// block: 16-byte cp.async when `vec`, else plain loads and stores.
+template <class T, int NT>
+__device__ __forceinline__ void stage_tile(T* dst, int pitch, const T* src, long long stride,
+                                           int rows, int cols, bool vec) {
+  constexpr int PER = 16 / sizeof(T);
+  if (vec) {
+    const int pieces = cols / PER;
+    for (int e = threadIdx.x; e < rows * pieces; e += NT) {
+      const int i = e / pieces, j = e % pieces;
+      cp16(dst + i * pitch + j * PER, src + i * stride + j * PER);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += NT) {
+      const int i = e / cols, j = e % cols;
+      dst[i * pitch + j] = src[i * stride + j];
+    }
+  }
+}
+
+// Zero rows [from, to) of a shared tile of `pitch` elements a row.
+template <class T, int NT>
+__device__ __forceinline__ void zero_tile_rows(T* dst, int pitch, int from, int to) {
+  for (int e = threadIdx.x; e < (to - from) * pitch; e += NT) set_zero(dst[from * pitch + e]);
 }
 
 // Whether `ptr` and every stride (in elements of `elem_bytes`) fall on 16

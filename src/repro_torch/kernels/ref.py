@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from .ssm_scan import HEAD_GROUP
+
 
 def cc_propagate_ref(G: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """u[i] = max(max_{j: G[i,j] != 0} c[j], c[i]).  G: (n, n) dense {0,1}."""
@@ -237,6 +239,44 @@ def rwkv6_chunk_cumsum(logw: torch.Tensor, q: int, pad: int) -> torch.Tensor:
     return cum
 
 
+def _rwkv6_diag_pairs(rc, kc, cm1, cum, uf, i: int, exps: list, halves: int = 1):
+    """Sub-chunk ``i``'s pairs with the exact gate, as csrc/rwkv6_scan.cu's
+    lanes add them: ``A[t, s]`` for s < t in one of its two 8-step runs,
+    ``sum_c fmaf(r k, exp(cm1_t - cum_s), acc)`` over channels c = 4 m + p,
+    m ascending, into four sums (p = 0..3) added as ``(a_0 + a_1) + (a_2 +
+    a_3)``, and the bonus ``sum_c fmaf(r u, k, acc)`` in the same order.
+    With ``halves`` 2 (csrc/rwkv6_scan_bwd.cu, two warps) each half of the
+    channels is summed so and the two sums are added, the first half's
+    first. Returns the (.., 16, 16) block ``[t, s]`` (0 off the triangles)
+    and the bonus (.., 16); appends the largest exponent to ``exps``."""
+    dh = rc.shape[-1]
+    ti = slice(16 * i, 16 * i + 16)
+    steps = torch.arange(16)
+    tri = (steps[:, None] > steps[None, :]) & (steps[:, None] // 8 == steps[None, :] // 8)
+    diff = cm1[..., ti, None, :] - cum[..., None, ti, :]         # (.., t, s, c)
+    exps.append(diff[..., tri, :].max())
+    g = torch.exp(torch.where(tri[..., None], diff, 0.0))
+    rk = rc[..., ti, None, :] * kc[..., None, ti, :]
+    ru = rc[..., ti, :] * uf
+    width = dh // halves
+    pairs = bonuses = None
+    for h in range(halves):
+        pair, bonus = [], []
+        for p in range(4):
+            acc = torch.zeros_like(rk[..., 0])
+            accb = torch.zeros_like(ru[..., 0])
+            for c in range(h * width + p, (h + 1) * width, 4):
+                acc = fma32(rk[..., c], g[..., c], acc)
+                accb = fma32(ru[..., c], kc[..., ti, c], accb)
+            pair.append(acc)
+            bonus.append(accb)
+        pair = (pair[0] + pair[1]) + (pair[2] + pair[3])
+        bonus = (bonus[0] + bonus[1]) + (bonus[2] + bonus[3])
+        pairs = pair if pairs is None else pairs + pair
+        bonuses = bonus if bonuses is None else bonuses + bonus
+    return torch.where(tri, pairs, 0.0), bonuses
+
+
 def rwkv6_scan_split_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          logw: torch.Tensor, u: torch.Tensor, q: int,
                          one_tf32: bool = False, ref_point: str = "sub_chunk",
@@ -308,30 +348,14 @@ def rwkv6_scan_split_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kt = kc[..., tj, :] * gate(e[..., None, :] - cum[..., tj, :])
             A[..., ti, tj] = _mma_sum(_tf32_terms(rt, kt.transpose(-1, -2), False, False,
                                                   one_tf32))
-        steps = torch.arange(16)
-        tri = (steps[:, None] > steps[None, :]) & (steps[:, None] // 8 == steps[None, :] // 8)
-        diff = cm1[..., ti, None, :] - cum[..., None, ti, :]         # (.., t, s, c)
-        exps.append(diff[..., tri, :].max())
-        g = torch.exp(torch.where(tri[..., None], diff, 0.0))
-        rk = rc[..., ti, None, :] * kc[..., None, ti, :]
-        ru = rc[..., ti, :] * uf
-        pair, bonus = [], []
-        for p in range(4):
-            acc = torch.zeros_like(rk[..., 0])
-            accb = torch.zeros_like(ru[..., 0])
-            for c in range(p, dh, 4):
-                acc = fma32(rk[..., c], g[..., c], acc)
-                accb = fma32(ru[..., c], kc[..., ti, c], accb)
-            pair.append(acc)
-            bonus.append(accb)
-        blk = torch.where(tri, (pair[0] + pair[1]) + (pair[2] + pair[3]), 0.0)
+        blk, bonus = _rwkv6_diag_pairs(rc, kc, cm1, cum, uf, i, exps)
         e = cQ if ref_point == "chunk_end" else cum[..., 16 * i + 7, :]
         lo, hi = slice(16 * i, 16 * i + 8), slice(16 * i + 8, 16 * i + 16)
         rt = rc[..., hi, :] * gate(cm1[..., hi, :] - e[..., None, :])
         kt = kc[..., lo, :] * gate(e[..., None, :] - cum[..., lo, :])
         blk[..., 8:, :8] = _mma_sum(_tf32_terms(rt, kt.transpose(-1, -2), False, False,
                                                 one_tf32))
-        A[..., ti, ti] = blk + torch.diag_embed((bonus[0] + bonus[1]) + (bonus[2] + bonus[3]))
+        A[..., ti, ti] = blk + torch.diag_embed(bonus)
     rh = rc * gate(cm1)
     y = _mma_sum(_tf32_terms(rh, entering, False, False, one_tf32))
     y = _mma_sum(_tf32_terms(A, vc, False, exact, one_tf32), acc=y)
@@ -340,6 +364,269 @@ def rwkv6_scan_split_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return y, state, dict(cum=cum, U=U, entering=entering, A=A,
                               max_exponent=float(torch.stack(exps).max()))
     return y, state
+
+
+def reverse_cumsum32(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The reverse inclusive cumsum of ``x`` along ``dim``, added from the
+    last entry down in float32, one rounding an add (PyTorch's CPU
+    ``cumsum`` accumulates in float64)."""
+    x = x.movedim(dim, -1)
+    out = torch.empty_like(x)
+    acc = torch.zeros_like(x[..., 0])
+    for j in reversed(range(x.shape[-1])):
+        acc = acc + x[..., j]
+        out[..., j] = acc
+    return out.movedim(-1, dim)
+
+
+def ssm_scan_bwd_split_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                           B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                           dstate: torch.Tensor | None, q: int, one_tf32: bool = False):
+    """K5''s arithmetic on the CPU (csrc/ssm_scan_bwd.cu): ``(dx, ddt, dA,
+    dB, dC)`` for y's gradient ``dy`` and the final state's ``dstate``
+    (None: zero), every matrix product on split TF32, in float32.
+
+    The forward's scratch (``cum``, the entering states) is
+    ``ssm_scan_split_ref``'s. The reverse pass: ``U = (dy exp(cum))^T C``,
+    ``dS = fmaf(dS, exp(cum_Q), U)`` over the chunks in reverse order. Per
+    chunk and head, in the kernel's order: (a) the carry-in ``Cr =
+    exp(cum_t) (dy S_in)``, added to the head group's dC; (b) dx's start
+    ``wdt_s (B dS^T)`` (``wdt = exp(cum_Q - cum) dt``), ``Y = x dS``, ``P =
+    B . Y``, ``dB = fmaf(wdt, Y, dB)``; (c) ``M^T = x dy^T``, ``C B^T`` once
+    a group, the gated tiles ``G^T = (B C^T) E^T dt_s``, ``Ml^T = M^T E^T
+    dt_s``, ``Z^T = M^T (B C^T) E^T``, ``dx += G^T dy``, ``dB += Ml^T C``;
+    (d) ``dC += Ml B``. dB and dC sum over the ``HEAD_GROUP`` heads of a
+    CTA in ascending order, then over the groups in order (the fold). Each
+    product's TF32 terms and their order are ``_tf32_terms``' (x, B, C
+    exact when bfloat16); ``one_tf32`` keeps only the big halves. The
+    scalar sums (Z's row and column sums, P, the reverse cumsum of dcum)
+    are float32 sums whose order the kernel's shuffle trees set and this
+    emulation does not follow (the reverse cumsum runs from the chunk's
+    end, ``reverse_cumsum32``)."""
+    bt, s, h, dh = x.shape
+    n = B.shape[-1]
+    nc = s // q
+    exact, one = x.dtype == torch.bfloat16, one_tf32
+    _, _, fwd = ssm_scan_split_ref(x, dt, A, B, C, q, parts=True)
+    cum, s_in = fwd["cum"], fwd["entering"]                             # the forward's scratch
+    xc = x.float().reshape(bt, nc, q, h, dh).permute(0, 3, 1, 2, 4)     # (Bt, H, nc, q, dh)
+    dyc = dy.float().reshape(bt, nc, q, h, dh).permute(0, 3, 1, 2, 4)
+    Bc = B.float().reshape(bt, 1, nc, q, n)
+    Cc = C.float().reshape(bt, 1, nc, q, n)
+    dtc = dt.float().permute(0, 2, 1).reshape(bt, h, nc, q)
+    Bh, Ch = Bc.expand(bt, h, nc, q, n), Cc.expand(bt, h, nc, q, n)
+    # the reverse pass: the gradient of the state leaving each chunk
+    e = torch.exp(cum)
+    U = _mma_sum(_tf32_terms((dyc * e[..., None]).transpose(-1, -2), Ch, False, exact, one))
+    ds = torch.zeros((bt, h, dh, n)) if dstate is None else dstate.float().clone()
+    leaving = [ds] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = ds
+        ds = fma32(ds, torch.exp(cum[:, :, c, -1])[..., None, None].expand_as(ds), U[:, :, c])
+    so = torch.stack(leaving, dim=2)                                    # (Bt, H, nc, dh, n)
+    w = torch.exp(cum[..., -1:] - cum)
+    wdt = w * dtc
+    # (a) rows t: the carry-in
+    cr = e[..., None] * _mma_sum(_tf32_terms(dyc, s_in, False, False, one))
+    cc = (Ch * cr).sum(-1)
+    dot = (so * s_in).sum((-1, -2))
+    # (b) rows s: dx's state term, Y and P
+    dx = _mma_sum(_tf32_terms(Bh, so.transpose(-1, -2), exact, False, one)) * wdt[..., None]
+    Y = _mma_sum(_tf32_terms(xc, so, exact, False, one))
+    P = (Bh * Y).sum(-1)
+    # (c) rows s: the gated tiles, columns t >= s
+    MT = _mma_sum(_tf32_terms(xc, dyc.transpose(-1, -2), exact, False, one))
+    CBT = _mma_sum(_tf32_terms(Bc, Cc.transpose(-1, -2), exact, exact, one))
+    up = torch.arange(q)[:, None] <= torch.arange(q)[None, :]
+    diff = cum[..., None, :] - cum[..., :, None]                        # [s, t]: cum_t - cum_s
+    ET = torch.where(up, torch.exp(torch.where(up, diff, 0.0)), torch.zeros(()))
+    dts = dtc[..., :, None]
+    GT, MlT, ZT = CBT * ET * dts, MT * ET * dts, MT * CBT * ET
+    zs, row = ZT.sum(-1), (ZT * dts).sum(-2)
+    dx = _mma_sum(_tf32_terms(GT, dyc, False, False, one), acc=dx)
+    # dB and dC: the heads of a group in order in one accumulator, then the groups
+    dB = dC = None
+    for g0 in range(0, h, HEAD_GROUP):
+        accB = torch.zeros((bt, nc, q, n))
+        accC = torch.zeros((bt, nc, q, n))
+        for hh in range(g0, min(h, g0 + HEAD_GROUP)):
+            accC = accC + cr[:, hh]
+            accB = fma32(wdt[:, hh, ..., None].expand_as(accB), Y[:, hh], accB)
+            accB = _mma_sum(_tf32_terms(MlT[:, hh], Cc[:, 0], False, exact, one), acc=accB)
+            accC = _mma_sum(_tf32_terms(MlT[:, hh].transpose(-1, -2), Bc[:, 0], False, exact,
+                                        one), acc=accC)
+        dB = accB if dB is None else dB + accB
+        dC = accC if dC is None else dC + accC
+    # ddt, dA: dcum, the chunk-end terms and the reverse cumsum
+    dcum = (row - dtc * zs) + cc - wdt * P
+    end = torch.exp(cum[..., -1]) * dot + (wdt * P).sum(-1)
+    dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + end[..., None]], dim=-1)
+    dda = reverse_cumsum32(dcum, -1)
+    a = A.float()[None, :, None, None].expand_as(dda)
+    ddt = fma32(a, dda, fma32(w, P, zs))
+    dA = (dtc * dda).sum((0, 2, 3))
+    return (dx.permute(0, 2, 3, 1, 4).reshape(bt, s, h, dh).to(x.dtype),
+            ddt.permute(0, 2, 3, 1).reshape(bt, s, h), dA,
+            dB.reshape(bt, s, n).to(B.dtype), dC.reshape(bt, s, n).to(C.dtype))
+
+
+def rwkv6_scan_bwd_split_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             logw: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+                             dstate: torch.Tensor | None, q: int, one_tf32: bool = False,
+                             parts: bool = False):
+    """K6''s arithmetic on the CPU (csrc/rwkv6_scan_bwd.cu): ``(dr, dk, dv,
+    dlogw, du)`` for y's gradient ``dy`` and the final state's ``dstate``
+    (None: zero), the gate at 16-step sub-chunk reference points, every
+    matrix product on split TF32, in float32.
+
+    Chunks are padded to P steps as in ``rwkv6_scan_split_ref``, whose
+    entering and final states stand for the forward's scratch; ``e_j`` is
+    the cumsum at sub-chunk j's last step. The reverse pass: ``U = (r
+    exp(cm1))^T dy``, ``dS = fmaf(dS, exp(cQ), U)`` row by row, chunks in
+    reverse order. Phase 1: ``dA = dy v^T``; ``drg = exp(cm1) (dy
+    S_in^T)``, then for each block j < i in order ``drg = fmaf(exp(cm1_t -
+    e_j), dA_ij K~_j, drg)`` (``K~_j = k exp(e_j - cum)``), then sub-chunk
+    i's quadrant (steps 8..15 against 0..7) the same way recentred at e',
+    the cumsum at its step 7; ``dkg`` from 0 by its blocks i > j in order,
+    ``fmaf(exp(e_{i-1} - cum_s), dA_ij^T R~_i, dkg)`` (``R~_i = r exp(cm1
+    - e_{i-1})``), then j's quadrant at e'; then the pairs of the 8-step
+    triangles, ``fmaf(dA k, exp(cm1_t - cum_s), drg)`` s ascending and
+    ``fmaf(dA r, exp(cm1_t - cum_s), dkg)`` t ascending. Phase 2: A^T as
+    the forward forms A (blocks ``K~ R~^T``, ``R~ = r exp(cm1 - e_j)``;
+    the diagonal block's quadrant at e' and its exact pairs,
+    ``_rwkv6_diag_pairs`` over two channel halves); ``dv = K^ dS`` then
+    ``+ A^T dy``; ``dkg =
+    fmaf(exp(cQ - cum), v dS^T, dkg)``. Each
+    product's TF32 terms and their order are ``_tf32_terms``' (v exact
+    when bfloat16); ``one_tf32`` keeps only the big halves. du is a float32
+    sum; dcum's reverse cumsum runs in time order, as the kernel's
+    (``reverse_cumsum32``). With ``parts``, also a dict with
+    ``max_exponent``, the largest argument any exp takes."""
+    bt, h, s, dh = r.shape
+    nc = s // q
+    P = 16 * -(-q // 16)
+    nsub = P // 16
+    exact, one = v.dtype == torch.bfloat16, one_tf32
+    _, final, fwd = rwkv6_scan_split_ref(r, k, v, logw, u, q, parts=True)
+    s_in = fwd["entering"]
+    s_out = torch.cat([s_in[:, :, 1:], final[:, :, None]], dim=2)
+
+    def chunks(t):
+        t = t.float().reshape(bt, h, nc, q, dh)
+        return torch.cat([t, t.new_zeros((bt, h, nc, P - q, dh))], dim=3)
+
+    rc, kc, vc, dyc = chunks(r), chunks(k), chunks(v), chunks(dy)
+    cum = rwkv6_chunk_cumsum(logw, q, P)
+    cm1 = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]], dim=3)
+    cQ = cum[..., -1, :]
+    uf = u.float()[None, :, None, None, :]
+    exps = []
+
+    def gate(x):
+        exps.append(x.max())
+        return torch.exp(x)
+
+    def sub(i):
+        return slice(16 * i, 16 * i + 16)
+
+    # the reverse pass
+    U = _mma_sum(_tf32_terms((rc * gate(cm1)).transpose(-1, -2), dyc, False, False, one))
+    ds = torch.zeros((bt, h, dh, dh)) if dstate is None else dstate.float().clone()
+    leaving = [ds] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = ds
+        ds = fma32(ds, gate(cQ[:, :, c])[..., None].expand_as(ds), U[:, :, c])
+    so = torch.stack(leaving, dim=2)                                    # (Bt, H, nc, dh, dh)
+    # phase 1: dA; drg and dkg's gated sums over it
+    dA = _mma_sum(_tf32_terms(dyc, vc.transpose(-1, -2), False, exact, one))
+    drg = gate(cm1) * _mma_sum(_tf32_terms(dyc, s_in.transpose(-1, -2), False, False, one))
+    dkg = torch.zeros_like(drg)
+    steps = torch.arange(8)
+    for i in range(nsub):
+        ti = sub(i)
+        for j in range(i):                       # drg's blocks j < i
+            e = cum[..., 16 * j + 15, None, :]
+            kt = kc[..., sub(j), :] * gate(e - cum[..., sub(j), :])
+            acc = _mma_sum(_tf32_terms(dA[..., ti, sub(j)], kt, False, False, one))
+            drg[..., ti, :] = fma32(gate(cm1[..., ti, :] - e), acc, drg[..., ti, :])
+        lo, hi = slice(16 * i, 16 * i + 8), slice(16 * i + 8, 16 * i + 16)
+        ep = cum[..., 16 * i + 7, None, :]
+        kq = kc[..., lo, :] * gate(ep - cum[..., lo, :])
+        acc = _mma_sum(_tf32_terms(dA[..., hi, lo], kq, False, False, one))
+        drg[..., hi, :] = fma32(gate(cm1[..., hi, :] - ep), acc, drg[..., hi, :])
+    for j in range(nsub):
+        tj = sub(j)
+        for i in range(j + 1, nsub):             # dkg's blocks i > j
+            e = cum[..., 16 * i - 1, None, :]
+            rt = rc[..., sub(i), :] * gate(cm1[..., sub(i), :] - e)
+            acc = _mma_sum(_tf32_terms(dA[..., sub(i), tj].transpose(-1, -2), rt, False, False,
+                                       one))
+            dkg[..., tj, :] = fma32(gate(e - cum[..., tj, :]), acc, dkg[..., tj, :])
+        lo, hi = slice(16 * j, 16 * j + 8), slice(16 * j + 8, 16 * j + 16)
+        ep = cum[..., 16 * j + 7, None, :]
+        rq = rc[..., hi, :] * gate(cm1[..., hi, :] - ep)
+        acc = _mma_sum(_tf32_terms(dA[..., hi, lo].transpose(-1, -2), rq, False, False, one))
+        dkg[..., lo, :] = fma32(gate(ep - cum[..., lo, :]), acc, dkg[..., lo, :])
+    for i in range(nsub):                        # the 8-step triangles, a pair at a time
+        for o in (16 * i, 16 * i + 8):
+            run = slice(o, o + 8)
+            for x in range(7):
+                later = (steps > x)[:, None]     # drg: rows t > s = o + x
+                arg = cm1[..., run, :] - cum[..., o + x, None, :]
+                exps.append(arg[..., steps > x, :].max())
+                term = dA[..., run, o + x, None] * kc[..., o + x, None, :]
+                drg[..., run, :] = torch.where(
+                    later, fma32(term, torch.exp(torch.where(later, arg, 0.0)), drg[..., run, :]),
+                    drg[..., run, :])
+                earlier = (steps < x + 1)[:, None]   # dkg: rows s < t = o + x + 1
+                arg = cm1[..., o + x + 1, None, :] - cum[..., run, :]
+                exps.append(arg[..., steps < x + 1, :].max())
+                term = dA[..., o + x + 1, run, None] * rc[..., o + x + 1, None, :]
+                dkg[..., run, :] = torch.where(
+                    earlier, fma32(term, torch.exp(torch.where(earlier, arg, 0.0)),
+                                   dkg[..., run, :]), dkg[..., run, :])
+    db = torch.diagonal(dA, dim1=-2, dim2=-1)[..., None]
+    dr = fma32(db * uf, kc, drg)
+    rdrg = rc * drg
+    # phase 2: A^T, dv, dkg's state term
+    AT = torch.zeros((bt, h, nc, P, P))
+    for j in range(nsub):
+        e = cum[..., 16 * j + 15, None, :]
+        kt = kc[..., sub(j), :] * gate(e - cum[..., sub(j), :])
+        for i in range(j + 1, nsub):
+            rt = rc[..., sub(i), :] * gate(cm1[..., sub(i), :] - e)
+            AT[..., sub(j), sub(i)] = _mma_sum(_tf32_terms(kt, rt.transpose(-1, -2), False,
+                                                           False, one))
+        blk, bonus = _rwkv6_diag_pairs(rc, kc, cm1, cum, uf, j, exps, halves=2)
+        blk = blk.transpose(-1, -2) + torch.diag_embed(bonus)
+        ep = cum[..., 16 * j + 7, None, :]
+        lo, hi = slice(16 * j, 16 * j + 8), slice(16 * j + 8, 16 * j + 16)
+        kq = kc[..., lo, :] * gate(ep - cum[..., lo, :])
+        rq = rc[..., hi, :] * gate(cm1[..., hi, :] - ep)
+        blk[..., :8, 8:] = _mma_sum(_tf32_terms(kq, rq.transpose(-1, -2), False, False, one))
+        AT[..., sub(j), sub(j)] = blk
+    dv = _mma_sum(_tf32_terms(kc * gate(cQ[..., None, :] - cum), so, False, False, one))
+    dv = _mma_sum(_tf32_terms(AT, dyc, False, False, one), acc=dv)
+    dkg = fma32(gate(cQ[..., None, :] - cum),
+                _mma_sum(_tf32_terms(vc, so.transpose(-1, -2), exact, False, one)), dkg)
+    dk = fma32(db * uf, rc, dkg)
+    kdkg = kc * dkg
+    # du, dcum and its reverse cumsum over the real steps
+    du = (db * rc * kc)[..., :q, :].sum((0, 2, 3))
+    end = (so * s_out).sum(-1)
+    dcum = torch.cat([rdrg[..., 1:q, :], torch.zeros_like(rdrg[..., :1, :])], dim=3) \
+        - kdkg[..., :q, :]
+    dcum = torch.cat([dcum[..., :-1, :], dcum[..., -1:, :] + end[..., None, :]], dim=3)
+    dlogw = reverse_cumsum32(dcum, 3)
+
+    def steps_of(t):
+        return t[..., :q, :].reshape(bt, h, s, dh)
+
+    out = (steps_of(dr).to(r.dtype), steps_of(dk).to(k.dtype), steps_of(dv).to(v.dtype),
+           steps_of(dlogw), du)
+    if parts:
+        return (*out, dict(max_exponent=float(torch.stack(exps).max())))
+    return out
 
 
 def user_bias_ref(R: torch.Tensor, vectors: bool | None = None) -> torch.Tensor:

@@ -41,7 +41,11 @@ sub-chunk reference points, every exponent <= 0; the decay's gradient
 takes no Q x Q x dh gate gradient: with ``drg`` and ``dkg`` r's and k's
 gradients without the u bonus, ``dcum_j = r_{j+1} drg_{j+1} - k_j dkg_j``
 (plus ``sum_d dS S_out`` at the chunk's last step) and dlogw is its
-reverse cumsum. No atomics: two calls give the same bits.
+reverse cumsum. Its products run on the tensor cores as split TF32, as
+the forward's do: the gated sums across sub-chunks as 16-step block
+products, only each sub-chunk's two 8-step triangles with the exact gate
+a pair (``kernels/ref.py:rwkv6_scan_bwd_split_ref`` emulates their order
+on the CPU). No atomics: two calls give the same bits.
 ``rwkv6_scan_bwd_plain`` walks the same recurrences in PyTorch.
 ``_Rwkv6Scan`` pairs the forward, which keeps its scratch for the
 backward, with the backward kernel; ``rwkv6_scan_plain_pair`` pairs the two

@@ -29,9 +29,12 @@ chunk (``S / Q`` states of ``dh * N`` floats a (batch, head)).
 The gradient (K5'): ``csrc/ssm_scan_bwd.cu`` (its note gives the
 recurrences, the bound and the design), three launches counted once in
 ``SSM_SCAN_BWD.launches["ssm_scan_bwd"]``: the reverse pass of the state's
-gradient over the chunks, every chunk's dx, ddt, dcum and its head's
-shares of dB and dC, and the fold of dB and dC over the heads and of dA.
-No atomics: two calls give the same bits. ``ssm_scan_bwd_plain`` walks the
+gradient over the chunks, every chunk's dx, ddt and dcum for a group of
+``HEAD_GROUP`` heads with the group's shares of dB and dC summed in
+registers, and the fold of dB and dC over the groups and of dA. Its
+products run on the tensor cores as split TF32, as the forward's do
+(``kernels/ref.py:ssm_scan_bwd_split_ref`` emulates their order on the
+CPU). No atomics: two calls give the same bits. ``ssm_scan_bwd_plain`` walks the
 same recurrences in PyTorch. ``_SsmScan`` pairs the forward, which keeps
 its scratch (``cum`` and the entering states) for the backward, with the
 backward kernel; ``ssm_scan_plain_pair`` pairs the two plain versions, the
@@ -52,6 +55,9 @@ __all__ = ["HEAD_DIM", "D_STATE", "MAX_CHUNK", "ssm_scan", "ssm_scan_bwd",
 
 #: the head width, state width and longest chunk the CUDA kernel is compiled for
 HEAD_DIM, D_STATE, MAX_CHUNK = 64, 64, 64
+#: heads a CTA of K5' takes in turn (csrc/ssm_scan_bwd.cu: HG): dB and dC
+#: are folded over ``ceil(H / HEAD_GROUP)`` group partials
+HEAD_GROUP = 8
 
 
 def ssm_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -246,8 +252,8 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Te
     dev, f32 = x.device, torch.float32
     nc = s // q
     ds = torch.empty((bt, h, nc, dh, n), dtype=f32, device=dev)
-    dBh = torch.empty((bt, h, s, n), dtype=f32, device=dev)
-    dCh = torch.empty_like(dBh)
+    dBg = torch.empty((bt, -(-h // HEAD_GROUP), s, n), dtype=f32, device=dev)
+    dCg = torch.empty_like(dBg)
     dApart = torch.empty((bt, h, nc), dtype=f32, device=dev)
     dx = torch.empty((bt, s, h, dh), dtype=x.dtype, device=dev)
     ddt = torch.empty((bt, s, h), dtype=f32, device=dev)
@@ -257,7 +263,7 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Te
     ll = ctypes.c_longlong
     SSM_SCAN_BWD.launch(
         "ssm_scan_bwd", ptr(x), ptr(dt), ptr(A.contiguous()), ptr(B), ptr(C), ptr(cum),
-        ptr(chunk_state), ptr(dy), ptr(dstate), ptr(ds), ptr(dBh), ptr(dCh), ptr(dApart),
+        ptr(chunk_state), ptr(dy), ptr(dstate), ptr(ds), ptr(dBg), ptr(dCg), ptr(dApart),
         ptr(dx), ptr(ddt), ptr(dA), ptr(dB), ptr(dC),
         ctypes.c_int(int(x.dtype == torch.bfloat16)), ctypes.c_int(bt), ctypes.c_int(h),
         ctypes.c_int(s), ctypes.c_int(dh), ctypes.c_int(n), ctypes.c_int(q),

@@ -1845,6 +1845,73 @@ def test_scan_bwd_odd_chunk_and_unaligned_rows(cuda):
                       24, cuda)
 
 
+def _scan_bwd_against_emulation(kind, args, chunk, cuda):
+    """K5' or K6' on ``args`` (the forward kernel's scratch, y's and the
+    final state's gradients randn) against its CPU emulation
+    (``kernels/ref.py:*_scan_bwd_split_ref``, the kernel's order of
+    split-TF32 products) within twice ``scan_bwd_limits``, the limit the
+    smoke holds it to against the plain backward, and against the float64
+    gradient within the limit."""
+    from repro_torch.kernels import rwkv6_scan as trw
+    from repro_torch.kernels import ssm_scan as tss
+
+    smoke = _smoke()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(chunk + 1)
+    if kind == "ssm":
+        names, emulate = ("x", "dt", "A", "B", "C"), tref.ssm_scan_bwd_split_ref
+        y, final, *scratch = tss._forward(*args, chunk)
+    else:
+        names, emulate = ("r", "k", "v", "logw", "u"), tref.rwkv6_scan_bwd_split_ref
+        y, final, states = trw._forward(*args, chunk)
+        scratch = [states, final]
+    dy = torch.randn(y.shape, generator=gen, device=cuda)
+    dstate = torch.randn(final.shape, generator=gen, device=cuda)
+    bwd = tss.ssm_scan_bwd if kind == "ssm" else trw.rwkv6_scan_bwd
+    got = bwd(*args, *scratch, dy, dstate)
+    torch.cuda.synchronize()
+    emulated = emulate(*(t.cpu() for t in args), dy.cpu(), dstate.cpu(), chunk)
+    limits = smoke.scan_bwd_limits(kind, dict(zip(names, args)), dy, dstate, chunk)
+    for name, g, e in zip(limits, got, emulated):
+        exact, lim, lim_p = limits[name]
+        assert g.dtype == e.dtype and g.shape == e.shape, name
+        bad, err, _ = smoke.beyond(g, exact, lim)
+        assert bad == 0, f"{name} vs float64: {bad} entries beyond, max abs err {err:.3g}"
+        bad, err, _ = smoke.beyond(g, e.to(cuda), lim_p)
+        assert bad == 0, f"{name} vs the emulation: {bad} entries beyond, max abs err {err:.3g}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_bwd_against_its_split_tf32_emulation(cuda, dtype):
+    """K5' over 2 x 256 steps at chunk 64 and 11 heads (a head group of 8
+    and one of 3 in the chunk kernel, folded in order), Mamba2's draws."""
+    _scan_bwd_against_emulation("ssm", _ssm_mamba2_inputs(cuda, 2, 256, 11, dtype, 5), 64, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("draw,chunk", [("model", 64), ("fast", 24)])
+def test_rwkv6_scan_bwd_against_its_split_tf32_emulation(cuda, dtype, draw, chunk):
+    """K6' over 2 x 3 heads x 192 steps on transposed head views, at the
+    model's decay in chunks of 64 and at fast decay in chunks of 24 (padded
+    to 32: two sub-chunks)."""
+    _scan_bwd_against_emulation("rwkv6", _rwkv6_draw_inputs(cuda, 2, 3, 192, dtype, draw, 7),
+                                chunk, cuda)
+
+
+def test_scan_bwd_runs_on_tensor_cores(cuda):
+    """K5''s and K6''s kernels that issue products (the reverse pass and the
+    chunk kernel, both input types) hold HMMA (mma.sync) in their SASS, and
+    none has a stack frame or local memory (``cuobjdump -res-usage``)."""
+    _scan_bwd_against_emulation("ssm", _ssm_mamba2_inputs(cuda, 1, 64, 2, torch.bfloat16, 0), 64,
+                                cuda)
+    _scan_bwd_against_emulation("rwkv6", _rwkv6_draw_inputs(cuda, 1, 1, 64, torch.bfloat16,
+                                                            "model", 0), 64, cuda)
+    for scan in ("ssm_scan_bwd", "rwkv6_scan_bwd"):
+        kernels = _smoke().scan_bwd_kernels(scan)
+        assert len(kernels) == 4 and all(k[3] and k[1] == 0 and k[2] == 0
+                                         for k in kernels.values()), (scan, kernels)
+
+
 @pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-3b"])
 def test_reduced_recurrent_train_step_on_the_card(cuda, arch):
     """One ``build_train_step`` step of the reduced Zamba2 (3 layers, the
