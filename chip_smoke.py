@@ -60,6 +60,18 @@ super-table walker kernel and the DLS-scheduled CC step — at real sizes:
   GB fp32), each at full size with Granite's traffic, after Zamba2's with
   everything before freed, their prefill attention through K4 at (128,
   128) and at MLA's (192, 128);
+* serving of the two frontend families through ``Model.prefill`` and
+  ``Model.decode_step`` (the serving loop gives token prompts only):
+  Whisper-small at full size (12 encoder and 12 decoder layers, d_model
+  768, 12 heads x 64, d_ff 3,072, vocab 51,865; 278,373,120 parameters),
+  8 requests of 1,500 stub frames each, a 4-token decoder prompt and 60
+  new tokens, then 4 with a 2,048-token decoder prompt, K4 on the
+  encoder (non-causal, 1,500 keys) and on the long prompt's self and
+  cross attention (2,048 queries against 1,500 keys); and InternVL2-26B
+  at full width (d_model 6,144, 48 heads over 8 kv heads x 128, d_ff
+  16,384, vocab 92,553) with its depth cut from 48 layers to 32
+  (13,627,699,200 parameters, 54.51 GB fp32), Granite's traffic with
+  each prompt's first 256 positions patch embeddings, K4 at group 6;
 * training of Qwen2-0.5B at full width (24 layers, d_model 896, 14 heads
   over 2 kv heads of 64, d_ff 4,864, vocab 151,936, tied embeddings;
   494,147,456 parameters, fp32 master weights with AdamW's two moments)
@@ -122,7 +134,14 @@ exactly 24 x 6 = 144 K4 launches; ``--arch deepseek-v2-lite-16b``: 27 x 6
 config's widths, MoE and MLA sub-configs and parameter counts checked,
 nothing launched in decode, the first batch's logits through K4 against
 K4's plain version, and K4 alone on the served call's own q, k, v and on
-randn against its float64 oracle and plain version; then training
+randn against its float64 oracle and plain version; then the frontend
+families (``serve_whisper_small``: exactly 2 x 12 + 36 = 60 K4 launches,
+every call's shape, causal flag and tile checked, the first batch's and
+the long prompt's logits against K4's plain version, K4's encoder and
+cross calls held non-causal to their float64 oracle and plain version,
+the encoder's share of a prefill; ``serve_internvl2_26b``: exactly 2 x 32
+= 64 at group 6, the first batch's logits against plain K4, other patch
+embeddings giving other logits); then training
 (``train_qwen2_0_5b``: the config's widths and parameter count; the first
 step's loss and every gradient leaf through K4 against the same step
 through K4's plain forward and backward, within TRAIN_GRAD_TOL, and the
@@ -297,6 +316,32 @@ QWEN_MOE_SERVE = dict(SERVE, arch="qwen2-moe-a2.7b")
 DEEPSEEK_SERVE = dict(SERVE, arch="deepseek-v2-lite-16b")
 QWEN_MOE_LAYERS, DEEPSEEK_LAYERS = 24, 27
 QWEN_MOE_PARAMS = (14_316_259_328, 2_689_648_640)
+# LM serving of the two frontend families (phases `serve_whisper_small`,
+# `serve_internvl2_26b`), after the MoE families' with everything before
+# freed. The reference's serving loop passes prompts of tokens only, so
+# both drive Model.prefill and Model.decode_step directly (`serve_slots`),
+# slot batches of 4 as serve_lm serves them. Whisper-small at full size
+# (the reference's count_params): 8 requests, each with 1,500 frames of
+# 128-wide stub embeddings from a seed, a 4-token decoder prompt and 60 new
+# tokens (s_max 64, under Whisper's 448 positions): 2 prefills with K4 on
+# the 12 encoder layers only (the decoder's prompt takes "full"); then one
+# batch of 4 with a 2,048-token decoder prompt and 16 new tokens: K4 on the
+# encoder (12), the decoder's causal self-attention (12) and its cross
+# attention, 2,048 queries against 1,500 keys (12), so 2 x 12 + 36 = 60.
+# InternVL2-26B at full width with its depth cut from 48 layers to 32
+# (13,627,699,200 parameters, 54.51 GB of fp32 weights; all 48 layers take
+# 79.48 GB, which leaves the 80 GB card nothing for activations), 8
+# requests of 2,048 tokens in 2 prefills of 4, 16 new tokens, the first 256
+# positions of each prompt one image tile's 1,024-wide patch embeddings
+# from a seed: K4 at (128, 128), 48 heads over 8 kv heads (group 6), once
+# a layer: 2 x 32 = 64.
+WHISPER_SERVE = dict(arch="whisper-small", requests=8, slots=4, prompt_len=4, gen_len=60,
+                     long_prompt_len=2048, long_gen_len=16)
+WHISPER_LAYERS, WHISPER_PARAMS = 12, 278_373_120
+INTERNVL_SERVE = dict(arch="internvl2-26b", n_layers=32, requests=8, slots=4,
+                      prompt_len=2048, gen_len=16)
+# (all 48 layers, the 32 served)
+INTERNVL_PARAMS = (19_869_020_160, 13_627_699_200)
 # Training (phase `train_qwen2_0_5b`): Qwen2-0.5B at full width through
 # `launch/train.py`, 8 x 2,048 tokens a step, remat "full", 3 steps with a
 # checkpoint after the last, then one resumed step. Each step runs K4's
@@ -1966,11 +2011,12 @@ def k4_randn(dev, q, k, v, seed: int = 1):
     return [torch.randn(t.shape, generator=gen, device=dev).bfloat16() for t in (q, k, v)]
 
 
-def k4_check(dev, cases: dict, tile_k: int) -> dict:
-    """K4 (causal) against its float64 oracle and its plain version on each
-    of ``cases`` (label -> (q, k, v); v may be narrower than q and k). Fails
-    on an entry beyond its limit (see K4_ULP); returns the worst absolute
-    error and share of the limit of each comparison."""
+def k4_check(dev, cases: dict, tile_k: int, causal: bool = True) -> dict:
+    """K4 (``causal`` or not) against its float64 oracle and its plain
+    version on each of ``cases`` (label -> (q, k, v); v may be narrower
+    than q and k, and the keys more or fewer than the queries). Fails on an
+    entry beyond its limit (see K4_ULP); returns the worst absolute error
+    and share of the limit of each comparison."""
     import torch
 
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -1979,16 +2025,17 @@ def k4_check(dev, cases: dict, tile_k: int) -> dict:
     checks = {}
     for what, (q_, k_, v_) in cases.items():
         b, h, sq, dh = q_.shape
-        g = h // k_.shape[1]
-        mask = torch.arange(sq, device=dev)[:, None] >= torch.arange(sq, device=dev)[None, :]
-        got = flash_attention(q_, k_, v_, causal=True, tile_k=tile_k)
-        want = flash_attention_plain(q_, k_, v_, causal=True, tile_k=tile_k)
+        g, skv = h // k_.shape[1], k_.shape[2]
+        mask = (torch.arange(sq, device=dev)[:, None]
+                >= torch.arange(skv, device=dev)[None, :]) if causal else None
+        got = flash_attention(q_, k_, v_, causal=causal, tile_k=tile_k)
+        want = flash_attention_plain(q_, k_, v_, causal=causal, tile_k=tile_k)
         worst = dict(err_o=0.0, share_o=0.0, err_p=0.0, share_p=0.0)
         for i in range(b):
             k64 = k_[i].double().repeat_interleave(g, dim=0)
             v64 = v_[i].double().repeat_interleave(g, dim=0)
             s = (q_[i].double() @ k64.transpose(1, 2)) / math.sqrt(dh)
-            w = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+            w = torch.softmax(s if mask is None else s.masked_fill(~mask, -1e30), dim=-1)
             o = w @ v64
             wv = w @ v64.abs()
             lim = K4_ULP * (o.abs() + wv) + K4_FP32 * wv
@@ -2711,27 +2758,32 @@ def k4_served_row(dev, name: str, qkv: tuple, kw: dict, launches: int, what: str
     kv tile) and on contiguous randn tensors of the same shapes, against
     its float64 oracle and plain version; then its ms, device ms, plain
     ms and SDPA's ms (None where SDPA refuses the shapes on the card).
-    Returns the kernels line's row and the checks."""
+    The bound counts the (query, key) pairs the call scores: Sq (Sq + 1) /
+    2 when causal (every causal call served has Skv = Sq), Sq Skv when
+    not. Returns the kernels line's row and the checks."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     q, k, v = qkv
     b, h, sq, dh = q.shape
-    kvh, dv = k.shape[1], v.shape[-1]
-    tile_k = kw["tile_k"]
-    checks = k4_check(dev, {"served": (q, k, v), "randn": k4_randn(dev, q, k, v)}, tile_k)
-    kernel = lambda: flash_attention(q, k, v, causal=True, tile_k=tile_k)  # noqa: E731
-    plain = lambda: flash_attention_plain(q, k, v, causal=True, tile_k=tile_k)  # noqa: E731
+    kvh, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    tile_k, causal = kw["tile_k"], kw["causal"]
+    require(not causal or skv == sq, f"{name}: a causal call with Sq {sq} != Skv {skv}")
+    checks = k4_check(dev, {"served": (q, k, v), "randn": k4_randn(dev, q, k, v)}, tile_k,
+                      causal)
+    kernel = lambda: flash_attention(q, k, v, causal=causal, tile_k=tile_k)  # noqa: E731
+    plain = lambda: flash_attention_plain(q, k, v, causal=causal,  # noqa: E731
+                                          tile_k=tile_k)
     gqa = dict(enable_gqa=True) if kvh != h else {}
-    call = (f"F.scaled_dot_product_attention(q, k, v, is_causal=True"
+    call = (f"F.scaled_dot_product_attention(q, k, v, is_causal={causal}"
             f"{', enable_gqa=True' if gqa else ''})" + (f", v {dv} wide" if dv != dh else ""))
     try:
-        library_ms = timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        library_ms = timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                                   **gqa), 10)
     except RuntimeError as e:  # the yardstick only: the port never calls it
         library_ms, call = None, f"none: SDPA refused these shapes on the card ({e})"
-    pairs = sq * (sq + 1) // 2
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
     row = dict(
         name=name, route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:63", launches=launches,
@@ -2739,8 +2791,9 @@ def k4_served_row(dev, name: str, qkv: tuple, kw: dict, launches: int, what: str
         max_abs_err_vs_float64=max(c["err_o"] for c in checks.values()),
         ms=timed(kernel, 10), **kernel_device_ms(kernel, K4_NAMES), plain_ms=timed(plain, 3),
         library_ms=library_ms, library_call=call,
-        shapes=f"q ({b}, {h}, {sq}, {dh}), k ({b}, {kvh}, {sq}, {dh}), v ({b}, {kvh}, {sq}, "
-               f"{dv}) bf16, causal, {what}; strides q {list(q.stride())}, k "
+        shapes=f"q ({b}, {h}, {sq}, {dh}), k ({b}, {kvh}, {skv}, {dh}), v ({b}, {kvh}, "
+               f"{skv}, {dv}) bf16, {'causal' if causal else 'non-causal'}, {what}; strides "
+               f"q {list(q.stride())}, k "
                f"{list(k.stride())}, v {list(v.stride())}",
         **dict(zip(("bound_ms", "bound_by"), bound_ms(
             2 * (q.numel() + k.numel() + v.numel() + b * h * sq * dv),
@@ -2823,13 +2876,339 @@ def serve_deepseek_v2_lite_phase(dev) -> dict:
     return row
 
 
+def serve_slots(model, params, batches: list, s_max: int, gen_len: int, dev) -> dict:
+    """Greedy serving of ``batches`` (prefill inputs on the card, one slot
+    batch each) through ``Model.prefill`` and ``Model.decode_step``, as
+    ``serve_lm`` serves a slot batch: a fresh cache, one prefill, ``gen_len
+    - 1`` decode steps, host seconds synchronised at the end of each
+    prefill and of its decode steps. Each batch's logits must be finite
+    and shaped, and its decode steps must launch no kernel. Returns the
+    seconds, each prefill's launches, the first prefill's last-position
+    logits and the generated tokens."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    cfg = model.cfg
+    out = dict(prefill_seconds=0.0, decode_seconds=0.0, prefill_launches=[], tokens=[])
+    for batch in batches:
+        b, prompt_len = batch["tokens"].shape
+        before = launch_counts(_build.KERNELS)
+        t = time.perf_counter()
+        logits, cache = model.prefill(params, batch,
+                                      model.init_cache(b, s_max, device=dev))
+        steps = [logits[:, -1]]
+        tok = logits[:, -1].argmax(-1)[:, None]
+        toks = [tok]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after = launch_counts(_build.KERNELS)
+        for step in range(gen_len - 1):
+            logits, cache = model.decode_step(params, tok, cache, prompt_len + step)
+            steps.append(logits[:, 0])
+            tok = logits[:, 0].argmax(-1)[:, None]
+            toks.append(tok)
+        torch.cuda.synchronize()
+        out["prefill_seconds"] += t1 - t
+        out["decode_seconds"] += time.perf_counter() - t1
+        require(launch_counts(_build.KERNELS) == after,
+                f"{cfg.name}: decode steps launched {launch_counts(_build.KERNELS)}, "
+                f"after {after}")
+        out["prefill_launches"].append({e: n - before.get(e, 0) for e, n in after.items()
+                                        if n != before.get(e, 0)})
+        logits = torch.stack(steps, dim=1)
+        require(logits.shape == (b, gen_len, cfg.padded_vocab)
+                and bool(torch.isfinite(logits).all()), f"{cfg.name}: logits malformed")
+        out.setdefault("first_logits", steps[0])
+        out["tokens"].append(torch.cat(toks, dim=1))
+        del cache, logits, steps
+    return out
+
+
+def k4_calls_of(model, params, batch: dict, s_max: int, keep_all: bool) -> tuple:
+    """The prefill of ``batch`` again, with the model's K4 entry point
+    (``models/attention.py``'s ``flash_attention``) wrapped to keep its
+    calls' arguments: all of them in order, or only the last. Returns the
+    logits and the calls ``[((q, k, v), kwargs)]``."""
+    from unittest import mock
+
+    from repro_torch.models import attention as attention_module
+
+    calls, real = [], attention_module.flash_attention
+
+    def keep(*a, **kw):
+        if not keep_all:
+            calls.clear()
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    with mock.patch.object(attention_module, "flash_attention", keep):
+        logits, _ = model.prefill(params, batch, model.init_cache(
+            batch["tokens"].shape[0], s_max, device=batch["tokens"].device))
+    return logits, calls
+
+
+def prefill_vs_plain_k4(model, params, batch: dict, s_max: int, logits_k, what: str) -> dict:
+    """A prefill's last-position logits through K4 (``logits_k``) against
+    the same weights and inputs with K4's plain version in its place:
+    fails beyond LOGIT_TOL of the largest |logit|. Returns the error, its
+    share of the limit, the scale and the greedy tokens' agreement."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import attention as attention_module
+
+    vocab = model.cfg.vocab_size
+    with mock.patch.object(attention_module, "flash_attention", flash_attention_plain):
+        logits_p, _ = model.prefill(params, batch, model.init_cache(
+            batch["tokens"].shape[0], s_max, device=batch["tokens"].device))
+    lk, lp = logits_k.float(), logits_p[:, -1].float()
+    scale, err = float(lp.abs().max()), max_err(lk, lp)
+    require(err <= LOGIT_TOL * scale, f"{model.cfg.name} {what} logits through K4 vs plain: "
+                                      f"max abs err {err:.4g} > {LOGIT_TOL} x {scale:.4g}")
+    greedy = float((lk[:, :vocab].argmax(-1) == lp[:, :vocab].argmax(-1)).float().mean())
+    return dict(max_abs_err=err, share_of_limit=err / (LOGIT_TOL * scale), scale=scale,
+                greedy_agreement=greedy)
+
+
+def serve_whisper_small_phase(dev) -> list[dict]:
+    """Whisper-small served at full size (WHISPER_SERVE) through
+    ``serve_slots``: K4 on every encoder layer of each prefill, and with
+    the 2,048-token decoder prompt on the decoder's self and cross
+    attention too, nowhere else. The first batch's logits and the long
+    batch's through K4 against K4's plain version. Returns K4's rows for
+    the last layer's encoder call and its cross call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import EncDecConfig
+    from repro_torch.kernels import _build
+    from repro_torch.models import Model, count_params
+    from repro_torch.models.model import FRONTEND_DIM, _leaves
+
+    sv, n_l = WHISPER_SERVE, WHISPER_LAYERS
+    cfg = get_config(sv["arch"])
+    widths = dict(n_layers=n_l, d_model=768, n_heads=12, n_kv_heads=12, head_dim=64,
+                  d_ff=3072, vocab_size=51865, rope_theta=10000.0, tie_embeddings=False,
+                  encdec=EncDecConfig(n_enc_layers=n_l, n_enc_positions=1500))
+    got = {name: getattr(cfg, name) for name in widths}
+    require(got == widths, f"{sv['arch']} widths {got}, want {widths}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init_params(gen, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    require(n_params == count_params(cfg) == cfg.param_count() == WHISPER_PARAMS,
+            f"{sv['arch']}: served params {n_params}, want {WHISPER_PARAMS}")
+    n_enc, slots = cfg.encdec.n_enc_positions, sv["slots"]
+    gen.manual_seed(1)
+    frames = torch.randn((sv["requests"], n_enc, FRONTEND_DIM["audio"]), generator=gen,
+                         device=dev)
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (sv["requests"],
+                                            sv["prompt_len"]), dtype=np.int32)).to(dev)
+    long_prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        slots, sv["long_prompt_len"]), dtype=np.int32)).to(dev)
+    short = [{"tokens": prompts[i:i + slots], "frames": frames[i:i + slots]}
+             for i in range(0, sv["requests"], slots)]
+    long = {"tokens": long_prompts, "frames": frames[:slots]}
+    s_short = sv["prompt_len"] + sv["gen_len"]
+    s_long = sv["long_prompt_len"] + sv["long_gen_len"]
+    require(model._impl(sv["prompt_len"]) == "full" and model._impl(n_enc) == "chunked"
+            and model._impl(sv["long_prompt_len"]) == "chunked",
+            "whisper-small: the prompts do not take the impls the phase counts on")
+    setup_seconds = time.perf_counter() - t0
+
+    for k in _build.KERNELS:
+        k.launches.clear()
+    t = time.perf_counter()
+    res_s = serve_slots(model, params, short, s_short, sv["gen_len"], dev)
+    res_l = serve_slots(model, params, [long], s_long, sv["long_gen_len"], dev)
+    seconds = time.perf_counter() - t
+    launches = launch_counts(_build.KERNELS)
+    want = {"flash_attention": 2 * n_l + 3 * n_l}
+    require(launches == want, f"{sv['arch']}: launches {launches}, want {want}")
+    require(res_s["prefill_launches"] == [{"flash_attention": n_l}] * 2
+            and res_l["prefill_launches"] == [{"flash_attention": 3 * n_l}],
+            f"{sv['arch']}: prefill launches {res_s['prefill_launches']}, "
+            f"{res_l['prefill_launches']}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # K4's calls in the long batch's prefill: the encoder's 12 (non-causal,
+    # 1,500 x 1,500), then each decoder layer's self (causal, 2,048) and
+    # cross (non-causal, 2,048 x 1,500) attention
+    logits_rep, calls = k4_calls_of(model, params, long, s_long, keep_all=True)
+    repeat_equal = torch.equal(logits_rep[:, -1], res_l["first_logits"])
+    b, h, dh = slots, cfg.n_heads, cfg.head_dim
+    kinds = ([("encoder", (b, h, n_enc, dh), n_enc, dict(causal=False, tile_k=750))] * n_l
+             + [("self", (b, h, sv["long_prompt_len"], dh), sv["long_prompt_len"],
+                 dict(causal=True, tile_k=1024)),
+                ("cross", (b, h, sv["long_prompt_len"], dh), n_enc,
+                 dict(causal=False, tile_k=750))] * n_l)
+    require(len(calls) == len(kinds), f"{sv['arch']}: {len(calls)} K4 calls in the long "
+                                      f"prefill, want {len(kinds)}")
+    for ((q, k, v), kw), (kind, q_shape, skv, want_kw) in zip(calls, kinds):
+        require(tuple(q.shape) == q_shape and k.shape == v.shape == (b, h, skv, dh)
+                and q.dtype == k.dtype == v.dtype == torch.bfloat16 and kw == want_kw,
+                f"{sv['arch']} {kind} K4 call: q {tuple(q.shape)}, k {tuple(k.shape)} "
+                f"{k.dtype}, {kw}")
+    enc_call, cross_call = calls[n_l - 1], calls[-1]
+    del calls, logits_rep
+
+    vs_plain = {"first_batch": prefill_vs_plain_k4(model, params, short[0], s_short,
+                                                   res_s["first_logits"], "first batch"),
+                "long_prompt": prefill_vs_plain_k4(model, params, long, s_long,
+                                                   res_l["first_logits"], "long prompt")}
+    encoder_ms = timed(lambda: model._encoder(params, short[0]["frames"]), 3)
+    prefill_ms = {
+        "first_batch": timed(lambda: model.prefill(params, short[0], model.init_cache(
+            slots, s_short, device=dev)), 3),
+        "long_prompt": timed(lambda: model.prefill(params, long, model.init_cache(
+            slots, s_long, device=dev)), 3)}
+    rows, checks = [], {}
+    for (name, call, n, what) in (
+            ("flash_attention[dh 64, non-causal, Whisper encoder]", enc_call, 3 * n_l,
+             "the last encoder layer's q, k, v of the long batch's prefill"),
+            ("flash_attention[dh 64, cross 2048 x 1500, Whisper decoder]", cross_call, n_l,
+             "the last decoder layer's cross-attention q, k, v of the long batch's prefill")):
+        row, checks[name] = k4_served_row(dev, name, call[0], call[1], n, what)
+        rows.append(row)
+    tokens = sv["requests"] * sv["gen_len"] + slots * sv["long_gen_len"]
+    served = res_s["prefill_seconds"] + res_s["decode_seconds"] + res_l["prefill_seconds"] \
+        + res_l["decode_seconds"]
+    emit("serve_whisper_small", card=card_line(), arch=sv["arch"], params=n_params,
+         requests=sv["requests"], slots=slots, frames=n_enc, prompt_len=sv["prompt_len"],
+         gen_len=sv["gen_len"], long_prompt_len=sv["long_prompt_len"],
+         long_gen_len=sv["long_gen_len"], launches=launches,
+         prefill_launches=res_s["prefill_launches"] + res_l["prefill_launches"],
+         setup_seconds=setup_seconds, seconds=seconds,
+         prefill_seconds=res_s["prefill_seconds"], decode_seconds=res_s["decode_seconds"],
+         long_prefill_seconds=res_l["prefill_seconds"],
+         long_decode_seconds=res_l["decode_seconds"],
+         tokens_per_second=tokens / served, peak_memory_gb=peak_gb,
+         encoder_ms=encoder_ms, prefill_ms=prefill_ms,
+         encoder_share_of_prefill={w_: encoder_ms / ms for w_, ms in prefill_ms.items()},
+         long_prefill_repeats_bitwise=repeat_equal, logits_vs_plain=vs_plain,
+         k4_seconds=sum(r["launches"] * r["ms"] for r in rows) / 1e3,
+         k4_tol="2^-8 (|o| + sum w|v|) + 2^-16 sum w|v| vs float64; x2 vs plain",
+         k4_vs_float64={n_: {w_: [c["err_o"], c["share_o"]] for w_, c in ch.items()}
+                        for n_, ch in checks.items()},
+         k4_vs_plain={n_: {w_: [c["err_p"], c["share_p"]] for w_, c in ch.items()}
+                      for n_, ch in checks.items()})
+    return rows
+
+
+def serve_internvl2_26b_phase(dev) -> dict:
+    """InternVL2-26B served at full width and 32 of its 48 layers
+    (INTERNVL_SERVE) through ``serve_slots``: each prompt's first 256
+    positions its patch embeddings, K4 (128, 128) at group 6 on every
+    prefill layer and nowhere else; the first batch's logits through K4
+    against K4's plain version, and other patch embeddings must give other
+    logits. Returns K4's row at this shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import Model, count_params
+    from repro_torch.models.model import FRONTEND_DIM, _leaves
+
+    sv = INTERNVL_SERVE
+    full = get_config(sv["arch"])
+    cfg = dataclasses.replace(full, n_layers=sv["n_layers"])
+    widths = dict(n_layers=48, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
+                  d_ff=16384, vocab_size=92553, frontend="vision", n_frontend_tokens=256)
+    got = {name: getattr(full, name) for name in widths}
+    require(got == widths, f"{sv['arch']} widths {got}, want {widths}")
+    counts = (count_params(full), count_params(cfg))
+    require(counts == INTERNVL_PARAMS, f"{sv['arch']}: params {counts}, want "
+                                       f"{INTERNVL_PARAMS}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init_params(gen, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    require(n_params == INTERNVL_PARAMS[1], f"{sv['arch']}: served params {n_params}")
+    slots, n_img = sv["slots"], cfg.n_frontend_tokens
+    gen.manual_seed(1)
+    patches = torch.randn((sv["requests"], n_img, FRONTEND_DIM["vision"]), generator=gen,
+                          device=dev)
+    other = torch.randn((slots, n_img, FRONTEND_DIM["vision"]), generator=gen, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (sv["requests"],
+                                            sv["prompt_len"]), dtype=np.int32)).to(dev)
+    batches = [{"tokens": prompts[i:i + slots], "patch_embeds": patches[i:i + slots]}
+               for i in range(0, sv["requests"], slots)]
+    s_max = sv["prompt_len"] + sv["gen_len"]
+    setup_seconds = time.perf_counter() - t0
+
+    for k in _build.KERNELS:
+        k.launches.clear()
+    t = time.perf_counter()
+    res = serve_slots(model, params, batches, s_max, sv["gen_len"], dev)
+    seconds = time.perf_counter() - t
+    launches = launch_counts(_build.KERNELS)
+    n_l = sv["n_layers"]
+    want = {"flash_attention": len(batches) * n_l}
+    require(launches == want, f"{sv['arch']}: launches {launches}, want {want}")
+    require(res["prefill_launches"] == [{"flash_attention": n_l}] * len(batches),
+            f"{sv['arch']}: prefill launches {res['prefill_launches']}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    logits_rep, calls = k4_calls_of(model, params, batches[0], s_max, keep_all=False)
+    repeat_equal = torch.equal(logits_rep[:, -1], res["first_logits"])
+    (q, k, v), kw = calls[0]
+    del calls, logits_rep
+    b, sq = slots, sv["prompt_len"]
+    require(q.shape == (b, 48, sq, 128) and k.shape == v.shape == (b, 8, sq, 128)
+            and q.dtype == torch.bfloat16 and kw == dict(causal=True, tile_k=1024),
+            f"served K4 call: q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, {kw}")
+    vs_plain = prefill_vs_plain_k4(model, params, batches[0], s_max, res["first_logits"],
+                                   "first batch")
+    # the frontend is live: the same prompts with other patch embeddings
+    logits_o, _ = model.prefill(params, {**batches[0], "patch_embeds": other},
+                                model.init_cache(slots, s_max, device=dev))
+    frontend_diff = max_err(logits_o[:, -1].float(), res["first_logits"].float())
+    require(frontend_diff > 0, f"{sv['arch']}: other patch embeddings gave the same logits")
+    del logits_o
+    row, checks = k4_served_row(
+        dev, "flash_attention[dh 128, group 6, InternVL2-26B]", (q, k, v), kw,
+        launches["flash_attention"], "the last layer's q, k, v of the first batch's prefill")
+    tokens = sv["requests"] * sv["gen_len"]
+    emit("serve_internvl2_26b", card=card_line(), arch=sv["arch"], layers=n_l,
+         layers_of_the_config=full.n_layers, params=n_params, params_all_layers=counts[0],
+         requests=sv["requests"], slots=slots, prompt_len=sv["prompt_len"],
+         image_tokens=n_img, gen_len=sv["gen_len"], launches=launches,
+         prefill_launches=res["prefill_launches"], setup_seconds=setup_seconds,
+         seconds=seconds, prefill_seconds=res["prefill_seconds"],
+         decode_seconds=res["decode_seconds"],
+         tokens_per_second=tokens / (res["prefill_seconds"] + res["decode_seconds"]),
+         peak_memory_gb=peak_gb, first_batch_repeats_bitwise=repeat_equal,
+         logits_vs_plain=vs_plain,
+         other_patches_logits_max_abs_diff=[frontend_diff, frontend_diff / vs_plain["scale"]],
+         k4_seconds=row["launches"] * row["ms"] / 1e3,
+         kernel_share_of_prefill=row["launches"] * row["ms"] / 1e3 / res["prefill_seconds"],
+         k4_tol="2^-8 (|o| + sum w|v|) + 2^-16 sum w|v| vs float64; x2 vs plain",
+         k4_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in checks.items()},
+         k4_vs_plain={w_: [c["err_p"], c["share_p"]] for w_, c in checks.items()})
+    return row
+
+
 def leaf_scale(leaves: dict, path: str) -> float:
     """The largest |entry| of leaf ``path`` of a gradient tree (``leaves``:
-    path -> tensor); for a k bias, whose exact gradient is 0 (softmax is
-    invariant to a shift shared by a query's keys), its layer's ``wk``'s if
-    larger (``tests/test_torch_train.py`` holds gradients the same way)."""
+    path -> tensor); for a k bias, self or cross attention's, whose exact
+    gradient is 0 (softmax is invariant to a shift shared by a query's
+    keys), its layer's ``wk``'s if larger (``tests/test_torch_train.py``
+    holds gradients the same way)."""
     scale = float(leaves[path].abs().max())
-    if path.endswith("attn/bk"):
+    if path.endswith(("attn/bk", "cross/bk")):
         scale = max(scale, float(leaves[path[:-2] + "wk"].abs().max()))
     return scale
 
@@ -4226,6 +4605,14 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         kernels.append(phase(dev))
+    # the frontend families: Whisper-small whole, InternVL2-26B's 54.51 GB
+    # of weights (32 of its 48 layers) with everything before freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.extend(serve_whisper_small_phase(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.append(serve_internvl2_26b_phase(dev))
     # training after every serving phase, with everything before freed
     gc.collect()
     torch.cuda.empty_cache()

@@ -152,8 +152,7 @@ class ArchConfig:
     def param_count(self) -> int:
         """Parameter count (embeddings + blocks), for 6ND.
 
-        Counted on the ``meta`` device by ``models/model.py:count_params``;
-        raises for the families the port's model stack does not hold yet.
+        Counted on the ``meta`` device by ``models/model.py:count_params``.
         """
         from ..models.model import count_params  # lazy, avoids a cycle
         return count_params(self)

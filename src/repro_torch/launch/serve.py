@@ -101,10 +101,17 @@ def serve_lm(args, params: dict | None = None) -> ServeResult:
     ``requests``, ``slots``, ``prompt_len``, ``gen_len``, ``technique``,
     ``device``). ``params`` are the weights to serve (for instance the
     reference's, through ``model_params_from_reference``); None draws them.
-    Prints the reference's summary line.
+    Prints the reference's summary line. Prompts are tokens only, as the
+    reference's: InternVL2 serves as a text-only LM, and an
+    encoder-decoder (Whisper, which needs its frames) raises ValueError
+    before any weight is drawn.
     """
     device = torch.device(args.device)
     cfg = get_config(args.arch)
+    if cfg.encdec is not None:
+        raise ValueError(f"{args.arch}: serve_lm gives token prompts only, and an "
+                         "encoder-decoder's prefill needs its frames too; drive "
+                         "Model.prefill and Model.decode_step with batch['frames']")
     if args.smoke:
         cfg = cfg.reduced()
     model = Model(cfg)

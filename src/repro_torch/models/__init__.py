@@ -1,6 +1,7 @@
-"""The model stack: layers, GQA attention and MLA (with K4), the MoE block,
-the decoder layers and ``Model`` for the dense, MoE, MLA, RWKV6 and Zamba2
-families."""
+"""The model stack: layers, GQA, cross attention and MLA (with K4), the MoE
+block, the decoder layers and ``Model`` for every family of ``configs``:
+dense, MoE, MLA, RWKV6, Zamba2, Whisper's encoder-decoder and InternVL2's
+vision frontend."""
 
 from .model import (Model, count_active_params, count_params,
                     model_params_from_reference, param_shapes)

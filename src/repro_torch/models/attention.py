@@ -29,8 +29,12 @@ wide (192 and 128 in DeepSeek-V2-Lite; v is a view into the reconstructed
 ``kv``, which K4 reads in place). Its decode is the absorbed form, scores
 against the latent cache, in plain PyTorch as the reference's.
 
-Still to port: cross attention (Whisper, ROADMAP A11.5) and the
-sequence-sharded attention (the mesh layer, A17).
+Cross attention (Whisper's decoder, ``gqa_attention(cross_kv=...)``)
+projects q only, with no RoPE, and attends without a mask to the given
+encoder k and v: ``full`` for a decoder prompt of up to 1,024 tokens and
+at decode, else ``chunked`` (K4, non-causal, each length's block picked
+apart). Still to port: the sequence-sharded attention (the mesh layer,
+A17).
 """
 
 from __future__ import annotations
@@ -192,16 +196,20 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len) -> torch.Tensor:
     """q ``(B, H, 1, dh)`` against caches ``(B, KV, S_max, dh)``;
-    ``cache_len`` counts the valid entries, the current token included."""
+    ``cache_len`` counts the valid entries, the current token included.
+    Each product runs in its operands' promoted type, as ``jnp.einsum``
+    promotes a bf16 q against a float32 cache."""
     b, h, _, dh = q.shape
     kvh, smax = k_cache.shape[1], k_cache.shape[2]
     dv = v_cache.shape[-1]
     qg = q.reshape(b, kvh, h // kvh, dh)
-    s = torch.einsum("bkgd,bkvd->bkgv", qg, k_cache).float() / math.sqrt(dh)
+    dt = torch.promote_types(q.dtype, k_cache.dtype)
+    s = torch.einsum("bkgd,bkvd->bkgv", qg.to(dt), k_cache.to(dt)).float() / math.sqrt(dh)
     mask = torch.arange(smax, device=q.device)[None, None, None, :] < cache_len
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgv,bkvd->bkgd", w.to(q.dtype), v_cache)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    dt = torch.promote_types(q.dtype, v_cache.dtype)
+    o = torch.einsum("bkgv,bkvd->bkgd", w.to(dt), v_cache.to(dt))
     return o.reshape(b, h, 1, dv)
 
 
@@ -228,10 +236,21 @@ def gqa_attention(params: Params, x: torch.Tensor, cfg: Any, *,
     """Returns ``(y, cache)``. ``cache`` is ``{'k', 'v'}`` of ``(B, KV,
     S_max, dh)``, updated in place: at decode (one token and a
     ``cache_index``) the token's k and v go to position ``cache_index``;
-    at prefill the prompt's go to the cache's head."""
+    at prefill the prompt's go to the cache's head. ``cross_kv``, a pair
+    ``(k, v)`` of ``(B, KV, S_enc, dh)``, makes it a cross-attention call:
+    q alone is projected, without RoPE, k and v are cast to x's type, no
+    mask, and the cache is returned untouched."""
     if cross_kv is not None:
-        raise NotImplementedError("cross attention (Whisper's decoder) waits for "
-                                  "its model: ROADMAP A11.5")
+        q = _split_heads(dense(x, params["wq"], params.get("bq")), cfg.n_heads,
+                         cfg.head_dim)
+        k, v = (t.to(x.dtype) for t in cross_kv)
+        if impl == "full":
+            o = full_attention(q, k, v, causal=False)
+        else:
+            o = chunked_attention(q, k, v, causal=False,
+                                  q_block=pick_block(q.shape[2], cfg.attn_chunk_q),
+                                  kv_block=pick_block(k.shape[2], cfg.attn_chunk_kv))
+        return dense(_merge_heads(o), params["wo"]), cache
     rope_theta = getattr(cfg, "rope_theta", None)
     q, k, v = qkv_project(params, x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                           positions if rope_theta is not None else None,

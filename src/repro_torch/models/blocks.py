@@ -1,5 +1,5 @@
-"""Decoder layers (the port's copy of the dense, MoE, MLA, Mamba2 and RWKV6
-parts of ``models/blocks.py``).
+"""Decoder layers (the port's copy of ``models/blocks.py``: the dense, MoE,
+MLA, Mamba2, RWKV6 and Whisper layers).
 
 Every layer apply has the reference's uniform signature
 
@@ -7,8 +7,8 @@ Every layer apply has the reference's uniform signature
 
 ``aux`` is a scalar: the MoE load-balance loss (times its weight) in the
 MoE and MLA-with-MoE layers, 0 elsewhere; the Mamba2 and RWKV6 layers
-take no positions and no attention impl. The Whisper layers wait for
-ROADMAP A11.5.
+take no positions and no attention impl. Whisper's encoder layer takes
+only ``impl`` and returns x; its decoder layer also takes ``cross_kv``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ from .ssm import init_mamba2, mamba2_block
 __all__ = ["ZERO", "init_dense_layer", "apply_dense_layer", "init_moe_layer",
            "apply_moe_layer", "init_mla_layer", "apply_mla_layer",
            "init_mamba_layer", "apply_mamba_layer", "init_rwkv_layer",
-           "apply_rwkv_layer"]
+           "apply_rwkv_layer", "init_whisper_layer", "apply_whisper_enc_layer",
+           "apply_whisper_dec_layer"]
 
 #: the aux loss of a layer that has none
 ZERO = 0.0
@@ -171,3 +172,60 @@ def apply_rwkv_layer(params: Params, x: torch.Tensor, cfg, *, cache, cache_index
     if cache is not None:
         new_cache = {**(tm_cache or {}), **(cm_cache or {})}
     return x + h, new_cache, ZERO
+
+
+# ---------------------------------------------------------------------------
+# Whisper encoder / decoder layers (LayerNorm, GELU MLP, bidirectional encoder)
+# ---------------------------------------------------------------------------
+
+def init_whisper_layer(generator: torch.Generator, cfg, cross: bool, device=None,
+                       dtype=torch.float32) -> Params:
+    """One Whisper layer: biased self-attention, a biased non-gated MLP and
+    their layer norms; ``cross`` (a decoder layer) adds the cross attention
+    and its norm."""
+    device = generator.device if device is None else torch.device(device)
+
+    def attention():
+        return init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim, bias=True, device=device, dtype=dtype)
+
+    def norm(value: float):
+        return torch.full((cfg.d_model,), value, dtype=dtype, device=device)
+
+    p = {"ln1": norm(1.0), "ln1b": norm(0.0), "attn": attention(),
+         "ln2": norm(1.0), "ln2b": norm(0.0),
+         "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, gated=False, bias=True,
+                         device=device, dtype=dtype)}
+    if cross:
+        p.update(lnx=norm(1.0), lnxb=norm(0.0), cross=attention())
+    return p
+
+
+def apply_whisper_enc_layer(params: Params, x: torch.Tensor, cfg, *, impl: str):
+    """Non-causal self-attention without positions, then the GELU MLP, each
+    layer-normed and added to the residual."""
+    h, _ = gqa_attention(params["attn"],
+                         layer_norm(x, params["ln1"], params["ln1b"], cfg.norm_eps),
+                         cfg, positions=None, impl=impl, causal=False)
+    x = x + h
+    return x + mlp(params["mlp"], layer_norm(x, params["ln2"], params["ln2b"], cfg.norm_eps),
+                   gated=False, act="gelu")
+
+
+def apply_whisper_dec_layer(params: Params, x: torch.Tensor, cfg, *, positions,
+                            impl: str, cache, cache_index, cross_kv: tuple):
+    """Causal self-attention (RoPE where the config has a ``rope_theta``,
+    as the reference's), cross attention to ``cross_kv``, then the GELU
+    MLP, each layer-normed and added to the residual."""
+    h, cache = gqa_attention(params["attn"],
+                             layer_norm(x, params["ln1"], params["ln1b"], cfg.norm_eps),
+                             cfg, positions=positions, impl=impl, cache=cache,
+                             cache_index=cache_index)
+    x = x + h
+    h, _ = gqa_attention(params["cross"],
+                         layer_norm(x, params["lnx"], params["lnxb"], cfg.norm_eps),
+                         cfg, positions=None, impl=impl, cross_kv=cross_kv)
+    x = x + h
+    x = x + mlp(params["mlp"], layer_norm(x, params["ln2"], params["ln2b"], cfg.norm_eps),
+                gated=False, act="gelu")
+    return x, cache, ZERO

@@ -1,21 +1,25 @@
-"""Model assembly for the dense decoder, MoE (Qwen1.5-MoE), MLA
-(DeepSeek-V2-Lite), RWKV6 and Zamba2 families (the port's copy of those
-paths of ``models/model.py``): init, caches, prefill and decode.
+"""Model assembly for every family of ``configs`` (the port's copy of
+``models/model.py``): the dense decoder, MoE (Qwen1.5-MoE), MLA
+(DeepSeek-V2-Lite), RWKV6, Zamba2, Whisper's encoder-decoder and the
+InternVL2 vision frontend: init, caches, prefill, decode and the loss.
 
 The reference stacks the layers on a leading axis and runs them with
 ``lax.scan``; the port keeps one params dict per layer and runs them in a
 Python loop (Zamba2's ``mamba_main`` is a list of super-blocks, each a list
 of ``attn_every`` Mamba2 layers, then ``mamba_tail``; the shared attention
 block is one dense layer; DeepSeek's dense first layer is ``layer0``, one
-dict beside the list of its MoE ``layers``). The caches keep the
+dict beside the list of its MoE ``layers``; Whisper's ``enc_layers`` and
+``dec_layers`` are lists of layer dicts). The caches keep the
 reference's stacked layouts — dense and MoE ``{'k', 'v'}`` of ``(L, B, KV,
 S_max, dh)``; MLA ``{'ckv': (L, B, S_max, r), 'kpe': (L, B, 1, S_max,
 dr)}`` (``layer0`` on slice 0); RWKV6 ``{'shift_tm', 'shift_cm',
 'state'}`` with a leading L; Zamba2 ``{'mamba_main': {'conv', 'state'}}``
 with leading ``(n_sb, attn_every)``, ``'attn'`` (one KV cache per
-super-block) and ``'mamba_tail'`` — and each layer writes its slice in
-place. ``model_params_from_reference`` turns the reference's params (numpy
-arrays, layers stacked) into the port's.
+super-block) and ``'mamba_tail'``; Whisper ``{'self', 'cross'}``, two KV
+caches, the cross one at the encoder's length, and ``'has_cross'`` — and
+each layer writes its slice in place. ``model_params_from_reference``
+turns the reference's params (numpy arrays, layers stacked) into the
+port's.
 
 Training (ROADMAP A12.1): ``Model.train_loss`` (next-token cross entropy
 plus the MoE aux loss) runs the same trunk with each layer wrapped by
@@ -26,9 +30,14 @@ attention's gradient is K4's backward kernel and the scans' are K5' and
 K6' (``kernels/ssm_scan.py:_SsmScan``, ``kernels/rwkv6_scan.py:
 _Rwkv6Scan``), so every served family trains there too.
 
-Other families raise ``NotImplementedError`` naming their ROADMAP item:
-Whisper's encoder-decoder (A11.5) and the InternVL2 vision frontend
-(A11.6).
+The frontends are stubs, as in the reference: Whisper's encoder takes
+``frames`` ``(B, S_enc, 128)``, projected by ``params['frontend']`` and
+given sinusoidal positions, and its decoder tokens get sinusoidal
+positions too; InternVL2 projects ``patch_embeds`` ``(B, n, 1024)`` in
+bf16 and puts them in place of the first n token embeddings (a prefill or
+loss without them runs text only). At prefill the encoder runs once and
+each decoder layer's cross k and v go to the cache; ``train_loss`` takes
+them from the encoder's output directly.
 """
 
 from __future__ import annotations
@@ -45,27 +54,31 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from . import blocks
 from .blocks import ZERO
-from .layers import Params, embed, he_init, init_embedding, rms_norm, unembed
+from .attention import _split_heads
+from .layers import (Params, dense, embed, he_init, init_embedding, layer_norm,
+                     rms_norm, unembed)
 from .rwkv import init_rwkv6_cache
 from .ssm import init_mamba2_cache
 
-__all__ = ["NEG_INF", "Model", "unported_part", "mask_vocab_padding",
-           "cross_entropy", "param_shapes", "count_params", "count_active_params",
-           "model_params_from_reference"]
+__all__ = ["NEG_INF", "FRONTEND_DIM", "Model", "sinusoidal_positions",
+           "mask_vocab_padding", "cross_entropy", "param_shapes", "count_params",
+           "count_active_params", "model_params_from_reference"]
 
 NEG_INF = -1e30
 
+#: the stub frontends' input widths: InternVL2's patch embeddings, Whisper's
+#: frame embeddings
+FRONTEND_DIM = {"vision": 1024, "audio": 128}
 
-def unported_part(cfg) -> str | None:
-    """What of ``cfg``'s architecture the port lacks (with its ROADMAP
-    item), or None for the dense, MoE, MLA, RWKV6 and Zamba2 families."""
-    if cfg.rwkv is not None or cfg.ssm is not None:
-        return None
-    if cfg.encdec is not None:
-        return "Whisper's encoder-decoder (ROADMAP A11.5)"
-    if cfg.frontend:
-        return f"the {cfg.frontend} frontend (ROADMAP A11.6)"
-    return None
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """``(S,)`` positions -> ``(S, d)`` fp32 Whisper-style embedding: the
+    sines, then the cosines, of ``positions * 10000^(-i / max(1, d/2 - 1))``."""
+    half = d // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device)
+                      * math.log(10000.0) / max(1, half - 1))
+    ang = positions[:, None].to(torch.float32) * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def mask_vocab_padding(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
@@ -118,18 +131,11 @@ def _remat(cfg, fn):
 
 @dataclass
 class Model:
-    """Config-driven LM (dense GQA, MoE, MLA, RWKV6, Zamba2): init /
-    train_loss / prefill / decode_step."""
+    """Config-driven LM (dense GQA, MoE, MLA, RWKV6, Zamba2, Whisper's
+    encoder-decoder, InternVL2's frontend): init / train_loss / prefill /
+    decode_step."""
 
     cfg: Any
-
-    def __post_init__(self):
-        missing = unported_part(self.cfg)
-        if missing is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: the port has the dense, MoE, MLA, RWKV6 and "
-                f"Zamba2 families; "
-                f"{missing} is not ported")
 
     # ---- init ------------------------------------------------------------------
     def init_params(self, generator: torch.Generator | None,
@@ -146,6 +152,11 @@ class Model:
         if not cfg.tie_embeddings:
             params["head"] = {"w": he_init(generator, (cfg.d_model, cfg.padded_vocab),
                                            cfg.d_model, device)}
+        if cfg.frontend:
+            df = FRONTEND_DIM[cfg.frontend]
+            params["frontend"] = {
+                "w": he_init(generator, (df, cfg.d_model), df, device),
+                "b": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)}
         if cfg.rwkv is not None:
             params["layers"] = [blocks.init_rwkv_layer(generator, cfg, device)
                                 for _ in range(cfg.n_layers)]
@@ -157,6 +168,15 @@ class Model:
                 params["mamba_tail"] = [blocks.init_mamba_layer(generator, cfg, device)
                                         for _ in range(tail)]
             params["shared_attn"] = blocks.init_dense_layer(generator, cfg, device)
+        elif cfg.encdec is not None:
+            params["enc_layers"] = [blocks.init_whisper_layer(generator, cfg, False, device)
+                                    for _ in range(cfg.encdec.n_enc_layers)]
+            params["dec_layers"] = [blocks.init_whisper_layer(generator, cfg, True, device)
+                                    for _ in range(cfg.n_layers)]
+            for name, value in (("enc_norm", 1.0), ("enc_norm_b", 0.0),
+                                ("final_norm_b", 0.0)):
+                params[name] = torch.full((cfg.d_model,), value, dtype=torch.float32,
+                                          device=device)
         elif cfg.mla is not None:
             n_moe = cfg.n_layers - 1 if cfg.first_layer_dense else cfg.n_layers
             if cfg.first_layer_dense:
@@ -183,8 +203,8 @@ class Model:
         """The zeroed cache of the family, stacked as the reference's."""
         cfg = self.cfg
 
-        def kv_cache(n: int):
-            shape = (n, batch, cfg.n_kv_heads, s_max, cfg.head_dim)
+        def kv_cache(n: int, length: int = s_max):
+            shape = (n, batch, cfg.n_kv_heads, length, cfg.head_dim)
             return {"k": torch.zeros(shape, dtype=dtype, device=device),
                     "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -201,6 +221,10 @@ class Model:
             if tail:
                 cache["mamba_tail"] = stacked(one, tail)
             return cache
+        if cfg.encdec is not None:
+            return {"self": kv_cache(cfg.n_layers),
+                    "cross": kv_cache(cfg.n_layers, cfg.encdec.n_enc_positions),
+                    "has_cross": torch.zeros((), dtype=torch.int32, device=device)}
         if cfg.mla is not None:
             r, dr = cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim
             shapes = {"ckv": (cfg.n_layers, batch, s_max, r),
@@ -211,8 +235,48 @@ class Model:
 
     # ---- trunk -----------------------------------------------------------------
     def _embed_inputs(self, params: Params, batch_inputs: dict) -> torch.Tensor:
-        """Token embeddings, bf16 from here on."""
-        return embed(params["embed"], batch_inputs["tokens"]).to(torch.bfloat16)
+        """Token embeddings, bf16 from here on; InternVL2's projected
+        ``patch_embeds`` in place of the first tokens' where given."""
+        x = embed(params["embed"], batch_inputs["tokens"]).to(torch.bfloat16)
+        if self.cfg.frontend == "vision" and "patch_embeds" in batch_inputs:
+            pe = dense(batch_inputs["patch_embeds"].to(x.dtype), params["frontend"]["w"],
+                       params["frontend"]["b"])
+            n = min(pe.shape[1], x.shape[1])
+            x = torch.cat([pe[:, :n], x[:, n:]], dim=1)
+        return x
+
+    def _trunk_inputs(self, params: Params, batch_inputs: dict,
+                      positions: torch.Tensor) -> torch.Tensor:
+        """``_embed_inputs``, with Whisper's sinusoidal ``positions`` added
+        (the reference's ``_embed_inputs``)."""
+        x = self._embed_inputs(params, batch_inputs)
+        if self.cfg.encdec is not None:
+            x = x + sinusoidal_positions(positions, self.cfg.d_model).to(x.dtype)[None]
+        return x
+
+    def _encoder(self, params: Params, frames: torch.Tensor,
+                 remat: bool = False) -> torch.Tensor:
+        """Whisper's encoder: frames ``(B, S_enc, 128)`` -> ``(B, S_enc, d)``,
+        its layers under ``_remat`` when ``remat`` (training)."""
+        cfg = self.cfg
+        x = dense(frames.to(torch.bfloat16), params["frontend"]["w"], params["frontend"]["b"])
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)[None]
+        apply = _remat(cfg, blocks.apply_whisper_enc_layer) if remat \
+            else blocks.apply_whisper_enc_layer
+        impl = self._impl(x.shape[1])
+        for lp in params["enc_layers"]:
+            x = apply(lp, x, cfg, impl=impl)
+        return layer_norm(x, params["enc_norm"], params["enc_norm_b"], cfg.norm_eps)
+
+    def _cross_kv(self, dec_layers: list, enc_out: torch.Tensor) -> list:
+        """Each decoder layer's cross k and v from the encoder's output:
+        ``[(k, v)]``, each ``(B, KV, S_enc, dh)`` (``_split_heads``' views)."""
+        cfg = self.cfg
+        return [tuple(_split_heads(dense(enc_out, lp["cross"][w], lp["cross"].get(b)),
+                                   cfg.n_kv_heads, cfg.head_dim)
+                      for w, b in (("wk", "bk"), ("wv", "bv")))
+                for lp in dec_layers]
 
     def _impl(self, s: int) -> str:
         """Prefill attention for an ``s``-token prompt."""
@@ -222,9 +286,11 @@ class Model:
 
     def _trunk(self, params: Params, x: torch.Tensor, positions: torch.Tensor,
                cache: Params | None = None, cache_index=None, impl: str | None = None,
-               remat: bool = False):
+               remat: bool = False, enc_out: torch.Tensor | None = None):
         """Run the layer stack. Returns ``(x, cache, aux_sum)``. ``remat``
-        (training, no cache) wraps each layer per ``_remat``."""
+        (training, no cache) wraps each layer per ``_remat``. Whisper's
+        decoder takes its cross k and v from the cache, or without one from
+        ``enc_out``."""
         cfg = self.cfg
         impl = impl or self._impl(x.shape[1])
         wrap = partial(_remat, cfg) if remat else (lambda fn: fn)
@@ -252,6 +318,18 @@ class Model:
                 x, _, a = _recurrent(mamba, lp, x, cfg, tail, (i,), cache_index)
                 aux = aux + a
             return x, cache, aux
+        if cfg.encdec is not None:
+            dec = wrap(blocks.apply_whisper_dec_layer)
+            if cache is None:
+                cross = self._cross_kv(params["dec_layers"], enc_out)
+            else:
+                cross = list(zip(cache["cross"]["k"], cache["cross"]["v"]))
+            for i, lp in enumerate(params["dec_layers"]):
+                c = None if cache is None else {k: t[i] for k, t in cache["self"].items()}
+                x, _, a = dec(lp, x, cfg, positions=positions, impl=impl, cache=c,
+                              cache_index=cache_index, cross_kv=cross[i])
+                aux = aux + a
+            return x, cache, aux
         if cfg.mla is not None:
             apply = blocks.apply_mla_layer
         elif cfg.moe is not None:
@@ -269,16 +347,21 @@ class Model:
         return x, cache, aux
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """bf16 logits over the padded vocab."""
+        """bf16 logits over the padded vocab (Whisper's final norm is a
+        layer norm)."""
         cfg = self.cfg
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.encdec is None:
+            x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        else:
+            x = layer_norm(x, params["final_norm"], params["final_norm_b"], cfg.norm_eps)
         if cfg.tie_embeddings:
             return unembed({}, x, table=params["embed"]["table"])
         return unembed(params["head"], x)
 
     # ---- public API ----------------------------------------------------------
     def train_loss(self, params: Params, batch: dict):
-        """batch: tokens ``(B, S + 1)``. Next-token cross entropy over the
+        """batch: tokens ``(B, S + 1)`` (and Whisper's ``frames`` or
+        InternVL2's ``patch_embeds``). Next-token cross entropy over the
         first S positions plus the layers' MoE aux loss: ``(loss, {'ce',
         'aux'})``. The layers run under ``_remat``; the reference's
         ``vp_cross_entropy`` is ``cross_entropy`` on one device (its mesh
@@ -286,17 +369,29 @@ class Model:
         cfg = self.cfg
         tokens, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = self._embed_inputs(params, {"tokens": tokens})
-        x, _, aux = self._trunk(params, x, positions, remat=True)
+        x = self._trunk_inputs(params, {**batch, "tokens": tokens}, positions)
+        enc_out = None
+        if cfg.encdec is not None:
+            enc_out = self._encoder(params, batch["frames"], remat=True)
+        x, _, aux = self._trunk(params, x, positions, remat=True, enc_out=enc_out)
         ce = cross_entropy(self._logits(params, x), labels, cfg.vocab_size)
         loss = ce + aux
         return loss, {"ce": ce, "aux": aux}
 
     def prefill(self, params: Params, batch: dict, cache: Params):
-        """Run a prompt, fill the cache's head, return last-position logits."""
+        """Run a prompt (``batch``: tokens, and Whisper's ``frames`` or
+        InternVL2's ``patch_embeds``), fill the cache's head, return
+        last-position logits. Whisper's encoder runs here, once, and its
+        cross k and v fill the cache's ``cross``."""
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = self._embed_inputs(params, batch)
+        x = self._trunk_inputs(params, batch, positions)
+        if self.cfg.encdec is not None:
+            enc_out = self._encoder(params, batch["frames"])
+            for i, (k, v) in enumerate(self._cross_kv(params["dec_layers"], enc_out)):
+                cache["cross"]["k"][i].copy_(k)
+                cache["cross"]["v"][i].copy_(v)
+            cache["has_cross"].fill_(1)
         x, cache, _ = self._trunk(params, x, positions, cache=cache, cache_index=None)
         return self._logits(params, x[:, -1:]), cache
 
@@ -306,7 +401,7 @@ class Model:
         updated in place and returned."""
         positions = torch.full((1,), int(cache_index), dtype=torch.int32,
                                device=tokens.device)
-        x = self._embed_inputs(params, {"tokens": tokens})
+        x = self._trunk_inputs(params, {"tokens": tokens}, positions)
         x, cache, _ = self._trunk(params, x, positions, cache=cache,
                                   cache_index=cache_index)
         return self._logits(params, x), cache
@@ -381,7 +476,8 @@ def count_active_params(cfg) -> int:
 def model_params_from_reference(tree, device: str | torch.device = "cuda") -> Params:
     """The reference's ``Model.init_params`` tree (arrays as numpy) as the
     port's params on ``device``: the same names and layouts, with the
-    stacked ``layers`` and ``mamba_tail`` split into one dict per layer and
+    stacked ``layers``, ``mamba_tail``, ``enc_layers`` and ``dec_layers``
+    split into one dict per layer and
     ``mamba_main`` (stacked ``(n_sb, attn_every, ...)``) into a list of
     super-blocks of such lists; DeepSeek's ``layer0`` stays one dict.
     Arrays are copied (JAX hands out read-only buffers)."""
@@ -401,5 +497,6 @@ def model_params_from_reference(tree, device: str | torch.device = "cuda") -> Pa
         n = next(_leaves(t)).shape[0]
         return [split(pick(t, i), depth - 1) for i in range(n)]
 
-    depths = {"layers": 1, "mamba_tail": 1, "mamba_main": 2}
+    depths = {"layers": 1, "mamba_tail": 1, "enc_layers": 1, "dec_layers": 1,
+              "mamba_main": 2}
     return {k: split(conv(v), depths.get(k, 0)) for k, v in tree.items()}

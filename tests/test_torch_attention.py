@@ -305,9 +305,32 @@ def test_gqa_attention_decode_writes_the_cache_in_place():
     assert out is cache and y.shape == x.shape
     assert bool(cache["k"][:, :, 3].abs().sum() > 0)
     assert float(cache["k"][:, :, :3].abs().sum()) == 0.0
-    with pytest.raises(NotImplementedError, match="A11.5"):
-        tatt.gqa_attention(p, x, cfg, positions=torch.tensor([3]),
-                           cross_kv=(cache["k"], cache["v"]))
+    # cross attention (Whisper's decoder): q alone projected, with its bias
+    # and without RoPE, k and v given (float32 here) and cast to x's type,
+    # no mask; full, and chunked through K4's plain version (non-causal,
+    # blocks 10 and 24 picked apart for 40 queries and 24 keys); the cache
+    # is returned untouched
+    from repro.configs import get_config as jget_config
+
+    pb = tatt.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.head_dim, bias=True, device="cpu")
+    pb["bq"] = torch.randn(pb["bq"].shape, generator=gen)
+    jp = {k: jnp.asarray(t.numpy()) for k, t in pb.items()}
+    xs = torch.randn(1, 40, cfg.d_model, generator=gen).bfloat16()
+    ck, cv = (torch.randn(1, cfg.n_kv_heads, 24, cfg.head_dim, generator=gen)
+              for _ in range(2))
+    before = {k: t.clone() for k, t in cache.items()}
+    for impl in ("full", "chunked"):
+        y, out = tatt.gqa_attention(pb, xs, cfg, positions=torch.arange(40), impl=impl,
+                                    cache=cache, cross_kv=(ck, cv))
+        want, _ = jatt.gqa_attention(jp, jnp.asarray(xs.float().numpy()).astype(jnp.bfloat16),
+                                     jget_config("granite-8b").reduced(),
+                                     positions=jnp.arange(40), impl=impl,
+                                     cross_kv=(jnp.asarray(ck.numpy()),
+                                               jnp.asarray(cv.numpy())))
+        assert out is cache and y.dtype == torch.bfloat16 and y.shape == xs.shape
+        assert all(torch.equal(cache[k], before[k]) for k in cache)
+        _assert_close(y, want, BF16_TOL)
 
 
 

@@ -732,6 +732,38 @@ def test_flash_attention_mla_widths_against_float64(cuda):
     assert bool(((got.double() - o).abs() <= lim).all())
 
 
+@pytest.mark.parametrize("sq,skv,group,dh,causal", [
+    (2048, 1500, 1, 64, False),   # Whisper's cross attention
+    (1500, 1500, 1, 64, False),   # Whisper's encoder
+    (2048, 2048, 6, 128, True),   # InternVL2's GQA group of 6
+])
+def test_flash_attention_at_the_frontend_families_shapes(cuda, sq, skv, group, dh, causal):
+    """K4 in bf16 at the calls the smoke's Whisper and InternVL2 phases
+    serve (one batch row, two kv heads): 1,500 keys end in a masked
+    92-key tail, non-causal with more queries than keys trims no tile, and
+    group 6; against its plain version (FLASH_TOL) and within the smoke's
+    float64 limit (``k4_check``, non-causal where the call is)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sq + skv + group)
+    q = torch.randn((1, 2 * group, sq, dh), generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn((1, 2, skv, dh), generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    tile_k = 750 if skv == 1500 else 1024
+    before = _build.FLASH_ATTENTION.launches["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, tile_k=tile_k)
+    torch.cuda.synchronize()
+    assert _build.FLASH_ATTENTION.launches["flash_attention"] == before + 1
+    assert tuple(got.shape) == (1, 2 * group, sq, dh)
+    want = flash_attention_plain(q, k, v, causal=causal, tile_k=tile_k)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    checks = _smoke().k4_check(cuda, {"randn": (q, k, v)}, tile_k, causal)
+    assert checks["randn"]["share_o"] <= 1 and checks["randn"]["share_p"] <= 1
+
+
 def _linreg_and_rec(cuda, units):
     return (tapps.linreg_device_lowering(64 * units, 9, device=cuda),
             tapps.recommendation_device_lowering(64 * units, 64, device=cuda))
@@ -982,6 +1014,66 @@ def test_model_prefill_on_card_matches_cpu(cuda):
         scale = float(want.float().abs().max())
         torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0,
                                    atol=0.04 * scale)
+
+
+def _tensors(tree, path=()):
+    """path -> tensor of a tree of dicts."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensors(v, path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-26b"])
+def test_frontend_family_prefill_on_card_matches_plain_k4(cuda, arch):
+    """A reduced Whisper (its encoder at 1,500 frames, blocks 512 / 1,024 as
+    the full config's) and a reduced InternVL2 (8 patch embeddings), each
+    with a 1,088-token prompt, prefilled on the card through K4 (Whisper:
+    2 encoder, 2 self and 2 cross-attention launches; InternVL2: 2) against
+    the same prefill on the card with K4's plain version in its place. A
+    30-frame encoder and a short prompt take "full" and never reach K4.
+    The two attentions round in fp32 apart, which moves bf16 roundings
+    downstream: logits and caches within 4% of their largest magnitude, as
+    ``test_model_prefill_on_card_matches_cpu`` holds them."""
+    from unittest import mock
+
+    from repro_torch.configs.base import EncDecConfig
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attention_module
+    from repro_torch.models.model import FRONTEND_DIM
+
+    cfg = get_config(arch).reduced()
+    if cfg.encdec is not None:
+        cfg = dataclasses.replace(cfg, encdec=EncDecConfig(2, 1500), attn_chunk_q=512,
+                                  attn_chunk_kv=1024)
+    model = Model(cfg)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = model.init_params(gen, cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 1088), generator=gen,
+                                     device=cuda)}
+    if cfg.encdec is not None:
+        batch["frames"] = torch.randn((2, cfg.encdec.n_enc_positions, FRONTEND_DIM["audio"]),
+                                      generator=gen, device=cuda)
+        launches = cfg.encdec.n_enc_layers + 2 * cfg.n_layers
+    else:
+        batch["patch_embeds"] = torch.randn((2, cfg.n_frontend_tokens,
+                                             FRONTEND_DIM["vision"]), generator=gen,
+                                            device=cuda)
+        launches = cfg.n_layers
+    before = _build.FLASH_ATTENTION.launches["flash_attention"]
+    lg, cg = model.prefill(params, batch, model.init_cache(2, 1092, device=cuda))
+    torch.cuda.synchronize()
+    assert _build.FLASH_ATTENTION.launches["flash_attention"] == before + launches
+    with mock.patch.object(attention_module, "flash_attention", flash_attention_plain):
+        lp, cp = model.prefill(params, batch, model.init_cache(2, 1092, device=cuda))
+    pairs = [("logits", lg, lp)] + [(p, t, dict(_tensors(cp))[p]) for p, t in _tensors(cg)]
+    for what, got, want in pairs:
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=0.04 * scale,
+                                   msg=what)
 
 
 # ---------------------------------------------------------------------------

@@ -69,11 +69,8 @@ def test_config_parity(arch):
                                              w.supports_long_context)
         gm, wm = g.moe_padded(16), w.moe_padded(16)
         assert (gm is None and wm is None) or dataclasses.asdict(gm) == dataclasses.asdict(wm)
-    if not got.frontend and not got.encdec:
-        assert got.param_count() == want.param_count()
-    else:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A11\.[56]"):
-            got.param_count()
+    assert got.param_count() == want.param_count()
+    assert got.reduced().param_count() == want.reduced().param_count()
 
 
 def test_registry_lists_the_same_architectures():
