@@ -88,7 +88,18 @@ super-table walker kernel and the DLS-scheduled CC step — at real sizes:
   layers' fp32 weights, gradients and moments take 108.0 GB) through
   ``build_train_step``, 4 x 2,048 tokens, 3 steps: the scans' forward and
   gradient through K6 and K6', K5 and K5', Zamba2's shared attention
-  through K4 and K4' at dh 112.
+  through K4 and K4' at dh 112;
+* the README's eight examples as a user runs them
+  (``python -m repro_torch.examples.<name>``), each through its module's
+  ``run`` on the card: ``train_lm`` at d_model 768, 12 layers, 12 heads
+  over 3 kv heads of 64 (58,608,384 parameters), 8 x 2,048 tokens a step
+  in 4 microbatches, the rows of a ``sum`` stage on 2 pool threads, 20
+  steps (K4, K4'); ``serve_lm`` with 24 prompts of 2,048 tokens (K4);
+  ``moe_pipeline --device`` (K1's MoE-expert program), ``ida_pipeline``
+  (K2 under STATIC, MFSC and GSS), ``preemptive_serving`` (K1's linreg
+  program and K3), ``hetero_pipeline`` (K1 and K3 on the walker lane),
+  ``serve_pipelines`` and ``quickstart`` (host only) at the reference's
+  sizes.
 
 Phases, each printed as one JSON line with its seconds: environment, build
 of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
@@ -162,7 +173,14 @@ finite losses; K6' and K5' alone at the training shape against a float64
 gradient and their plain versions within ``scan_bwd_limits``, bitwise
 twice, the control with the carried state dropped failing the limit, HMMA
 in the SASS of their product kernels with no stack frame or local memory,
-with ms, device ms of each of their three kernels, plain ms and bound). K5 and K6 run split
+with ms, device ms of each of their three kernels, plain ms and bound); last,
+the examples (phase ``examples``: one line each, its seconds, its launches,
+exactly as ``EXAMPLES`` says, and its checks: bitwise where both sides run
+the same operations, else the worst share of ``kernels/limits.py``'s
+limits, past which the example raises; train_lm's losses, the last below
+the first, its step and pool-wait seconds and tokens/s; K4 and K4' at
+train_lm's shape against their float64 oracles and plain versions, rows
+of the kernels line). K5 and K6 run split
 TF32 on the tensor cores in two launches a call (counted once): each
 one's row gives the device ms of both by ``torch.profiler`` and requires
 the profiler to record the two launches a call, requires a tensor-core
@@ -193,6 +211,15 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# the limits the smoke holds float sums to, shared with the examples
+# (src/repro_torch/kernels/limits.py, their derivations beside EPS32 and
+# SILU_SLOPE): eps32 * sqrt(adds) * sum|terms|, twice it for a migrated
+# run, the MoE slab's float64 limits; ``beyond`` / ``excess`` count the
+# entries past them
+from repro_torch.kernels.limits import (EPS32, MIGRATED_FACTOR, beyond,  # noqa: E402
+                                        excess, moe_combined_limit, moe_limits)
 
 LINREG_ROWS, LINREG_COLS = 1_000_000, 101
 REC_USERS, REC_ITEMS = 65_536, 2_048
@@ -203,31 +230,12 @@ TILE = 64
 # bf16 and TF32 dense tensor-core flop/s
 PEAK_BYTES, PEAK_FP32, PEAK_BF16, PEAK_TF32 = 3.35e12, 67e12, 989e12, 495e12
 
-# A sum's kernel and plain versions add the same terms in a different order
-# (sequential FMA vs PyTorch's reduction), so they agree to float32 rounding,
-# not bitwise. Each of the k additions into an entry's accumulator rounds
-# by at most one float32 eps of the accumulator, which never exceeds the
-# entry's sum of |terms| A; with random rounding the two versions part by
-# about eps * sqrt(k) * A. That is each entry's limit. For a `sum` stage k
-# is its slot count (one fold per 64-row tile): 7.4 on a linreg `moments`
-# entry and 15 on a `syrk_gemv` diagonal entry, below the 21-64 that one
-# dropped tile moves them by. The limit holds for a sum of the same terms,
-# so `syrk_gemv`, whose terms are standardized by the `moments` the walk
-# read, is held to the plain stage on those same moments (`solo_walk`) and
-# to a float64 oracle; against the plain walk's own moments it would also
-# take the moments' rounding, which the variance's cancellation
-# (E[x^2] - mean^2) magnifies.
-EPS32 = 2.0 ** -23
 BETA_RTOL = 1e-2          # beta vs the float64 oracle, of the largest |beta|
 # a walked float32 linreg sum vs the host-only run's, of its largest |entry|
 # (the bar tests/test_torch_apps.py holds the walker's sums to; at 131,072
 # rows the host's tile-by-tile fold is 1.4e-6 off a float64 sum)
 SUM_RTOL = 1e-5
 REC_AGREEMENT = 0.9999    # scores vs the float64 oracle (see RecOracle)
-# A migrated run's sum entry comes from two summers (the host's PyTorch
-# tile sums and the kernel's), and the never-preempted walk it is held to
-# rounds too: both sides round, so the limit doubles.
-MIGRATED_FACTOR = 2.0
 
 # Migration cuts, in chunks (one 64-row tile each, SS on one host worker).
 # Each leaves a `sum` stage partly done. linreg host -> device runs all of
@@ -241,20 +249,6 @@ MIGRATED_FACTOR = 2.0
 LIN_UNITS, REC_UNITS = LINREG_ROWS // TILE, REC_USERS // TILE
 
 MOE_ARCH, MOE_TOKENS, MOE_SKEW = "qwen2-moe-a2.7b", 4_096, 1.2
-# an MoE slab entry is two products: h = x wi over d terms, then
-# out = (silu(g) * u) wo over f terms. Its limit is eps * sqrt(f) * sum|terms|
-# of the second product, plus the first product's limit eps * sqrt(d) *
-# sum|terms| carried through silu(g) * u (|silu'| <= 1.1) and wo, plus
-# 4 eps of |silu(g) * u| for the gating's own roundings (exp, add, divide,
-# multiply). Against the float64 oracle the kernel takes the limit; against
-# the plain version both sides round, so twice it. That limit carries the
-# first product's limit through wo as if every h entry erred with one sign,
-# which is sqrt(f) too wide for roundings of either sign: one TF32 product
-# (11-bit operands) stays inside it. So the slabs are also held to the
-# limit with that part added as roundings add, eps * sqrt(d) *
-# sqrt(B^2 @ wo^2) (`moe_limits`); a one-TF32-product control on the same
-# inputs must fail it, where the 3xTF32 kernel passes.
-SILU_SLOPE = 1.1
 BATCH = 8
 B_LIN_ROWS, B_REC_USERS = 131_072, 8_192
 # a batch member's top items vs the float64 oracle: 8,192 users each, where
@@ -466,6 +460,31 @@ COORD_NODES, COORD_WORKERS = 2, 4
 # the phase cuts them to 800 (the rows' own quick size) at load 1.5 and
 # 400 at load 5.0 to stay near 20 s.
 OPENLOOP_REQUESTS, PRESSURED_REQUESTS = 800, 400
+# The examples (phase `examples`, last): each module of
+# `repro_torch.examples` run on the card through its own `run`, as a user
+# runs `python -m repro_torch.examples.<name>`; train_lm and serve_lm in
+# their card configurations (their docstrings: head width 64 and 16, over
+# 1,024 tokens so that K4 and K4' run), the others at the reference's
+# sizes; and the kernel entries each must launch. train_lm launches K4
+# twice a layer and microbatch (remat "full" recomputes the forward) and
+# K4' once; serve_lm launches K4 once a layer and prefill: the requests,
+# the warm-up and the 3 direct requests it checks against.
+EXAMPLE_TRAIN = dict(d_model=768, layers=12, heads=12, seq=2048, batch=8, microbatches=4,
+                     steps=20)
+EXAMPLE_SERVE = dict(requests=24, prompt_len=2048)
+EXAMPLE_TRAIN_K4 = 2 * EXAMPLE_TRAIN["layers"] * EXAMPLE_TRAIN["microbatches"]
+EXAMPLES = (
+    ("train_lm", EXAMPLE_TRAIN,
+     {"flash_attention": EXAMPLE_TRAIN_K4 * EXAMPLE_TRAIN["steps"],
+      "flash_attention_bwd": EXAMPLE_TRAIN_K4 // 2 * EXAMPLE_TRAIN["steps"]}),
+    ("serve_lm", EXAMPLE_SERVE, {"flash_attention": 4 * (EXAMPLE_SERVE["requests"] + 4)}),
+    ("moe_pipeline", dict(device=True), {"walk_moe": 1}),
+    ("ida_pipeline", {}, {"cc_propagate": 3}),
+    ("preemptive_serving", {}, {"walk_linreg": 3}),
+    ("hetero_pipeline", {}, None),     # the lane's runs: K1, as many as it takes
+    ("serve_pipelines", {}, {}),
+    ("quickstart", {}, {}),
+)
 MIGRATIONS = (
     ("linreg", "host_to_device", LIN_UNITS + 128),
     ("linreg", "device_to_host", 2 * LIN_UNITS - 256),
@@ -593,30 +612,9 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def beyond(got, want, limit) -> tuple[int, float, float]:
-    """Entries where ``|got - want|`` passes ``limit``: their count, the
-    largest absolute error, and the largest share of its limit an entry's
-    error takes."""
-    diff = (got.double() - want.double()).abs()
-    return (int((diff > limit).sum()), float(diff.max()),
-            float((diff / limit.clamp_min(1e-300)).max()))
-
-
 def launch_counts(kernels) -> dict:
     """Every kernel entry point's launch count, by entry name."""
     return {e: n for k in kernels for e, n in k.launches.items()}
-
-
-def excess(kernel, plain, abs_sum, adds: int, factor: float = 1.0):
-    """Entries of a sum output beyond their limit against another version.
-
-    ``abs_sum`` holds each entry's sum of |terms| and ``adds`` the number of
-    additions into its accumulator (see EPS32); the limit is ``factor``
-    times eps * sqrt(adds) * sum|terms|. Returns the count of entries beyond
-    it, the largest absolute error, and the largest share of its limit that
-    an entry's error takes.
-    """
-    return beyond(kernel, plain, factor * EPS32 * math.sqrt(adds) * abs_sum.double())
 
 
 def close(kernel, plain, abs_sum, adds: int, what: str,
@@ -822,22 +820,6 @@ def walk_stages(low, rows, values: dict) -> dict:
     each stage and the launches it recorded."""
     return {st.name: kernel_device_ms(solo_walk(low, rows, st.name, values)[0])
             for st in low.stages}
-
-
-def moe_limits(x, wi, wo) -> tuple:
-    """One MoE slab's float64 oracle and each entry's limits (see
-    SILU_SLOPE): ``(ref, lim, lim_rss)`` for ``x (C, d)``, ``wi (d, 2f)``
-    and ``wo (f, d)`` in float64."""
-    import torch.nn.functional as F
-
-    d, f = x.shape[1], wo.shape[0]
-    h, A = x @ wi, x.abs() @ wi.abs()
-    s, u = F.silu(h[:, :f]), h[:, f:]
-    a = s * u
-    B = SILU_SLOPE * u.abs() * A[:, :f] + s.abs() * A[:, f:]
-    own = (math.sqrt(f) + 4) * (a.abs() @ wo.abs())
-    return (a @ wo, EPS32 * (own + math.sqrt(d) * (B @ wo.abs())),
-            EPS32 * (own + math.sqrt(d) * ((B * B) @ (wo * wo)).sqrt()))
 
 
 def moe_one_tf32(x, wi, wo):
@@ -1077,9 +1059,7 @@ def moe_phase(dev, walk_inputs) -> dict:
     y_plain = dlow.finalize({"experts": want})
     require(torch.equal(y, dlow.finalize({"experts": got})),
             "moe combine differs from the main path's")
-    y_lim = 2 * (ml_apps._combine(lim, idx, abs(w).astype("float64"), pos, C)
-                 + EPS32 * math.sqrt(k) * ml_apps._combine(
-                     got.double().abs(), idx, abs(w).astype("float64"), pos, C))
+    y_lim = moe_combined_limit(lim, got, idx, w, pos, C)
     bad_y, err_y, share_y = beyond(y, y_plain, y_lim)
     require(bad_y == 0, f"moe combined vs plain: {bad_y} entries beyond the limit, "
                         f"max abs err {err_y:.3g}")
@@ -3237,7 +3217,8 @@ def grad_shares(got, want) -> dict:
     return {p: share(p) for p in w}
 
 
-def k4_bwd_row(dev, qkv: tuple, dout, launches: int, launches_per_step: int) -> tuple:
+def k4_bwd_row(dev, qkv: tuple, dout, launches: int, launches_per_step: int,
+               name: str = "flash_attention_bwd[dh 64, group 7, Qwen2-0.5B train]") -> tuple:
     """K4's backward kernel on a train call's own q, k, v (with randn dout)
     and on randn tensors of the same shapes: against its float64 gradient
     (``k4_grad_oracle``) and its plain version on the same output and LSE,
@@ -3307,7 +3288,7 @@ def k4_bwd_row(dev, qkv: tuple, dout, launches: int, launches_per_step: int) -> 
     fwd_ms, fwd_bwd_ms = timed(sdpa_fwd, 10), timed(sdpa_fwd_bwd, 10)
     pairs = sq * (sq + 1) // 2
     row = dict(
-        name="flash_attention_bwd[dh 64, group 7, Qwen2-0.5B train]", route="cuda",
+        name=name, route="cuda",
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention.py:63 (its gradient: the reference "
                  "differentiates src/repro/models/attention.py:136 chunked_attention "
@@ -4152,6 +4133,125 @@ def train_step_busy(model, state, tokens, in_place: bool = False) -> dict:
                 top=[[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top])
 
 
+def jsonable(value):
+    """``value`` without its arrays and tensors (an example's returned
+    tokens, labels, values): what a JSON line can hold."""
+    import numpy as np
+    import torch
+
+    if isinstance(value, dict):
+        kept = {str(k): jsonable(v) for k, v in value.items()}
+        return {k: v for k, v in kept.items() if v is not None}
+    if isinstance(value, (list, tuple)):
+        return [jsonable(v) for v in value]
+    if isinstance(value, (np.ndarray, torch.Tensor)) or not isinstance(
+            value, (str, int, float, bool, np.integer, np.floating)):
+        return None
+    return value.item() if isinstance(value, (np.integer, np.floating)) else value
+
+
+def examples_phase(dev) -> list[dict]:
+    """The eight examples of ``repro_torch.examples`` on the card, each
+    through its module's ``run`` with the counters set to 0 just before and
+    read just after (``EXAMPLES``): one JSON line each with its seconds,
+    launches and checks (the example's own: bitwise where both sides run
+    the same operations, else the worst share of the limits of
+    ``kernels/limits.py``; each raises past them), the lines it printed
+    kept out of the smoke's output. train_lm adds its losses (the last
+    below the first), step and pool-wait seconds and tokens/s; its K4 and
+    K4' calls give the kernels line's rows at its shape (q, k, v of a layer
+    of its last step). Returns those two rows."""
+    import importlib
+    import io
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import attention as attention_module
+
+    t_phase = time.perf_counter()
+    kept, fn = {}, attention_module.flash_attention
+
+    def keep(*a, **kw):
+        kept["call"] = (tuple(x.detach() for x in a), kw)
+        return fn(*a, **kw)
+
+    seconds, launches_of = {}, {}
+    for name, kw, want in EXAMPLES:
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        tmp = tempfile.mkdtemp(prefix=f"{name}_") if name == "train_lm" else None
+        extra = {"ckpt_dir": tmp} if tmp else {}
+        patch = (mock.patch.object(attention_module, "flash_attention", keep) if tmp
+                 else contextlib.nullcontext())
+        printed = io.StringIO()
+        for k_ in _build.KERNELS:
+            k_.launches.clear()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(printed), patch:
+                out = module.run(torch_device="cuda", **kw, **extra)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported, then the smoke fails
+            fail(f"example {name}: {e!r}; it printed:\n{printed.getvalue()}")
+        finally:
+            if tmp:
+                shutil.rmtree(tmp, ignore_errors=True)
+        seconds[name] = time.perf_counter() - t
+        launches = launch_counts(_build.KERNELS)
+        if want is None:
+            require(set(launches) == {"walk_linreg"} and launches["walk_linreg"] > 0,
+                    f"example {name}: launches {launches}, want walk_linreg")
+        else:
+            require(launches == want, f"example {name}: launches {launches}, want {want}")
+        line = dict(name=name, seconds=seconds[name], launches=launches, arguments=kw,
+                    results=jsonable(out))
+        if name == "train_lm":
+            losses = out["losses"]
+            require(out["steps_run"] == kw["steps"] and len(losses) == kw["steps"]
+                    and all(math.isfinite(x) for x in losses)
+                    and out["last_loss"] < out["first_loss"],
+                    f"train_lm: {out['steps_run']} steps, losses {losses}")
+            line.update(step_tokens_per_second=kw["batch"] * kw["seq"] / out["step_seconds"],
+                        launches_per_step={k: n // kw["steps"] for k, n in launches.items()})
+        if name == "preemptive_serving":
+            ck = out["checkpoint"]["moments"]
+            require(out["launches"]["host_to_device"] == {"walk_linreg": 1}
+                    and 0 < ck["executed"] and ck["pending"] > 0,
+                    f"preemptive_serving: the migration {out['launches']}, checkpoint {ck}: "
+                    "want one seeded walk (K3) of a partly summed moments")
+        emit("example", **line)
+        launches_of[name] = launches
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # K4 and K4' at train_lm's shape, on a layer's own q, k, v
+    (q, k, v), kw = kept.pop("call")
+    tr, train_launches = EXAMPLE_TRAIN, launches_of["train_lm"]
+    mb = tr["batch"] // tr["microbatches"]
+    require(q.shape == (mb, tr["heads"], tr["seq"], 64)
+            and k.shape == v.shape == (mb, tr["heads"] // 4, tr["seq"], 64)
+            and q.dtype == torch.bfloat16 and kw["causal"],
+            f"train_lm's K4 call: q {tuple(q.shape)} {q.dtype}, {kw}")
+    fwd_row, fwd_checks = k4_served_row(
+        dev, "flash_attention[dh 64, group 4, train_lm example]", (q, k, v), kw,
+        train_launches["flash_attention"], "a layer's q, k, v of the last train step")
+    fwd_row["launches_per_step"] = EXAMPLE_TRAIN_K4
+    do = torch.randn(q.shape, device=dev).bfloat16()
+    bwd_row, bwd_checks = k4_bwd_row(
+        dev, (q, k, v), do, train_launches["flash_attention_bwd"], EXAMPLE_TRAIN_K4 // 2,
+        name="flash_attention_bwd[dh 64, group 4, train_lm example]")
+    emit("examples", seconds=seconds,
+         k4_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in fwd_checks.items()},
+         k4_bwd_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in bwd_checks.items()},
+         k4_bwd_vs_plain={w_: [c["err_p"], c["share_p"]] for w_, c in bwd_checks.items()},
+         total_seconds=time.perf_counter() - t_phase)
+    return [fwd_row, bwd_row]
+
+
 def main() -> None:
     """Run every phase; exit non-zero on the first failed check."""
     t_all = time.perf_counter()
@@ -4161,7 +4261,6 @@ def main() -> None:
     require(torch.cuda.is_available(), "no CUDA device; this script runs on a GPU only")
     require((ROOT / "src" / "repro_torch" / "csrc").is_dir(),
             "src/repro_torch not found beside chip_smoke.py")
-    sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -4621,6 +4720,10 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         kernels.append(phase(dev))
+    # the examples, each through its user's entry point, everything before freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.extend(examples_phase(dev))
 
     for row in kernels:
         row["redesigned"] = row["name"] in REDESIGNED

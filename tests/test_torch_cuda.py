@@ -321,8 +321,9 @@ def test_moe_walk_matches_plain(cuda, shape, tech):
 
 
 def _smoke():
-    """``chip_smoke.py`` as a module (it imports nothing but the standard
-    library at module level): its MoE and K5 limits."""
+    """``chip_smoke.py`` as a module (at module level it imports the
+    standard library and the port's ``kernels/limits.py``): its MoE and
+    K5 limits."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -2098,3 +2099,190 @@ def test_reduced_dense_train_step_on_the_card_through_k4(cuda):
     assert float(metrics["loss"]) == float(loss_k)
     shares = smoke.grad_shares(g_k, g_p)
     assert max(shares.values()) <= 1.0, max(shares.items(), key=lambda kv: kv[1])
+
+
+# ---------------------------------------------------------------------------
+# the examples (repro_torch.examples) on the card, at the CPU tests' sizes,
+# against the same example's plain run on the CPU
+# ---------------------------------------------------------------------------
+
+EXAMPLE_NAMES = ("train_lm", "serve_lm", "moe_pipeline", "ida_pipeline",
+                 "preemptive_serving", "hetero_pipeline", "serve_pipelines", "quickstart")
+#: train_lm's gradient stage on the card against the CPU: float32
+#: activations, so sum orders only (K4's FMA path, cuBLAS, the pool's
+#: completion order): the loss to 1e-5, each leaf to 1e-3 of its largest
+EXAMPLE_F32_TOL = 1e-3
+
+
+def _example(name: str):
+    import importlib
+
+    return importlib.import_module(f"repro_torch.examples.{name}")
+
+
+def _example_model32():
+    """The examples' models with float32 activations (a test-only view, as
+    ``tests/test_torch_rwkv.py``'s ``_T32``)."""
+    from repro_torch.models import Model
+    from repro_torch.models.layers import embed
+
+    class Model32(Model):
+        def _embed_inputs(self, params, batch_inputs):
+            return embed(params["embed"], batch_inputs["tokens"]).float()
+
+    return Model32
+
+
+def _same(a, b) -> bool:
+    """Equal, arrays bitwise, dicts and lists entry by entry."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+def test_examples_refuse_cuda_without_a_card(cuda, monkeypatch, capsys):
+    """``--torch-device cuda`` where no card is found (``is_available``
+    false) raises in every example before it does anything: nothing
+    printed, nothing launched, nothing run on the CPU instead."""
+    before = {e: n for k in _build.KERNELS for e, n in k.launches.items()}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in EXAMPLE_NAMES:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _example(name).main(["--torch-device", "cuda"])
+    assert capsys.readouterr().out == ""
+    assert {e: n for k in _build.KERNELS for e, n in k.launches.items()} == before
+
+
+@pytest.mark.parametrize("name,kw,keys", [
+    ("quickstart", dict(scale=10, linreg_rows=4_000),
+     ("labels", "beta", "simulated_makespans", "auto_selected", "auto_selected_makespan")),
+    ("serve_pipelines", dict(scale=10, linreg_rows=2_000, rec_users=512),
+     ("search", "assign", "tuned_p99", "isolated_p99", "drained_jobs")),
+])
+def test_examples_host_only_run_the_same_beside_the_card(cuda, name, kw, keys):
+    card = _example(name).run(**kw, torch_device="cuda")
+    plain = _example(name).run(**kw, torch_device="cpu")
+    for key in keys:
+        assert _same(card[key], plain[key]), key
+
+
+def test_examples_ida_pipeline_runs_k2_bitwise(cuda):
+    kw = dict(scale=10, linreg_rows=3_000, linreg_cols=33, rec_users=400, rec_items=24,
+              dense_n=256)
+    card = _example("ida_pipeline").run(**kw, torch_device="cuda")
+    plain = _example("ida_pipeline").run(**kw, torch_device="cpu")
+    assert card["device"] == {t: "bitwise" for t in ("STATIC", "MFSC", "GSS")}
+    assert card["launches"] == {"cc_propagate": 3} and plain["launches"] == {}
+    for key in ("labels", "cc_iterations", "offline_assign", "offline_makespan",
+                "coordinator_partials"):
+        assert _same(card[key], plain[key]), key
+
+
+def test_examples_moe_pipeline_walks_k1_within_its_limits(cuda):
+    """The same weights (drawn on the CPU) on both runs: the host's direct
+    and scheduled runs bitwise the CPU run's, the walked combine within
+    its float64-derived limits of direct (the example raises past them)."""
+    from repro_torch.models.moe import init_moe
+
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    moe = dataclasses.replace(cfg.moe, n_routed=8, capacity_factor=6.0)
+    params = init_moe(torch.Generator().manual_seed(0), cfg.d_model, moe)
+    kw = dict(tokens=96, experts=8, skew=1.6, capacity_factor=6.0, workers=2, device=True)
+    card = _example("moe_pipeline").run(**kw, torch_device="cuda", params=params)
+    plain = _example("moe_pipeline").run(**kw, torch_device="cpu", params=params)
+    assert np.array_equal(card["direct"], plain["direct"])
+    assert set(card["scheduled"].values()) == {"bitwise"}
+    assert card["device"]["launches"] == {"walk_moe": 1}
+    for key in ("slabs_vs_float64", "slabs_vs_float64_rss", "combine_vs_direct"):
+        assert 0.0 <= card["device"][key] <= 1.0, key
+    assert plain["device"]["combine_vs_direct"] == "bitwise"
+    for key in ("offline_experts", "offline_makespan", "online_makespan", "resizes"):
+        assert _same(card[key], plain[key]), key
+
+
+def test_examples_preemptive_serving_migrates_through_k3(cuda):
+    card = _example("preemptive_serving").run(jobs=120, torch_device="cuda")
+    plain = _example("preemptive_serving").run(jobs=120, torch_device="cpu")
+    one = {"walk_linreg": 1}
+    assert card["launches"] == {"unmigrated_walk": one, "host_to_device": one,
+                                "device_prefix": one}
+    assert card["host_resume"] == {"moments": "bitwise", "syrk_gemv": "bitwise"}
+    for part in ("host_to_device", "device_to_host"):
+        assert all(0.0 <= v <= 1.0 for v in card[part].values()), part
+    for key in ("checkpoint", "fair_hit_rate", "preemptive_hit_rate", "preemption_events",
+                "first_preemption"):
+        assert _same(card[key], plain[key]), key
+
+
+def test_examples_hetero_pipeline_walks_on_the_lane(cuda):
+    """Step 4 (rebalancing off) walks every device-placed chunk on the
+    lane: K1, each run continuing a sum's fold from its prefix."""
+    card = _example("hetero_pipeline").run(affinity_rows=512, rounds=40, torch_device="cuda")
+    plain = _example("hetero_pipeline").run(affinity_rows=512, rounds=40, torch_device="cpu")
+    walks = card["launches"]["submission_placement"]
+    assert set(walks) == {"walk_linreg"} and walks["walk_linreg"] > 0
+    for part in ("co_execution", "submission_placement"):
+        assert all(0.0 <= v <= 1.0 for v in card[part].values()), part
+    assert card["beta_matches_oracle"]
+    for key in ("placed_makespan", "placement", "transfers", "online_assign",
+                "online_makespan"):
+        assert _same(card[key], plain[key]), key
+
+
+def test_examples_serve_lm_through_k4_is_its_plain_run(cuda):
+    """1,088-token prompts (K4 in every prefill, float32 activations): the
+    scheduled tokens bitwise the direct run's on the card (the example
+    asserts it) and the CPU run's."""
+    from repro_torch.optim.adamw import tree_map
+
+    serve_lm = _example("serve_lm")
+    cfg = serve_lm.config()
+    model = _example_model32()(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    kw = dict(requests=5, slots=2, prompt_len=1088, gen_len=4)
+    card = serve_lm.run(**kw, torch_device="cuda", model=model,
+                        params=tree_map(lambda t: t.to(cuda), params))
+    plain = serve_lm.run(**kw, torch_device="cpu", model=model, params=params)
+    assert card["launches"] == {"flash_attention": cfg.n_layers * kw["requests"]}
+    assert card["scheduled_vs_direct"] == "bitwise"
+    assert np.array_equal(card["tokens"], plain["tokens"])
+
+
+def test_examples_train_lm_through_k4_and_its_gradient(cuda, tmp_path):
+    """The loop over 1,088 tokens on the card (K4 twice a layer and
+    microbatch, K4' once), its loss decreasing; and one step's gradient
+    stage (two pool threads) on the card against the CPU's, the same
+    weights, float32 activations, within EXAMPLE_F32_TOL."""
+    from repro_torch.core import make_config
+    from repro_torch.data import DataPipeline, SyntheticCorpus
+    from repro_torch.optim.adamw import tree_map
+
+    train_lm = _example("train_lm")
+    widths = dict(d_model=64, layers=2, heads=4, d_ff=128, vocab=512)
+    kw = dict(widths, seq=1088, batch=4, microbatches=2, steps=4, lr=3e-3)
+    out = train_lm.run(**kw, ckpt_dir=str(tmp_path), torch_device="cuda")
+    assert out["launches"] == {"flash_attention": 2 * 2 * 2 * 4,
+                               "flash_attention_bwd": 2 * 2 * 4}
+    assert all(math.isfinite(x) for x in out["losses"])
+    assert out["last_loss"] < out["first_loss"]
+
+    cfg = train_lm.scaled_config(**widths)
+    model = _example_model32()(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(DataPipeline(SyntheticCorpus(vocab_size=512, mean_len=544), 4,
+                                         1088).assemble(0))
+    pool = make_config("fac2", n_workers=2)
+    got, _ = train_lm.scheduled_grads(model, tree_map(lambda t: t.to(cuda), params),
+                                      toks.to(cuda), 2, pool)
+    want, _ = train_lm.scheduled_grads(model, params, toks, 2, pool)
+    got = got.cpu()
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5 * abs(float(want[0]))
+    smoke = _smoke()
+    g, w = (smoke.tree_paths(train_lm.unflatten(v[1:], params)) for v in (got, want))
+    for p in w:
+        err = float((g[p] - w[p]).abs().max())
+        assert err <= EXAMPLE_F32_TOL * smoke.leaf_scale(w, p), (p, err)

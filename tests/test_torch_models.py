@@ -213,6 +213,7 @@ _GUARD = textwrap.dedent("""
 
     sys.meta_path.insert(0, Block())
     import torch
+    torch.set_num_threads(1)   # the suite's workers fill the cores: no oversubscription
     from repro_torch.kernels.ops import attention, mamba2_chunk_scan, wkv6
     from repro_torch.launch.serve import serve_lm
     from repro_torch.vee import apps
