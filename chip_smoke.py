@@ -89,10 +89,19 @@ super-table walker kernel and the DLS-scheduled CC step — at real sizes:
   ``build_train_step``, 4 x 2,048 tokens, 3 steps: the scans' forward and
   gradient through K6 and K6', K5 and K5', Zamba2's shared attention
   through K4 and K4' at dh 112;
+* training of the MoE, MLA and frontend families at full width through
+  ``build_train_step``, 4 x 2,048 tokens a step, 3 steps (FRONTIER_TRAIN):
+  Qwen1.5-MoE-A2.7B (4 of 24 layers, 2,905,090,048 parameters),
+  DeepSeek-V2-Lite (4 of 27: the dense layer 0 and 3 MoE layers,
+  2,254,983,168), Whisper-small whole (its frames drawn by the caller) and
+  InternVL2-26B (4 of 48, 2,705,387,520; its patch embeddings drawn by the
+  caller): K4 and K4' at (128, 128), MLA's (192, 128), non-causal over
+  1,500 encoder frames and 2,048 x 1,500 cross attention, and group 6;
 * the README's eight examples as a user runs them
   (``python -m repro_torch.examples.<name>``), each through its module's
-  ``run`` on the card: ``train_lm`` at d_model 768, 12 layers, 12 heads
-  over 3 kv heads of 64 (58,608,384 parameters), 8 x 2,048 tokens a step
+  ``run`` on the card: ``train_lm`` at the reference's "~100M" flags,
+  d_model 768, 12 layers, 8 heads over 2 kv heads of 96 (58,608,384
+  parameters; K4 and K4' at (96, 96)), 8 x 2,048 tokens a step
   in 4 microbatches, the rows of a ``sum`` stage on 2 pool threads, 20
   steps (K4, K4'); ``serve_lm`` with 24 prompts of 2,048 tokens (K4);
   ``moe_pipeline --device`` (K1's MoE-expert program), ``ida_pipeline``
@@ -173,8 +182,17 @@ finite losses; K6' and K5' alone at the training shape against a float64
 gradient and their plain versions within ``scan_bwd_limits``, bitwise
 twice, the control with the carried state dropped failing the limit, HMMA
 in the SASS of their product kernels with no stack frame or local memory,
-with ms, device ms of each of their three kernels, plain ms and bound); last,
-the examples (phase ``examples``: one line each, its seconds, its launches,
+with ms, device ms of each of their three kernels, plain ms and bound);
+then the MoE, MLA and frontend families' training (``train_qwen2_moe_a2_7b``,
+``train_deepseek_v2_lite_16b``, ``train_whisper_small``,
+``train_internvl2_26b``: the config's widths and parameter count; the
+first step at 2 layers through K4 and K4' within TRAIN_GRAD_TOL of K4's
+plain pair, the MoE models' plain run replaying the K4 run's routing, the
+detached-attention control failing; exactly 2 K4 and 1 K4' launch a K4
+call of a forward, none padded; finite losses and params; peak memory; a
+K4' row for each shape new to training on the first step's own call,
+against its float64 oracle and plain version, the no-D control failing);
+last, the examples (phase ``examples``: one line each, its seconds, its launches,
 exactly as ``EXAMPLES`` says, and its checks: bitwise where both sides run
 the same operations, else the worst share of ``kernels/limits.py``'s
 limits, past which the example raises; train_lm's losses, the last below
@@ -390,6 +408,27 @@ ZAMBA_TRAIN = dict(arch="zamba2-7b", seq=2048, global_batch=4, steps=3, n_layers
 RWKV_TRAIN_PARAMS, ZAMBA_PARAMS, ZAMBA_TRAIN_PARAMS = (3_073_477_120, 6_751_130_832,
                                                        1_838_512_800)
 GRAD_CHECK_LAYERS = {"rwkv6-3b": 4, "zamba2-7b": 6}
+# Training the MoE, MLA and frontend families (phases `train_qwen2_moe_a2_7b`,
+# `train_deepseek_v2_lite_16b`, `train_whisper_small`, `train_internvl2_26b`,
+# after `train_zamba2_7b`), each at full width through build_train_step on
+# dataclasses.replace(cfg, n_layers=...), 4 x 2,048 tokens a step from the
+# DaphneSched data pipeline, remat "full", AdamW in place, 3 steps.
+# Whisper-small trains whole; the others' depth is cut to 4 layers
+# (DeepSeek-V2-Lite: its dense layer 0 and 3 MoE layers), as all their
+# layers' weights, gradients and moments take 229, 251 and 318 GB at 16
+# bytes a parameter, beyond the card's 80 (full depth waits for the mesh
+# layer, ROADMAP A17). The reference's launcher gives tokens only, so the
+# caller draws the frontend inputs from a seeded torch.Generator at the
+# shapes of the reference's launch/specs.py: Whisper's frames (4, 1,500,
+# 128) and InternVL2's patch_embeds (4, 256, 1,024), fp32. The first step
+# is checked at full width on 2 layers (DeepSeek: layer 0 and one MoE
+# layer; Whisper: 2 encoder and 2 decoder layers) through K4 and K4'
+# against K4's plain pair at TRAIN_GRAD_TOL and TRAIN_LOSS_RTOL, with the
+# detached-attention control (`first_step_grad_check`); and each K4' shape
+# new to training on that step's own call against its float64 oracle
+# (`k4_bwd_row`).
+FRONTIER_TRAIN = dict(seq=2048, global_batch=4, steps=3)
+FRONTIER_GRAD_LAYERS = 2
 # K5 and K6 against a float64 oracle of the same recurrence, per entry.
 # Let M be the entry's sum of |terms| (the oracle run on |inputs|: every
 # gate and decay is positive) and c the largest |chunk-end cumsum| of the
@@ -462,14 +501,15 @@ COORD_NODES, COORD_WORKERS = 2, 4
 OPENLOOP_REQUESTS, PRESSURED_REQUESTS = 800, 400
 # The examples (phase `examples`, last): each module of
 # `repro_torch.examples` run on the card through its own `run`, as a user
-# runs `python -m repro_torch.examples.<name>`; train_lm and serve_lm in
-# their card configurations (their docstrings: head width 64 and 16, over
-# 1,024 tokens so that K4 and K4' run), the others at the reference's
-# sizes; and the kernel entries each must launch. train_lm launches K4
-# twice a layer and microbatch (remat "full" recomputes the forward) and
-# K4' once; serve_lm launches K4 once a layer and prefill: the requests,
-# the warm-up and the 3 direct requests it checks against.
-EXAMPLE_TRAIN = dict(d_model=768, layers=12, heads=12, seq=2048, batch=8, microbatches=4,
+# runs `python -m repro_torch.examples.<name>`; train_lm at the reference's
+# "~100M" flags (--d-model 768 --layers 12, the default 8 heads of 96 over
+# 2 kv heads: K4 and K4' at (96, 96)) and serve_lm at head width 16, both
+# over 1,024 tokens so that K4 runs, the others at the reference's sizes;
+# and the kernel entries each must launch. train_lm launches K4 twice a
+# layer and microbatch (remat "full" recomputes the forward) and K4' once;
+# serve_lm launches K4 once a layer and prefill: the requests, the warm-up
+# and the 3 direct requests it checks against.
+EXAMPLE_TRAIN = dict(d_model=768, layers=12, heads=8, seq=2048, batch=8, microbatches=4,
                      steps=20)
 EXAMPLE_SERVE = dict(requests=24, prompt_len=2048)
 EXAMPLE_TRAIN_K4 = 2 * EXAMPLE_TRAIN["layers"] * EXAMPLE_TRAIN["microbatches"]
@@ -573,7 +613,7 @@ def routing_flips(ref: tuple, got: tuple, router, moe) -> dict:
 @contextlib.contextmanager
 def route_log():
     """Record each ``models/moe.py:_route`` call of the port: its router
-    input, expert indices and router weights, in call order."""
+    input, expert indices and router weights (detached), in call order."""
     from unittest import mock
 
     from repro_torch.models import moe as moe_module
@@ -583,11 +623,38 @@ def route_log():
 
     def spy(router_w, x_flat, moe):
         out = route(router_w, x_flat, moe)
-        calls.append((x_flat, out[0], router_w))
+        calls.append((x_flat.detach(), out[0], router_w.detach()))
         return out
 
     with mock.patch.object(moe_module, "_route", spy):
         yield calls
+
+
+@contextlib.contextmanager
+def replayed_routing(calls: list):
+    """``models/moe.py:_route`` routing to the experts of ``calls`` (a
+    ``route_log`` of another run of the same model, in call order), each
+    weighted by this run's own router probabilities, so gradients reach
+    the router as in a free run. Fails unless every logged call is
+    replayed."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.models import moe as moe_module
+
+    logged = iter([idx for _, idx, _ in calls])
+    route = moe_module._route
+
+    def replay(router_w, x_flat, moe):
+        _, _, probs = route(router_w, x_flat, moe)
+        idx = next(logged)
+        w_ = probs.gather(1, idx)
+        return idx, w_ / torch.clamp(w_.sum(-1, keepdim=True), min=1e-9), probs
+
+    with mock.patch.object(moe_module, "_route", replay):
+        yield
+    require(next(logged, None) is None, "the replayed run routed fewer MoE calls")
 
 
 def emit(phase: str, **fields) -> None:
@@ -2122,7 +2189,6 @@ def logits_vs_plain_k4(dev, res, serve: dict, logits_k) -> tuple:
 
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models import attention as attention_module
-    from repro_torch.models import moe as moe_module
 
     model, params, cfg = res.model, res.params, res.model.cfg
     rows = res.requests[0]
@@ -2150,18 +2216,8 @@ def logits_vs_plain_k4(dev, res, serve: dict, logits_k) -> tuple:
             by_layer.append(len(flips["near_tie"]) + len(flips["capacity"]))
             worst = max(worst, flips["worst_share"])
         del k4_calls
-        plain_idx = iter([idx for _, idx, _ in plain_calls])
-        route = moe_module._route
-
-        def routed_as_plain(router_w, x_flat, moe):
-            _, _, probs = route(router_w, x_flat, moe)
-            idx = next(plain_idx)
-            w_ = probs.gather(1, idx)
-            return idx, w_ / torch.clamp(w_.sum(-1, keepdim=True), min=1e-9), probs
-
-        with mock.patch.object(moe_module, "_route", routed_as_plain):
+        with replayed_routing(plain_calls):
             logits_k = prefill()
-        require(next(plain_idx, None) is None, "the forced K4 prefill routed fewer layers")
         u_err = max_err(unforced[:, -1].float(), logits_p[:, -1].float())
         routing = dict(positions_routed_otherwise_by_layer=by_layer,
                        positions=len(rows) * serve["prompt_len"],
@@ -3218,75 +3274,87 @@ def grad_shares(got, want) -> dict:
 
 
 def k4_bwd_row(dev, qkv: tuple, dout, launches: int, launches_per_step: int,
-               name: str = "flash_attention_bwd[dh 64, group 7, Qwen2-0.5B train]") -> tuple:
-    """K4's backward kernel on a train call's own q, k, v (with randn dout)
-    and on randn tensors of the same shapes: against its float64 gradient
-    (``k4_grad_oracle``) and its plain version on the same output and LSE,
-    the same bits on a second call, and the no-D control (a zero output)
-    beyond the float64 limit; then its ms, device ms (three kernels a call,
-    and each kernel's apart), plain ms and SDPA's backward (forward +
-    backward less forward); first, that every bf16 backward kernel issues
-    HGMMA and has no stack frame or local memory (no spill). Returns the
-    kernels line's row and the checks."""
+               name: str = "flash_attention_bwd[dh 64, group 7, Qwen2-0.5B train]",
+               causal: bool = True, what: str = "the last layer's q, k, v of the first "
+                                                "train step") -> tuple:
+    """K4's backward kernel (``causal`` or not, Skv may differ from Sq) on
+    a train call's own q, k, v (with randn dout) and on randn tensors of
+    the same shapes: against its float64 gradient (``k4_grad_oracle``) and
+    its plain version on the same output and LSE, the same bits on a
+    second call, and the no-D control (a zero output) beyond the float64
+    limit; then its ms, device ms (three kernels a call, and each kernel's
+    apart), plain ms and SDPA's backward (forward + backward less forward;
+    None where SDPA refuses the shapes); first, that every bf16 backward
+    kernel issues HGMMA and has no stack frame or local memory (no spill).
+    The bound counts the (query, key) pairs the call scores, as
+    ``k4_served_row``'s. Returns the kernels line's row and the checks."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (_forward, flash_attention_bwd,
+    from repro_torch.kernels.flash_attention import (WIDTHS, _forward, flash_attention_bwd,
                                                      flash_attention_bwd_plain)
 
     q, k, v = qkv
     b, h, sq, dh = q.shape
-    kvh, dv = k.shape[1], v.shape[-1]
-    # every bf16 backward kernel runs on wgmma and spills nothing
+    kvh, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    require(not causal or skv == sq, f"{name}: a causal call with Sq {sq} != Skv {skv}")
+    # every bf16 backward kernel (two a compiled pair) runs on wgmma and spills nothing
     resources = k4_bwd_kernels()
-    require(len(resources) == 10 and all(r[3] and r[1] == 0 and r[2] == 0
-                                         for r in resources.values()),
+    require(len(resources) == 2 * len(WIDTHS) and all(r[3] and r[1] == 0 and r[2] == 0
+                                                      for r in resources.values()),
             f"K4 backward's bf16 kernels (registers, stack, local, HGMMA): {resources}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     checks = {}
-    for what, (q_, k_, v_) in (("train", (q, k, v)), ("randn", k4_randn(dev, q, k, v))):
+    for case, (q_, k_, v_) in (("train", (q, k, v)), ("randn", k4_randn(dev, q, k, v))):
         do = torch.randn((b, h, sq, dv), generator=gen, device=dev).bfloat16()
-        out, lse = _forward(q_, k_, v_, True, with_lse=True)
-        got = flash_attention_bwd(q_, k_, v_, out, do, lse, True)
-        again = flash_attention_bwd(q_, k_, v_, out, do, lse, True)
-        plain = flash_attention_bwd_plain(q_, k_, v_, out, do, lse, True, 1024)
-        oracle = k4_grad_oracle(q_, k_, v_, do, True)
+        out, lse = _forward(q_, k_, v_, causal, with_lse=True)
+        got = flash_attention_bwd(q_, k_, v_, out, do, lse, causal)
+        again = flash_attention_bwd(q_, k_, v_, out, do, lse, causal)
+        plain = flash_attention_bwd_plain(q_, k_, v_, out, do, lse, causal, 1024)
+        oracle = k4_grad_oracle(q_, k_, v_, do, causal)
         worst = dict(err_o=0.0, share_o=0.0, err_p=0.0, share_p=0.0)
         for n, g_, a_, p_ in zip(("dq", "dk", "dv"), got, again, plain):
             exact, lim, lim_p = oracle[n]
-            require(torch.equal(g_, a_), f"K4 backward ({what}) {n}: two calls differ")
+            require(torch.equal(g_, a_), f"K4 backward ({case}) {n}: two calls differ")
             bad_o, err_o, share_o = beyond(g_, exact, lim)
             bad_p, err_p, share_p = beyond(g_, p_, lim_p)
-            require(bad_o == 0, f"K4 backward ({what}) {n} vs float64: {bad_o} entries "
+            require(bad_o == 0, f"K4 backward ({case}) {n} vs float64: {bad_o} entries "
                                 f"beyond the limit, max abs err {err_o:.3g}")
-            require(bad_p == 0, f"K4 backward ({what}) {n} vs plain: {bad_p} entries "
+            require(bad_p == 0, f"K4 backward ({case}) {n} vs plain: {bad_p} entries "
                                 f"beyond the limit, max abs err {err_p:.3g}")
             for key, val in (("err_o", err_o), ("share_o", share_o), ("err_p", err_p),
                              ("share_p", share_p)):
                 worst[key] = max(worst[key], val)
-        no_d = flash_attention_bwd(q_, k_, v_, torch.zeros_like(out), do, lse, True)
+        no_d = flash_attention_bwd(q_, k_, v_, torch.zeros_like(out), do, lse, causal)
         worst["no_d_control_entries_beyond"] = sum(
             beyond(g_, oracle[n][0], oracle[n][1])[0] for n, g_ in zip(("dq", "dk"), no_d))
         require(worst["no_d_control_entries_beyond"] > 0,
-                f"K4 backward ({what}): the control without the D term passes the limit")
-        checks[what] = worst
+                f"K4 backward ({case}): the control without the D term passes the limit")
+        checks[case] = worst
         del out, lse, got, again, plain, oracle, no_d
     do = torch.randn((b, h, sq, dv), generator=gen, device=dev).bfloat16()
-    out, lse = _forward(q, k, v, True, with_lse=True)
-    kernel = lambda: flash_attention_bwd(q, k, v, out, do, lse, True)  # noqa: E731
-    plain = lambda: flash_attention_bwd_plain(q, k, v, out, do, lse, True, 1024)  # noqa: E731
+    out, lse = _forward(q, k, v, causal, with_lse=True)
+    kernel = lambda: flash_attention_bwd(q, k, v, out, do, lse, causal)  # noqa: E731
+    plain = lambda: flash_attention_bwd_plain(q, k, v, out, do, lse, causal, 1024)  # noqa: E731
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     gqa = dict(enable_gqa=True) if kvh != h else {}
 
     def sdpa_fwd():
-        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, **gqa)
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, **gqa)
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do)
 
-    fwd_ms, fwd_bwd_ms = timed(sdpa_fwd, 10), timed(sdpa_fwd_bwd, 10)
-    pairs = sq * (sq + 1) // 2
+    call = (f"F.scaled_dot_product_attention(q, k, v, is_causal={causal}"
+            f"{', enable_gqa=True' if gqa else ''}) forward + backward")
+    try:
+        fwd_ms, fwd_bwd_ms = timed(sdpa_fwd, 10), timed(sdpa_fwd_bwd, 10)
+        library_ms = fwd_bwd_ms - fwd_ms
+        call += f" ({fwd_bwd_ms:.4g} ms) less forward ({fwd_ms:.4g} ms)"
+    except RuntimeError as e:  # the yardstick only: the port never calls it
+        library_ms, call = None, f"none: SDPA refused these shapes on the card ({e})"
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
     row = dict(
         name=name, route="cuda",
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -3302,13 +3370,10 @@ def k4_bwd_row(dev, qkv: tuple, dout, launches: int, launches_per_step: int,
         bf16_kernels=resources,
         bf16_kernels_keys="[registers a thread, stack bytes, local bytes, HGMMA in the "
                           "SASS] (cuobjdump -res-usage and -sass of the built library)",
-        plain_ms=timed(plain, 2), library_ms=fwd_bwd_ms - fwd_ms,
-        library_call=f"F.scaled_dot_product_attention(q, k, v, is_causal=True, "
-                     f"enable_gqa=True) forward + backward ({fwd_bwd_ms:.4g} ms) less "
-                     f"forward ({fwd_ms:.4g} ms)",
-        shapes=f"q ({b}, {h}, {sq}, {dh}), k and v ({b}, {kvh}, {sq}, {dh}), dout "
-               f"({b}, {h}, {sq}, {dv}) bf16, causal; the last layer's q, k, v of the "
-               "first train step, dout randn",
+        plain_ms=timed(plain, 2), library_ms=library_ms, library_call=call,
+        shapes=f"q ({b}, {h}, {sq}, {dh}), k ({b}, {kvh}, {skv}, {dh}), v ({b}, {kvh}, "
+               f"{skv}, {dv}), dout ({b}, {h}, {sq}, {dv}) bf16, "
+               f"{'causal' if causal else 'non-causal'}; {what}, dout randn",
         # the function's five products (s, dP, dV, dK, dQ) at the bf16 peak;
         # bytes: q, k, v, out, dout and the LSE read, dq, dk, dv written
         **dict(zip(("bound_ms", "bound_by"), bound_ms(
@@ -3331,7 +3396,6 @@ def train_qwen2_0_5b_phase(dev) -> list[dict]:
     rows at (64, 64), group 7."""
     import shutil
     import tempfile
-    from unittest import mock
 
     import torch
 
@@ -3341,9 +3405,7 @@ def train_qwen2_0_5b_phase(dev) -> list[dict]:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train as train_launch
-    from repro_torch.models import Model, count_params
-    from repro_torch.models import attention as attention_module
-    from repro_torch.runtime import loss_and_grads
+    from repro_torch.models import count_params
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3359,54 +3421,17 @@ def train_qwen2_0_5b_phase(dev) -> list[dict]:
     b, seq = TRAIN["global_batch"], TRAIN["seq"]
 
     # -- the first step's gradients: K4 against its plain pair ---------------
-    model = Model(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    params = model.init_params(gen)
     pipe = DataPipeline(SyntheticCorpus(vocab_size=cfg.vocab_size, mean_len=seq // 2), b, seq)
     t = time.perf_counter()
     tokens = pipe.assemble(0)
     assembly_s = time.perf_counter() - t
-    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
-    kept = {}
-    fn = attention_module.flash_attention
-
-    def keep(*a, **kw):
-        kept["call"] = (tuple(x.detach() for x in a), kw)
-        return fn(*a, **kw)
-
-    for k_ in _build.KERNELS:
-        k_.launches.clear()
-    t = time.perf_counter()
-    with mock.patch.object(attention_module, "flash_attention", keep):
-        loss_k, _, grads_k = loss_and_grads(model, params, batch)
-    torch.cuda.synchronize()
-    grad_s = time.perf_counter() - t
-    one = launch_counts(_build.KERNELS)
-    require(one == {"flash_attention": 2 * TRAIN_LAYERS, "flash_attention_bwd": TRAIN_LAYERS},
-            f"one K4 gradient of the train loss launched {one}")
-    with mock.patch.object(attention_module, "flash_attention", fa.flash_attention_plain_pair):
-        loss_p, _, grads_p = loss_and_grads(model, params, batch)
-    torch.cuda.synchronize()
-    require(launch_counts(_build.KERNELS) == one, "the plain pair launched a kernel")
-    shares = grad_shares(grads_k, grads_p)
-    loss_err = abs(float(loss_k) - float(loss_p))
-    require(math.isfinite(float(loss_k)) and loss_err <= TRAIN_LOSS_RTOL * abs(float(loss_p)),
-            f"first-step loss through K4 {float(loss_k)} vs plain {float(loss_p)}")
-    worst = max(shares, key=shares.get)
-    require(shares[worst] <= 1.0, f"first-step gradient of {worst} through K4 vs plain: "
-                                  f"{shares[worst]:.3g} of the limit")
-    del grads_k
-    with mock.patch.object(attention_module, "flash_attention",
-                           lambda *a, **kw: fn(*a, **kw).detach()):
-        _, _, grads_d = loss_and_grads(model, params, batch)
-    control = grad_shares(grads_d, grads_p)
-    control_worst = max(control, key=control.get)
-    require(control[control_worst] > 1.0,
-            "the detached-attention control passes the gradient limit")
-    del grads_d, grads_p, params, model, batch
-    gc.collect()
-    torch.cuda.empty_cache()
+    grad, calls = first_step_grad_check(dev, cfg, {"tokens": torch.from_numpy(tokens).to(dev)},
+                                        k4_checked())
+    require(grad["launches"] == {"flash_attention": 2 * TRAIN_LAYERS,
+                                 "flash_attention_bwd": TRAIN_LAYERS},
+            f"one K4 gradient of the train loss launched {grad['launches']}")
+    (q, k, v), kw = calls[-1]
+    del calls
 
     # -- the launcher's run, a checkpoint, and a resumed run ------------------
     tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
@@ -3443,8 +3468,8 @@ def train_qwen2_0_5b_phase(dev) -> list[dict]:
                 "the restored checkpoint differs from the final state")
         del tree, saved
         # the step's device busy share, one step under the profiler
-        busy = train_step_busy(run.model, run.state, torch.from_numpy(
-            run.pipeline.assemble(TRAIN["steps"])).to(dev))
+        busy = train_step_busy(run.model, run.state, dict(tokens=torch.from_numpy(
+            run.pipeline.assemble(TRAIN["steps"])).to(dev)))
         run_tps = run.tokens_per_second
         del run
         gc.collect()
@@ -3473,7 +3498,6 @@ def train_qwen2_0_5b_phase(dev) -> list[dict]:
     torch.cuda.empty_cache()
 
     # -- K4 at the training shape ----------------------------------------------
-    (q, k, v), kw = kept["call"]
     require(q.shape == (b, 14, seq, 64) and k.shape == v.shape == (b, 2, seq, 64)
             and q.dtype == torch.bfloat16 and kw == dict(causal=True, tile_k=1024),
             f"the train call of K4: q {tuple(q.shape)} {q.dtype}, {kw}")
@@ -3484,23 +3508,22 @@ def train_qwen2_0_5b_phase(dev) -> list[dict]:
     do = torch.randn((b, 14, seq, 64), device=dev).bfloat16()
     bwd_row, bwd_checks = k4_bwd_row(dev, (q, k, v), do, launches["flash_attention_bwd"],
                                      TRAIN_LAYERS)
-    del q, k, v, do, kept
+    del q, k, v, do
     step_s = statistics.median(step_times)
     emit("train_qwen2_0_5b", arch=TRAIN["arch"], params=QWEN2_PARAMS, batch=b, seq=seq,
          steps=TRAIN["steps"], launches=launches,
          losses=losses, step_seconds=step_times, step_seconds_median=step_s,
          tokens_per_second=b * seq / step_s, run_tokens_per_second=run_tps,
          assembly_seconds=assembly_s, assembly_share_of_step=assembly_s / step_s,
-         first_gradient_seconds=grad_s, peak_memory_gb=peak_gb, step_busy=busy,
+         first_gradient_seconds=grad["seconds"], peak_memory_gb=peak_gb, step_busy=busy,
          checkpoint_bytes=ckpt_bytes, checkpoint_snapshot_seconds=snapshot_s,
          checkpoint_write_seconds=write_s, restore_seconds=restore_s,
          resumed_from=steps - 1,
-         first_step_loss=[float(loss_k), float(loss_p)], first_step_loss_err=loss_err,
+         first_step_loss=grad["loss"], first_step_loss_err=grad["loss_err"],
          grad_tol=f"{TRAIN_GRAD_TOL} of each leaf's largest |gradient| (a k bias: its "
                   "wk's) through K4's plain pair",
-         grad_worst=[worst, shares[worst]],
-         grad_shares_by_leaf_kind=share_summary(shares),
-         detached_control_worst=[control_worst, control[control_worst]],
+         grad_worst=grad["worst"], grad_shares_by_leaf_kind=grad["shares_by_leaf_kind"],
+         detached_control_worst=grad["detached_control_worst"],
          k4_tol="2^-8 (|o| + sum w|v|) + 2^-16 sum w|v| vs float64; x2 vs plain",
          k4_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in fwd_checks.items()},
          k4_bwd_tol="u (|g| + D's rounding carried) + (2^-14 + u) sum|terms| vs float64; "
@@ -3515,32 +3538,36 @@ def train_qwen2_0_5b_phase(dev) -> list[dict]:
     return [fwd_row, bwd_row]
 
 
-def recurrent_grad_check(dev, cfg, batch, scan: tuple, attention: bool,
-                         truth=None) -> dict:
+def first_step_grad_check(dev, cfg, batch: dict, checked: tuple, plain: tuple = (),
+                          truth=None) -> tuple[dict, list]:
     """The first step's loss and gradient leaves of ``cfg`` on ``batch``
-    through the kernels against the same step through the plain pairs
-    (``scan``: the model module, its scan wrapper's name and the scan's
-    plain pair; with ``attention`` K4's plain pair too), each leaf within
-    the limit and the loss within TRAIN_LOSS_RTOL; then the control, the
-    scan's outputs detached, which must fail the limit. The limit is
-    TRAIN_GRAD_TOL, or with ``truth`` (the scan in float64, see
-    RWKV_TRAIN) max(1, 2 rho_P) of it for each leaf kind, rho_P the plain
-    pairs' step's worst share of that kind against the step through
-    ``truth``, and the kernels' step is held to that step within it too.
-    Returns the numbers, the kernel run's launches and its scan calls'
-    tensors and chunks (the forward's first, the backward's recomputes
-    after)."""
+    through the kernels against the same step through plain pairs, each
+    leaf within the limit and the loss within TRAIN_LOSS_RTOL; then the
+    control, the kernels' step with the checked function's output
+    detached, which must fail the limit. ``checked``: ``(module, name,
+    plain pair)`` of the function whose calls are recorded and detached
+    (K4, or a scan's wrapper); ``plain``: more such triples whose pairs
+    join the yardstick run (Zamba2's K4). The limit is TRAIN_GRAD_TOL, or
+    with ``truth`` (the checked function in float64, see RWKV_TRAIN)
+    max(1, 2 rho_P) of it for each leaf kind, rho_P the plain pairs'
+    step's worst share of that kind against the step through ``truth``,
+    and the kernels' step is held to that step within it too. In an MoE
+    model a near tie flips an expert between two runs whose attention
+    rounds apart (see TIE_ULPS), so the other runs replay the kernel run's
+    routing (``replayed_routing``), and a free plain run's routing is
+    reported against it (``routing_flips``). Returns the numbers, with the
+    kernel run's launches, and its calls of the checked function ``(args,
+    kwargs)``, tensors detached, in call order (the forward's, then the
+    remat recomputes')."""
     from unittest import mock
 
     import torch
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import Model
-    from repro_torch.models import attention as attention_module
     from repro_torch.runtime import loss_and_grads
 
-    module, fn_name, pair = scan
+    module, fn_name, pair = checked
     model = Model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -3549,34 +3576,38 @@ def recurrent_grad_check(dev, cfg, batch, scan: tuple, attention: bool,
     calls = []
 
     def keep(*a, **kw):
-        calls.append((tuple(t.detach() for t in a[:5]), a[5]))
+        calls.append((tuple(x.detach() if isinstance(x, torch.Tensor) else x for x in a), kw))
         return fn(*a, **kw)
+
+    def detached(*a, **kw):
+        out = fn(*a, **kw)
+        return tuple(t.detach() for t in out) if isinstance(out, tuple) else out.detach()
+
+    def through(checked_fn, others=(), routes=None):
+        with contextlib.ExitStack() as stack:
+            for mod, name, f in ((module, fn_name, checked_fn), *others):
+                stack.enter_context(mock.patch.object(mod, name, f))
+            if routes is not None:
+                stack.enter_context(replayed_routing(routes))
+            return loss_and_grads(model, params, batch)
 
     for k_ in _build.KERNELS:
         k_.launches.clear()
     t = time.perf_counter()
-    with mock.patch.object(module, fn_name, keep):
-        loss_k, _, grads_k = loss_and_grads(model, params, batch)
+    with route_log() as routes:
+        loss_k, _, grads_k = through(keep)
     torch.cuda.synchronize()
     grad_s = time.perf_counter() - t
     launches = launch_counts(_build.KERNELS)
-
-    def through(scan_fn):
-        with contextlib.ExitStack() as stack:
-            stack.enter_context(mock.patch.object(module, fn_name, scan_fn))
-            if attention:
-                stack.enter_context(mock.patch.object(attention_module, "flash_attention",
-                                                      fa.flash_attention_plain_pair))
-            return loss_and_grads(model, params, batch)
-
-    loss_p, _, grads_p = through(pair)
+    replay = routes if cfg.moe is not None else None
+    loss_p, _, grads_p = through(pair, plain, replay)
     torch.cuda.synchronize()
     require(launch_counts(_build.KERNELS) == launches,
             f"the plain pairs launched {launch_counts(_build.KERNELS)} after {launches}")
     shares = grad_shares(grads_k, grads_p)
     limits, witness = None, None    # limits: per leaf kind, in TRAIN_GRAD_TOL
     if truth is not None:
-        _, _, grads_t = through(truth)
+        _, _, grads_t = through(truth, plain, replay)
         torch.cuda.synchronize()
         require(launch_counts(_build.KERNELS) == launches,
                 f"the float64 step launched {launch_counts(_build.KERNELS)} after {launches}")
@@ -3607,24 +3638,51 @@ def recurrent_grad_check(dev, cfg, batch, scan: tuple, attention: bool,
                 f"{cfg.name} first-step gradient through the kernels vs the float64 step: "
                 f"{witness['kernels_vs_float64_worst']} (leaf, share, share of its limit)")
     del grads_k
-    with mock.patch.object(module, fn_name,
-                           lambda *a, **kw: tuple(t.detach() for t in fn(*a, **kw))):
-        _, _, grads_d = loss_and_grads(model, params, batch)
+    routing = None
+    if replay is not None:
+        with route_log() as free:
+            through(pair, plain)
+        flips = []
+        for (kx, kidx, w), (px, pidx, _) in zip(routes, free, strict=True):
+            k_logits = (kx.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
+            flips.append(routing_flips((kx, k_logits, kidx), (px, pidx), w, cfg.moe))
+        routing = dict(calls=len(flips), positions_a_call=int(routes[0][1].shape[0]),
+                       near_tie_by_call=[len(f["near_tie"]) for f in flips],
+                       capacity_by_call=[len(f["capacity"]) for f in flips],
+                       unexplained_by_call=[len(f["unexplained"]) for f in flips],
+                       logits_worst_share_of_bound=max(f["worst_share"] for f in flips))
+        del free, flips
+    _, _, grads_d = through(detached, routes=replay)
     control = worst_of(grad_shares(grads_d, grads_p))
-    require(control[2] > 1.0, f"{cfg.name}: the detached-scan control passes the gradient "
-                              f"limit: {control} (leaf, share, share of its limit)")
-    del grads_d, grads_p, params, model
+    require(control[2] > 1.0, f"{cfg.name}: the control with {fn_name}'s output detached "
+                              f"passes the gradient limit: {control} (leaf, share, share "
+                              "of its limit)")
+    del grads_d, grads_p, params, model, routes
     gc.collect()
     torch.cuda.empty_cache()
     out = dict(layers=cfg.n_layers, launches=launches, seconds=grad_s,
-               yardstick="the plain pairs" + (" and K4's plain pair" if attention else ""),
+               yardstick=" and ".join(p.__name__ for _, _, p in (checked, *plain))
+               + (", the kernel run's routing replayed" if replay is not None else ""),
                loss=[float(loss_k), float(loss_p)], loss_err=loss_err,
                worst=worst, shares_by_leaf_kind=share_summary(shares),
                detached_control_worst=control)
-    if witness is not None:
+    if limits is not None:
         out["limits_by_leaf_kind"] = limits
         out["float64_witness"] = witness
+    if routing is not None:
+        out["routing_two_free_runs"] = routing
+    if cfg.encdec is not None:
+        out["enc_layers"] = cfg.encdec.n_enc_layers
     return out, calls
+
+
+def k4_checked():
+    """K4 as ``first_step_grad_check`` takes it: the model's attention
+    module, the name it calls K4 by, and K4's plain pair."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attention_module
+
+    return attention_module, "flash_attention", fa.flash_attention_plain_pair
 
 
 def rwkv6_float64_pair(r, k, v, logw, u, chunk: int = 64):
@@ -3661,7 +3719,7 @@ def rwkv6_float64_pair(r, k, v, logw, u, chunk: int = 64):
 
 def rwkv6_forward_witness(calls: list) -> dict:
     """K6 and its plain version on each of a train step's forward calls
-    (``calls``: r, k, v, logw, u and the chunk) against the float64 oracle
+    (``calls``: ``((r, k, v, logw, u, chunk), kwargs)``) against the float64 oracle
     within K6's limit (``rwkv6_limits``), y and the final state. Returns
     the worst share of the limit of each, per call."""
     import torch
@@ -3669,7 +3727,7 @@ def rwkv6_forward_witness(calls: list) -> dict:
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain, rwkv6_scan_state
 
     out = []
-    for i, ((r, k, v, logw, u), chunk) in enumerate(calls):
+    for i, ((r, k, v, logw, u, chunk), _) in enumerate(calls):
         with torch.no_grad():
             got = rwkv6_scan_state(r, k, v, logw, u, chunk)
             plain = rwkv6_scan_plain(r, k, v, logw, u, chunk)
@@ -3837,17 +3895,17 @@ def scan_bwd_row(dev, kind: str, args: tuple, chunk: int, launches: int,
     return row, checks
 
 
-def train_step_seconds(step, state, pipe, first: int, steps: int, dev) -> tuple:
-    """``steps`` calls of ``step`` on the pipeline's batches from
+def train_step_seconds(step, state, batch_of, first: int, steps: int) -> tuple:
+    """``steps`` calls of ``step`` on the batches ``batch_of(i)`` from
     ``first``: the final state, each step's host seconds (to a
     synchronise) and losses."""
     import torch
 
     seconds, losses = [], []
     for i in range(first, first + steps):
-        tokens = torch.from_numpy(pipe.assemble(i)).to(dev)
+        batch = batch_of(i)
         t = time.perf_counter()
-        state, metrics = step(state, {"tokens": tokens})
+        state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t)
@@ -3892,10 +3950,9 @@ def train_rwkv6_3b_phase(dev) -> dict:
     pipe = DataPipeline(SyntheticCorpus(vocab_size=cfg.vocab_size, mean_len=seq // 2), b, seq)
     batch = {"tokens": torch.from_numpy(pipe.assemble(0)).to(dev)}
     layers = GRAD_CHECK_LAYERS[spec["arch"]]
-    grad, calls = recurrent_grad_check(
+    grad, calls = first_step_grad_check(
         dev, dataclasses.replace(cfg, n_layers=layers), batch,
-        (rwkv_module, "rwkv6_scan_state", rwkv6_scan_plain_pair), attention=False,
-        truth=rwkv6_float64_pair)
+        (rwkv_module, "rwkv6_scan_state", rwkv6_scan_plain_pair), truth=rwkv6_float64_pair)
     require(grad["launches"] == {"rwkv6_scan": 2 * layers, "rwkv6_scan_bwd": layers},
             f"one gradient of {layers} RWKV6 layers launched {grad['launches']}")
     grad["float64_witness"]["forward_calls"] = rwkv6_forward_witness(calls[:layers])
@@ -3939,8 +3996,8 @@ def train_rwkv6_3b_phase(dev) -> dict:
                 "the restored checkpoint differs from the final state")
         del tree, saved, final
         torch.cuda.empty_cache()
-        busy = train_step_busy(run.model, run.state, torch.from_numpy(
-            run.pipeline.assemble(steps)).to(dev), in_place=True)
+        busy = train_step_busy(run.model, run.state, dict(tokens=torch.from_numpy(
+            run.pipeline.assemble(steps)).to(dev)), in_place=True)
         run_tps, step_times = run.tokens_per_second, rep.step_times
         del run
         gc.collect()
@@ -3960,7 +4017,7 @@ def train_rwkv6_3b_phase(dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    (r, k, v, logw, u), chunk = call
+    (r, k, v, logw, u, chunk), _ = call
     require(r.shape == (b, 40, seq, 64) and r.dtype == torch.bfloat16 and chunk == 64,
             f"the train call of K6: r {tuple(r.shape)} {r.dtype}, chunk {chunk}")
     row, checks = scan_bwd_row(dev, "rwkv6", (r, k, v, logw, u), chunk,
@@ -4026,9 +4083,9 @@ def train_zamba2_7b_phase(dev) -> dict:
     pipe = DataPipeline(SyntheticCorpus(vocab_size=cfg.vocab_size, mean_len=seq // 2), b, seq)
     batch = {"tokens": torch.from_numpy(pipe.assemble(0)).to(dev)}
     layers = GRAD_CHECK_LAYERS[spec["arch"]]
-    grad, calls = recurrent_grad_check(
+    grad, calls = first_step_grad_check(
         dev, dataclasses.replace(full, n_layers=layers), batch,
-        (ssm_module, "ssm_scan_state", ssm_scan_plain_pair), attention=True)
+        (ssm_module, "ssm_scan_state", ssm_scan_plain_pair), (k4_checked(),))
     call = calls[-1]
     del calls
     require(grad["launches"] == {"ssm_scan": 2 * layers, "ssm_scan_bwd": layers,
@@ -4047,7 +4104,8 @@ def train_zamba2_7b_phase(dev) -> dict:
             "flash_attention": 2 * n_sb, "flash_attention_bwd": n_sb}
     for k_ in _build.KERNELS:
         k_.launches.clear()
-    state, step_times, losses = train_step_seconds(step, state, pipe, 0, steps, dev)
+    state, step_times, losses = train_step_seconds(
+        step, state, lambda i: {"tokens": torch.from_numpy(pipe.assemble(i)).to(dev)}, 0, steps)
     launches = launch_counts(_build.KERNELS)
     require(launches == {e: n * steps for e, n in want.items()},
             f"train {spec['arch']} at {spec['n_layers']} layers: launches {launches} in "
@@ -4056,12 +4114,12 @@ def train_zamba2_7b_phase(dev) -> dict:
     require(all(bool(torch.isfinite(t_).all()) for t_ in tree_paths(state.params).values()),
             "the trained params are not finite")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    busy = train_step_busy(model, state, torch.from_numpy(pipe.assemble(steps)).to(dev),
-                           in_place=True)
+    busy = train_step_busy(model, state, {"tokens": torch.from_numpy(pipe.assemble(steps))
+                                          .to(dev)}, in_place=True)
     del state, model, step
     gc.collect()
     torch.cuda.empty_cache()
-    (x, dt, A, B, C), chunk = call
+    (x, dt, A, B, C, chunk), _ = call
     require(x.shape == (b, seq, 112, 64) and x.dtype == torch.bfloat16 and chunk == 64
             and not x.is_contiguous(),
             f"the train call of K5: x {tuple(x.shape)} {x.dtype}, chunk {chunk}")
@@ -4086,6 +4144,275 @@ def train_zamba2_7b_phase(dev) -> dict:
     return row
 
 
+def attention_calls(cfg) -> int:
+    """K4 calls in one forward of ``cfg``'s trunk at a prompt over 1,024
+    tokens: one a layer; Whisper's encoder layers and each decoder layer's
+    cross attention besides."""
+    if cfg.encdec is None:
+        return cfg.n_layers
+    return 2 * cfg.n_layers + cfg.encdec.n_enc_layers
+
+
+@contextlib.contextmanager
+def k4_launches_by_shape():
+    """Count K4's and K4''s launches by the call's ``(q shape, k shape, dv,
+    causal)``: each call of the models' ``flash_attention`` and of the
+    backward wrapper ``flash_attention_bwd`` adds what its kernel's launch
+    count grew by. Yields the two Counters, forward's and backward's."""
+    import inspect
+    from collections import Counter
+    from unittest import mock
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attention_module
+
+    fwd, bwd = Counter(), Counter()
+
+    def spy(counts, fn, kernel, entry):
+        sig = inspect.signature(fn)
+
+        def call(*a, **kw):
+            args = sig.bind(*a, **kw)
+            args.apply_defaults()
+            q, k, v, causal = (args.arguments[n] for n in ("q", "k", "v", "causal"))
+            before = kernel.launches[entry]
+            out = fn(*a, **kw)
+            counts[(tuple(q.shape), tuple(k.shape), v.shape[-1], bool(causal))] += \
+                kernel.launches[entry] - before
+            return out
+        return call
+
+    with mock.patch.object(attention_module, "flash_attention",
+                           spy(fwd, attention_module.flash_attention, _build.FLASH_ATTENTION,
+                               "flash_attention")), \
+            mock.patch.object(fa, "flash_attention_bwd",
+                              spy(bwd, fa.flash_attention_bwd, _build.FLASH_ATTENTION_BWD,
+                                  "flash_attention_bwd")):
+        yield fwd, bwd
+
+
+def frontier_train_phase(dev, spec: dict) -> list[dict]:
+    """One of the four families of FRONTIER_TRAIN trained at full width on
+    the card: the config's widths and the parameter count at the phase's
+    depth required; the first step's gradients at FRONTIER_GRAD_LAYERS
+    layers against K4's plain pair (``first_step_grad_check``); then 3
+    steps through ``build_train_step`` (in place) with the counters set to
+    0 just before and read just after: exactly 2 K4 and 1 K4' launch a
+    K4 call of a forward (``attention_calls``), and so for each shape
+    (``k4_launches_by_shape``), no K4 call padded, finite
+    losses and params, and the peak memory; then a step under the
+    profiler; then each K4' shape of ``spec["rows"]`` on the first step's
+    own call against its float64 oracle and plain version, with its times
+    and the K4' launches the steps made at its shape (``k4_bwd_row``). ``spec``: ``phase``, ``arch``, ``widths``,
+    ``n_layers`` (the depth on the card), ``params`` (at that depth),
+    ``short`` (the gradient check's config from the full one) and
+    ``rows``: ``(name, q shape, k shape, dv, causal, launches a step)``.
+    Returns the rows."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline, SyntheticCorpus
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model, count_params
+    from repro_torch.models.model import FRONTEND_DIM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import build_train_step, init_train_state
+
+    t_phase = time.perf_counter()
+    full = get_config(spec["arch"])
+    got = {n: getattr(full, n) for n in spec["widths"]}
+    require(got == spec["widths"], f"{spec['arch']} widths {got}, want {spec['widths']}")
+    require(full.remat and full.remat_policy == "full",
+            f"{spec['arch']}: remat {full.remat} {full.remat_policy}, want full")
+    cfg = dataclasses.replace(full, n_layers=spec["n_layers"])
+    require(count_params(cfg) == spec["params"],
+            f"{spec['arch']}: {count_params(cfg)} params at {spec['n_layers']} layers, want "
+            f"{spec['params']}")
+    b, seq, steps = (FRONTIER_TRAIN[k] for k in ("global_batch", "seq", "steps"))
+    pipe = DataPipeline(SyntheticCorpus(vocab_size=cfg.vocab_size, mean_len=seq // 2), b, seq)
+    gen = torch.Generator(device=dev)
+
+    def batch_of(i: int) -> dict:
+        """Step i's tokens (b, seq + 1), and the frontend's fp32 inputs at
+        the reference's launch/specs.py shapes from a seeded generator."""
+        batch = {"tokens": torch.from_numpy(pipe.assemble(i)).to(dev)}
+        gen.manual_seed(1000 + i)
+        if cfg.frontend == "audio":
+            batch["frames"] = torch.randn((b, cfg.encdec.n_enc_positions, FRONTEND_DIM["audio"]),
+                                          generator=gen, device=dev)
+        elif cfg.frontend == "vision":
+            batch["patch_embeds"] = torch.randn(
+                (b, cfg.n_frontend_tokens, FRONTEND_DIM["vision"]), generator=gen, device=dev)
+        return batch
+
+    pads = dict(fa.PAD_COPIES)
+    short = spec["short"](full)
+    grad, calls = first_step_grad_check(dev, short, batch_of(0), k4_checked())
+    n_short = attention_calls(short)
+    require(grad["launches"] == {"flash_attention": 2 * n_short,
+                                 "flash_attention_bwd": n_short},
+            f"one gradient of {short.n_layers} {spec['arch']} layers launched "
+            f"{grad['launches']}")
+    picked = []
+    for name, q_shape, k_shape, dv, causal, per_step in spec["rows"]:
+        match = [c for c in calls if tuple(c[0][0].shape) == q_shape
+                 and tuple(c[0][1].shape) == k_shape and c[0][2].shape[-1] == dv
+                 and c[1]["causal"] == causal and c[0][0].dtype == torch.bfloat16]
+        require(bool(match), f"{name}: no K4 call of the first step has q {q_shape}, k "
+                             f"{k_shape}, dv {dv}, causal {causal}")
+        picked.append((name, causal, per_step, match[-1][0]))
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    gen0 = torch.Generator(device=dev)
+    gen0.manual_seed(0)
+    opt = AdamWConfig()
+    state = init_train_state(model, gen0, opt)
+    step = build_train_step(model, opt, in_place=True)
+    n_calls = attention_calls(cfg)
+    want = {"flash_attention": 2 * n_calls, "flash_attention_bwd": n_calls}
+    for k_ in _build.KERNELS:
+        k_.launches.clear()
+    with k4_launches_by_shape() as (fwd, bwd):
+        state, step_times, losses = train_step_seconds(step, state, batch_of, 0, steps)
+    launches = launch_counts(_build.KERNELS)
+    require(launches == {e: n * steps for e, n in want.items()},
+            f"train {spec['arch']} at {spec['n_layers']} layers: launches {launches} in "
+            f"{steps} steps, want {want} a step")
+    by_shape = sorted([list(key), fwd[key], bwd[key]] for key in set(fwd) | set(bwd))
+    require(sum(fwd.values()) == launches["flash_attention"]
+            and sum(bwd.values()) == launches["flash_attention_bwd"]
+            and all(f_ == 2 * b_ for _, f_, b_ in by_shape),
+            f"train {spec['arch']}: K4 / K4' launches by shape {by_shape}, want two K4 a "
+            f"K4' in each, {launches} in all")
+    require(all(math.isfinite(x) for x in losses), f"train {spec['arch']} losses {losses}")
+    require(all(bool(torch.isfinite(t_).all()) for t_ in tree_paths(state.params).values()),
+            f"the trained {spec['arch']} params are not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(peak_gb < 80, f"train {spec['arch']}: peak {peak_gb:.2f} GB")
+    busy = train_step_busy(model, state, batch_of(steps), in_place=True)
+    del state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(dict(fa.PAD_COPIES) == pads,
+            f"train {spec['arch']}: K4 padded a full-width call ({dict(fa.PAD_COPIES)})")
+
+    rows, k4_bwd = [], {}
+    for name, causal, per_step, (q, k, v) in picked:
+        n_bwd = bwd[(tuple(q.shape), tuple(k.shape), v.shape[-1], causal)]
+        require(n_bwd == per_step * steps, f"{name}: {n_bwd} K4' launches in {steps} steps, "
+                                           f"want {per_step} a step")
+        do = torch.randn((*q.shape[:3], v.shape[-1]), device=dev).bfloat16()
+        row, checks = k4_bwd_row(dev, (q, k, v), do, n_bwd, n_bwd // steps, name=name,
+                                 causal=causal,
+                                 what=f"a layer's q, k, v of the {short.n_layers}-layer "
+                                      "first-step gradient")
+        rows.append(row)
+        k4_bwd[name] = {w_: dict(vs_float64=[c["err_o"], c["share_o"]],
+                                 vs_plain=[c["err_p"], c["share_p"]],
+                                 no_d_control_entries_beyond=c["no_d_control_entries_beyond"])
+                        for w_, c in checks.items()}
+        del q, k, v, do
+    step_s = statistics.median(step_times)
+    depth = (f"{full.n_layers} -> {spec['n_layers']} layers: all {full.n_layers} take "
+             f"{16 * count_params(full) / 1e9:.1f} GB at 16 bytes a parameter"
+             if spec["n_layers"] != full.n_layers else "none: whole")
+    emit(spec["phase"], arch=spec["arch"], n_layers=spec["n_layers"], depth_cut=depth,
+         params=spec["params"], batch=b, seq=seq, steps=steps,
+         batch_keys=sorted(batch_of(0)), launches=launches, launches_per_step=want,
+         k4_launches_by_shape=by_shape,
+         losses=losses, step_seconds=step_times, step_seconds_median=step_s,
+         tokens_per_second=b * seq / step_s, peak_memory_gb=peak_gb, step_busy=busy,
+         grad_check=grad, pad_copies=dict(fa.PAD_COPIES),
+         grad_tol=f"{TRAIN_GRAD_TOL} of each leaf's largest |gradient| (a k bias: its wk's) "
+                  f"through K4's plain pair, {short.n_layers} layers at full width",
+         k4_bwd_tol="u (|g| + D's rounding carried) + (2^-14 + u) sum|terms| vs float64; "
+                    "2u|g| + (2^-13 + u) sum|terms| vs plain (u = 2^-8); the backward "
+                    "without the D term must fail the float64 limit",
+         k4_bwd=k4_bwd, seconds=time.perf_counter() - t_phase)
+    return rows
+
+
+def train_qwen2_moe_a2_7b_phase(dev) -> list[dict]:
+    """Qwen1.5-MoE-A2.7B trained at full width, 4 of its 24 layers
+    (FRONTIER_TRAIN): K4 and K4' at (128, 128), 16 heads, group 1."""
+    from repro_torch.configs.base import MoEConfig
+
+    b, s = FRONTIER_TRAIN["global_batch"], FRONTIER_TRAIN["seq"]
+    return frontier_train_phase(dev, dict(
+        phase="train_qwen2_moe_a2_7b", arch="qwen2-moe-a2.7b", n_layers=4,
+        params=2_905_090_048,
+        widths=dict(n_layers=QWEN_MOE_LAYERS, d_model=2048, n_heads=16, n_kv_heads=16,
+                    head_dim=128, d_ff=5632, vocab_size=151936, qkv_bias=True,
+                    moe=MoEConfig(n_routed=60, n_shared=4, top_k=4, d_ff_expert=1408)),
+        short=lambda c: dataclasses.replace(c, n_layers=FRONTIER_GRAD_LAYERS),
+        rows=[("flash_attention_bwd[dh 128, MHA, Qwen1.5-MoE train]", (b, 16, s, 128),
+               (b, 16, s, 128), 128, True, 4)]))
+
+
+def train_deepseek_v2_lite_16b_phase(dev) -> list[dict]:
+    """DeepSeek-V2-Lite trained at full width, 4 of its 27 layers (the
+    dense layer 0 and 3 MoE layers, FRONTIER_TRAIN): K4 and K4' at MLA's
+    (192, 128), v the view ``kv[..., 128:]``."""
+    from repro_torch.configs.base import MLAConfig, MoEConfig
+
+    b, s = FRONTIER_TRAIN["global_batch"], FRONTIER_TRAIN["seq"]
+    return frontier_train_phase(dev, dict(
+        phase="train_deepseek_v2_lite_16b", arch="deepseek-v2-lite-16b", n_layers=4,
+        params=2_254_983_168,
+        widths=dict(n_layers=DEEPSEEK_LAYERS, d_model=2048, n_heads=16, n_kv_heads=16,
+                    d_ff=10944, vocab_size=102400, first_layer_dense=True,
+                    mla=MLAConfig(kv_lora_rank=512, q_lora_rank=0, rope_head_dim=64,
+                                  nope_head_dim=128, v_head_dim=128),
+                    moe=MoEConfig(n_routed=64, n_shared=2, top_k=6, d_ff_expert=1408)),
+        short=lambda c: dataclasses.replace(c, n_layers=FRONTIER_GRAD_LAYERS),
+        rows=[("flash_attention_bwd[dh 192, dv 128, MLA, DeepSeek-V2-Lite train]",
+               (b, 16, s, 192), (b, 16, s, 192), 128, True, 4)]))
+
+
+def train_whisper_small_phase(dev) -> list[dict]:
+    """Whisper-small trained whole (FRONTIER_TRAIN), frames from the
+    caller: K4 and K4' non-causal over the encoder's 1,500 frames, causal
+    on the decoder's 2,048 tokens, and non-causal on the cross attention's
+    2,048 queries against 1,500 keys."""
+    from repro_torch.configs.base import EncDecConfig
+
+    b, s = FRONTIER_TRAIN["global_batch"], FRONTIER_TRAIN["seq"]
+    n_l, n_enc = WHISPER_LAYERS, 1500
+    return frontier_train_phase(dev, dict(
+        phase="train_whisper_small", arch="whisper-small", n_layers=n_l,
+        params=WHISPER_PARAMS,
+        widths=dict(n_layers=n_l, d_model=768, n_heads=12, n_kv_heads=12, head_dim=64,
+                    d_ff=3072, vocab_size=51865, frontend="audio",
+                    encdec=EncDecConfig(n_enc_layers=n_l, n_enc_positions=n_enc)),
+        short=lambda c: dataclasses.replace(
+            c, n_layers=FRONTIER_GRAD_LAYERS,
+            encdec=dataclasses.replace(c.encdec, n_enc_layers=FRONTIER_GRAD_LAYERS)),
+        rows=[("flash_attention_bwd[dh 64, encoder 1,500 x 1,500, non-causal, "
+               "Whisper-small train]", (b, 12, n_enc, 64), (b, 12, n_enc, 64), 64, False, n_l),
+              ("flash_attention_bwd[dh 64, cross 2,048 x 1,500, Whisper-small train]",
+               (b, 12, s, 64), (b, 12, n_enc, 64), 64, False, n_l)]))
+
+
+def train_internvl2_26b_phase(dev) -> list[dict]:
+    """InternVL2-26B trained at full width, 4 of its 48 layers
+    (FRONTIER_TRAIN), patch embeddings from the caller: K4 and K4' at
+    (128, 128), 48 heads over 8 kv heads (group 6)."""
+    b, s = FRONTIER_TRAIN["global_batch"], FRONTIER_TRAIN["seq"]
+    return frontier_train_phase(dev, dict(
+        phase="train_internvl2_26b", arch="internvl2-26b", n_layers=4, params=2_705_387_520,
+        widths=dict(n_layers=48, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
+                    d_ff=16384, vocab_size=92553, frontend="vision", n_frontend_tokens=256),
+        short=lambda c: dataclasses.replace(c, n_layers=FRONTIER_GRAD_LAYERS),
+        rows=[("flash_attention_bwd[dh 128, group 6, InternVL2-26B train]", (b, 48, s, 128),
+               (b, 8, s, 128), 128, True, 4)]))
+
+
 def leaf_kind(path: str) -> str:
     """A gradient leaf's name with its layer indices dropped."""
     return "/".join(k for k in path.split("/") if not k.isdigit())
@@ -4100,8 +4427,8 @@ def share_summary(shares: dict) -> dict:
     return out
 
 
-def train_step_busy(model, state, tokens, in_place: bool = False) -> dict:
-    """One more train step of ``model`` from ``state`` on ``tokens`` under
+def train_step_busy(model, state, batch: dict, in_place: bool = False) -> dict:
+    """One more train step of ``model`` from ``state`` on ``batch`` under
     ``torch.profiler`` (``in_place``: written over ``state``): the sum of
     its kernels' device time over the step's host seconds (the profiler's
     own overhead makes the share a lower bound; the sum holds the
@@ -4115,14 +4442,14 @@ def train_step_busy(model, state, tokens, in_place: bool = False) -> dict:
     from repro_torch.runtime import build_train_step
 
     step = build_train_step(model, AdamWConfig(), in_place=in_place)
-    filler = torch.zeros(1, device=tokens.device)
+    filler = torch.zeros(1, device=batch["tokens"].device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_FILLER):
             filler.add_(1)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        state, _ = step(state, {"tokens": tokens})
+        state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     del state
@@ -4232,18 +4559,20 @@ def examples_phase(dev) -> list[dict]:
     (q, k, v), kw = kept.pop("call")
     tr, train_launches = EXAMPLE_TRAIN, launches_of["train_lm"]
     mb = tr["batch"] // tr["microbatches"]
-    require(q.shape == (mb, tr["heads"], tr["seq"], 64)
-            and k.shape == v.shape == (mb, tr["heads"] // 4, tr["seq"], 64)
+    dh = tr["d_model"] // tr["heads"]
+    require(dh == 96 and q.shape == (mb, tr["heads"], tr["seq"], dh)
+            and k.shape == v.shape == (mb, tr["heads"] // 4, tr["seq"], dh)
             and q.dtype == torch.bfloat16 and kw["causal"],
             f"train_lm's K4 call: q {tuple(q.shape)} {q.dtype}, {kw}")
     fwd_row, fwd_checks = k4_served_row(
-        dev, "flash_attention[dh 64, group 4, train_lm example]", (q, k, v), kw,
+        dev, "flash_attention[dh 96, group 4, train_lm example]", (q, k, v), kw,
         train_launches["flash_attention"], "a layer's q, k, v of the last train step")
     fwd_row["launches_per_step"] = EXAMPLE_TRAIN_K4
     do = torch.randn(q.shape, device=dev).bfloat16()
     bwd_row, bwd_checks = k4_bwd_row(
         dev, (q, k, v), do, train_launches["flash_attention_bwd"], EXAMPLE_TRAIN_K4 // 2,
-        name="flash_attention_bwd[dh 64, group 4, train_lm example]")
+        name="flash_attention_bwd[dh 96, group 4, train_lm example]",
+        what="a layer's q, k, v of the last train step")
     emit("examples", seconds=seconds,
          k4_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in fwd_checks.items()},
          k4_bwd_vs_float64={w_: [c["err_o"], c["share_o"]] for w_, c in bwd_checks.items()},
@@ -4720,6 +5049,12 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         kernels.append(phase(dev))
+    # the MoE, MLA and frontend families, each model freed before the next
+    for phase in (train_qwen2_moe_a2_7b_phase, train_deepseek_v2_lite_16b_phase,
+                  train_whisper_small_phase, train_internvl2_26b_phase):
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.extend(phase(dev))
     # the examples, each through its user's entry point, everything before freed
     gc.collect()
     torch.cuda.empty_cache()

@@ -5,7 +5,8 @@
 // Replaces the Pallas kernel repro/kernels/flash_attention.py:flash_attention
 // (and the GQA expansion of repro/kernels/ops.py:attention). The function is
 // the Pallas kernel's, step for step:
-//   s = (q . k^T in fp32) * scale, scale = 1 / sqrt(dh), masked with -1e30
+//   s = (q . k^T in fp32) * scale (1 / sqrt(dh), passed in: a call the wrapper
+//       zero-pads keeps its unpadded width's), masked with -1e30
 //       (key > query, or past the end of the keys);
 //   m, l, acc in fp32; per kv tile m' = max(m, rowmax s), p = exp(s - m'),
 //   corr = exp(m - m'), l = l corr + rowsum p (the unrounded p),
@@ -47,10 +48,13 @@
 //     over the 4 threads of a row by shuffles; exp(x) is ex2.approx of
 //     x log2 e (relative error under 2^-21), inside the 2^-16 fp32 term of
 //     the kernel's limit against its float64 oracle.
-// Built for (dh, dv) in (16, 16), (64, 64), (112, 112) (Zamba2-7B's shared
-// attention), (128, 128) (every dense config) and (192, 128)
-// (DeepSeek-V2-Lite's MLA). Its staging, descriptors, products and ring
-// barriers are in csrc/wgmma_bf16.cuh, shared with the backward.
+// Built for (dh, dv) in (16, 16), (64, 64), (96, 96) (the train_lm
+// example's ~100M configuration: 768 over 8 heads), (112, 112) (Zamba2-7B's
+// shared attention), (128, 128) (every dense config) and (192, 128)
+// (DeepSeek-V2-Lite's MLA); the wrapper zero-pads any other width up to
+// (192, 128) to the smallest of these that covers it and passes the true
+// width's scale. Its staging, descriptors, products and ring barriers are in
+// csrc/wgmma_bf16.cuh, shared with the backward.
 //
 // The fp32 kernel (flash_fwd) keeps fp32 FMA: tensor cores would need
 // TF32, which the fp32 path's limits refuse; nothing on the serving path
@@ -494,6 +498,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                  {vsb, vsh, vss}, H, H / KV, Sq, Skv, causal, scale};
   if (dh == 16 && dv == 16) return launch<16, 16>(p, B, bf16, stream);
   if (dh == 64 && dv == 64) return launch<64, 64>(p, B, bf16, stream);
+  if (dh == 96 && dv == 96) return launch<96, 96>(p, B, bf16, stream);
   if (dh == 112 && dv == 112) return launch<112, 112>(p, B, bf16, stream);
   if (dh == 128 && dv == 128) return launch<128, 128>(p, B, bf16, stream);
   if (dh == 192 && dv == 128) return launch<192, 128>(p, B, bf16, stream);

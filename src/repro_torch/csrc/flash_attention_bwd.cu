@@ -789,6 +789,10 @@ int launch_typed(const Params& p, int B, int bf16_in, void* stream) {
 // axis and 16-byte aligned rows; o: the forward's contiguous output; lse
 // and delta: contiguous fp32 (B, H, Sq), delta scratch; dq, dk, dv:
 // contiguous, written whole. bf16 != 0: bfloat16 tensors, else float32.
+// (dh, dv) one of the forward's six compiled pairs, (96, 96) among them (dh
+// + dv = 192: NQ and NK 64, as at (112, 112)); the wrapper zero-pads any
+// other width to the smallest pair that covers it, and passes the true
+// width's scale, so the padded columns of dq, dk and dv come out 0.
 // Three launches (delta, dk/dv, dq) on `stream`.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse,
@@ -807,6 +811,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                  H, KV, H / KV, Sq, Skv, causal, scale};
   if (dh == 16 && dvw == 16) return launch_typed<16, 16>(p, B, bf16, stream);
   if (dh == 64 && dvw == 64) return launch_typed<64, 64>(p, B, bf16, stream);
+  if (dh == 96 && dvw == 96) return launch_typed<96, 96>(p, B, bf16, stream);
   if (dh == 112 && dvw == 112) return launch_typed<112, 112>(p, B, bf16, stream);
   if (dh == 128 && dvw == 128) return launch_typed<128, 128>(p, B, bf16, stream);
   if (dh == 192 && dvw == 128) return launch_typed<192, 128>(p, B, bf16, stream);

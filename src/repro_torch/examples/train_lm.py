@@ -16,17 +16,15 @@ The model is a dense decoder scaled from ``--arch`` by ``--d-model``,
 ``--layers``, ``--heads`` (kv heads a quarter of them), ``--d-ff`` and
 ``--vocab``, with ``--heads`` setting the head width. On the card a
 sequence over 1,024 tokens takes its attention, forward and gradient,
-through K4 and K4' (``csrc/flash_attention.cu``, ``flash_attention_bwd.cu``),
-which take the head widths of ``kernels/flash_attention.py:WIDTHS``. The
-reference's "~100M configuration" (``--d-model 768 --layers 12``) keeps 8
-heads, a width of 96 that K4 refuses; the card configuration is
+through K4 and K4' (``csrc/flash_attention.cu``, ``flash_attention_bwd.cu``).
+The reference's "~100M configuration" runs there as its README gives it,
+with the default 8 heads (two kv heads) of 96, a width K4 is compiled for:
 
     PYTHONPATH=src python -m repro_torch.examples.train_lm --d-model 768 --layers 12 \
-        --heads 12 --seq 2048 --batch 8 --microbatches 4 --steps 20
+        --seq 2048 --batch 8 --microbatches 4 --steps 20
 
-58,608,384 parameters, head width 64 (12 heads over 3 kv heads, group 4),
-2,048 tokens a row so that K4 runs. On the CPU (the kernels' plain
-versions), a small model:
+58,608,384 parameters, 2,048 tokens a row so that K4 runs. On the CPU
+(the kernels' plain versions), a small model:
 
     PYTHONPATH=src python -m repro_torch.examples.train_lm --torch-device cpu \
         --d-model 64 --layers 2 --heads 4 --d-ff 128 --vocab 512 --seq 32 --steps 6 --lr 3e-3

@@ -623,12 +623,16 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 # every (dh, dv) the kernel is built for (kernels/flash_attention.py:WIDTHS)
-FLASH_WIDTHS = [(16, 16), (64, 64), (112, 112), (128, 128), (192, 128)]
+FLASH_WIDTHS = [(16, 16), (64, 64), (96, 96), (112, 112), (128, 128), (192, 128)]
+# widths off the compiled pairs, zero-padded to the pair covering them:
+# DeepSeek-V2-Lite's reduced MLA (24, 16) onto (64, 64), an odd (80, 80)
+# onto (96, 96)
+PADDED_WIDTHS = [(24, 16), (80, 80)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh,dv", FLASH_WIDTHS)
+@pytest.mark.parametrize("dh,dv", FLASH_WIDTHS + PADDED_WIDTHS)
 @pytest.mark.parametrize("group", [1, 4, 7])
 def test_flash_attention_matches_plain(cuda, dtype, causal, dh, dv, group):
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -665,10 +669,14 @@ def test_flash_attention_strided_views_and_offset(cuda):
         got = flash_attention(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal, tile_k=64)
         torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
-    with pytest.raises(ValueError, match="dh in"):
-        flash_attention(q[..., :32], k[..., :32], v[..., :32])
-    with pytest.raises(ValueError, match=r"\(dh, dv\) one of"):
-        flash_attention(q, k, v[..., :48])
+        # widths off the compiled pairs: zero-padded copies of the views
+        for qq, kk, vv in ((q[..., :32], k[..., :32], v[..., :32]), (q, k, v[..., :48])):
+            got = flash_attention(qq, kk, vv, causal=causal)
+            want = flash_attention_plain(qq, kk, vv, causal=causal, tile_k=64)
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    wide = torch.zeros((2, 8, 128, 200), device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP B0"):
+        flash_attention(wide, wide[:, :2], wide[:, :2, :, :64])
     with pytest.raises(ValueError, match="one dtype"):
         flash_attention(q, k.bfloat16(), v)
 
@@ -692,7 +700,7 @@ def test_flash_attention_bf16_runs_on_tensor_cores(cuda):
     funcs = re.split(r"\n\s*Function : ", sass)
     wgmma = [f for f in funcs if "flash_wgmma" in f.split("\n", 1)[0]]
     fp32 = [f for f in funcs if "flash_fwd" in f.split("\n", 1)[0]]
-    assert len(wgmma) == 5 and len(fp32) == 5
+    assert len(wgmma) == len(FLASH_WIDTHS) and len(fp32) == len(FLASH_WIDTHS)
     assert all("HGMMA" in f for f in wgmma)
     assert not any("HGMMA" in f or "HMMA" in f for f in fp32)
 
@@ -701,11 +709,11 @@ def test_flash_attention_bf16_runs_on_tensor_cores(cuda):
     bwd = smoke.sass_functions(_build.FLASH_ATTENTION_BWD)
     bwd_wgmma = [f for f in bwd if "_wgmma" in f.split("\n", 1)[0]]
     bwd_fp32 = [f for f in bwd if re.search(r"bwd_(dkdv|dq)I", f.split("\n", 1)[0])]
-    assert len(bwd_wgmma) == 10 and len(bwd_fp32) == 10
+    assert len(bwd_wgmma) == 2 * len(FLASH_WIDTHS) and len(bwd_fp32) == 2 * len(FLASH_WIDTHS)
     assert all("HGMMA" in f for f in bwd_wgmma)
     assert not any("HGMMA" in f or "HMMA" in f for f in bwd_fp32)
     kernels = smoke.k4_bwd_kernels()
-    assert len(kernels) == 10
+    assert len(kernels) == 2 * len(FLASH_WIDTHS)
     assert all(hgmma and stack == 0 and local == 0
                for _, stack, local, hgmma in kernels.values()), kernels
 
@@ -1720,11 +1728,12 @@ def _k4_grad_inputs(cuda, dtype, dh, dv, s, seed, b=1, kv=2, group=7):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh,dv", FLASH_WIDTHS)
+@pytest.mark.parametrize("dh,dv", FLASH_WIDTHS + PADDED_WIDTHS)
 @pytest.mark.parametrize("group", [1, 7])
 def test_flash_attention_bwd_against_float64_and_plain(cuda, dtype, causal, dh, dv, group):
     """K4's backward kernels (bf16 on wgmma, fp32 on FMA), GQA group 7 and
-    1 over 1,100 keys (the last 32-, 64- and 128-key tiles partial), on the
+    1 over 1,100 keys (the last 32-, 64- and 128-key tiles partial), at
+    every compiled pair and at two widths off them (padded), on the
     forward kernel's own output and LSE: within ``chip_smoke.
     k4_grad_oracle``'s per-entry limit of a float64 gradient of the same
     inputs (in bf16 with the term for P and dS rounded as operands); within
@@ -1752,6 +1761,76 @@ def test_flash_attention_bwd_against_float64_and_plain(cuda, dtype, causal, dh, 
         assert smoke.beyond(g, exact, lim)[0] == 0, f"{name} vs float64"
         assert smoke.beyond(g, p, lim_plain)[0] == 0, f"{name} vs plain"
     no_d = flash_attention_bwd(q, k, v, torch.zeros_like(out), dout, lse, causal)
+    assert sum(smoke.beyond(g, oracle[n][0], oracle[n][1])[0]
+               for n, g in zip(("dq", "dk"), no_d)) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh,dv", PADDED_WIDTHS)
+def test_flash_attention_padded_route_launches_the_kernels(cuda, dtype, causal, dh, dv):
+    """Off the compiled pairs (ROADMAP B0) K4 and K4' launch their kernels
+    once a call each, on q, k and v zero-padded to the pair covering them
+    (``compiled_widths``), the copies counted in ``PAD_COPIES``, never a
+    plain fallback; the output, sliced back to dv and contiguous, within
+    ``chip_smoke.k4_check``'s float64 limit at the true width's scale
+    (the gradients: ``test_flash_attention_bwd_against_float64_and_plain``)."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    smoke = _smoke()
+    q, k, v, dout = _k4_grad_inputs(cuda, dtype, dh, dv, 1100, dh + dv + int(causal))
+    f0 = _build.FLASH_ATTENTION.launches["flash_attention"]
+    b0 = _build.FLASH_ATTENTION_BWD.launches["flash_attention_bwd"]
+    pads = tfa.PAD_COPIES["q"]
+    out, lse = tfa._forward(q, k, v, causal, with_lse=True)
+    grads = tfa.flash_attention_bwd(q, k, v, out, dout, lse, causal)
+    torch.cuda.synchronize()
+    assert _build.FLASH_ATTENTION.launches["flash_attention"] == f0 + 1
+    assert _build.FLASH_ATTENTION_BWD.launches["flash_attention_bwd"] == b0 + 1
+    assert tfa.PAD_COPIES["q"] == pads + 2
+    assert out.shape == (*q.shape[:3], dv) and out.is_contiguous()
+    assert all(g.is_contiguous() for g in grads)
+    mask = (torch.arange(1100, device=cuda)[:, None]
+            >= torch.arange(1100, device=cuda)[None, :]) if causal else None
+    g = q.shape[1] // k.shape[1]
+    k64 = k[0].double().repeat_interleave(g, dim=0)
+    v64 = v[0].double().repeat_interleave(g, dim=0)
+    s = (q[0].double() @ k64.transpose(1, 2)) / math.sqrt(dh)
+    w = torch.softmax(s if mask is None else s.masked_fill(~mask, -1e30), dim=-1)
+    o, wv = w @ v64, w @ v64.abs()
+    u = smoke.K4_ULP if dtype == torch.bfloat16 else 2.0 ** -24
+    assert smoke.beyond(out[0], o, u * (o.abs() + wv) + smoke.K4_FP32 * wv)[0] == 0
+
+
+@pytest.mark.parametrize("sq,skv", [(1500, 1500), (2048, 1500)])
+def test_flash_attention_bwd_encoder_and_cross_shapes(cuda, sq, skv):
+    """K4' non-causal at Whisper-small's training shapes, bf16, 12 heads of
+    64: the encoder's 1,500 frames against themselves and the cross
+    attention's 2,048 queries against 1,500 keys; within
+    ``k4_grad_oracle``'s float64 limit and its limit against the plain
+    backward, the same bits twice, and the no-D control beyond the float64
+    limit somewhere."""
+    from repro_torch.kernels.flash_attention import (_forward, flash_attention_bwd,
+                                                     flash_attention_bwd_plain)
+
+    smoke = _smoke()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sq + skv)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=cuda).bfloat16()
+                     for shape in ((1, 12, sq, 64), (1, 12, skv, 64), (1, 12, skv, 64),
+                                   (1, 12, sq, 64)))
+    out, lse = _forward(q, k, v, False, with_lse=True)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, False)
+    again = flash_attention_bwd(q, k, v, out, dout, lse, False)
+    plain = flash_attention_bwd_plain(q, k, v, out, dout, lse, False, tile_k=750)
+    oracle = smoke.k4_grad_oracle(q, k, v, dout, False)
+    for name, g, a, p in zip(("dq", "dk", "dv"), got, again, plain):
+        exact, lim, lim_plain = oracle[name]
+        assert g.shape == exact.shape, name
+        assert torch.equal(g, a), f"{name} differs between two calls"
+        assert smoke.beyond(g, exact, lim)[0] == 0, f"{name} vs float64"
+        assert smoke.beyond(g, p, lim_plain)[0] == 0, f"{name} vs plain"
+    no_d = flash_attention_bwd(q, k, v, torch.zeros_like(out), dout, lse, False)
     assert sum(smoke.beyond(g, oracle[n][0], oracle[n][1])[0]
                for n, g in zip(("dq", "dk"), no_d)) > 0
 
@@ -2099,6 +2178,61 @@ def test_reduced_dense_train_step_on_the_card_through_k4(cuda):
     assert float(metrics["loss"]) == float(loss_k)
     shares = smoke.grad_shares(g_k, g_p)
     assert max(shares.values()) <= 1.0, max(shares.items(), key=lambda kv: kv[1])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b",
+                                  "whisper-small", "internvl2-26b"])
+def test_reduced_frontier_train_step_on_the_card_through_k4(cuda, arch):
+    """One ``build_train_step`` step of the reduced Qwen1.5-MoE,
+    DeepSeek-V2-Lite (MLA at its reduced widths, (24, 16), through K4's
+    padded route), Whisper-small (encoder over 1,500 frames, so K4 runs
+    there too) or InternVL2-26B (8 patch embeddings, group 4) over 2 x
+    1,088 tokens on the card: K4 twice and K4' once a K4 call of a forward
+    (``chip_smoke.attention_calls``), the new params finite; then the
+    smoke's first-step check (``first_step_grad_check``): the loss within
+    1e-2 and each gradient leaf within TRAIN_GRAD_TOL of the same step
+    through K4's plain pair, the MoE models' plain run replaying the K4
+    run's routing, and the detached-attention control beyond the limit."""
+    from repro_torch.configs.base import EncDecConfig
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import Model
+    from repro_torch.models.model import FRONTEND_DIM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import build_train_step, init_train_state
+
+    smoke = _smoke()
+    cfg = get_config(arch).reduced()
+    if cfg.encdec is not None:
+        cfg = dataclasses.replace(cfg, encdec=EncDecConfig(n_enc_layers=2,
+                                                           n_enc_positions=1500))
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 1089), dtype=np.int32)).to(cuda)}
+    if cfg.frontend == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, 1500, FRONTEND_DIM["audio"]), dtype=np.float32)).to(cuda)
+    elif cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_frontend_tokens, FRONTEND_DIM["vision"]), dtype=np.float32)).to(cuda)
+    model = Model(cfg)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    state = init_train_state(model, gen, AdamWConfig())
+    n = smoke.attention_calls(cfg)
+    f0 = _build.FLASH_ATTENTION.launches["flash_attention"]
+    b0 = _build.FLASH_ATTENTION_BWD.launches["flash_attention_bwd"]
+    pads = tfa.PAD_COPIES["q"]
+    new, metrics = build_train_step(model, AdamWConfig())(state, batch)
+    torch.cuda.synchronize()
+    assert _build.FLASH_ATTENTION.launches["flash_attention"] == f0 + 2 * n
+    assert _build.FLASH_ATTENTION_BWD.launches["flash_attention_bwd"] == b0 + n
+    assert (tfa.PAD_COPIES["q"] > pads) == (cfg.mla is not None)
+    assert math.isfinite(float(metrics["loss"]))
+    assert all(bool(torch.isfinite(t).all()) for t in smoke.tree_paths(new.params).values())
+    del new, state
+    grad, _ = smoke.first_step_grad_check(cuda, cfg, batch, smoke.k4_checked())
+    assert grad["launches"] == {"flash_attention": 2 * n, "flash_attention_bwd": n}
+    assert grad["worst"][1] <= 1.0 and grad["detached_control_worst"][1] > 1.0
 
 
 # ---------------------------------------------------------------------------
